@@ -1,0 +1,7 @@
+from chamjax_torch.index.kmeans import (  # noqa: F401
+    kmeans, assign as kmeans_assign, assign_balanced,
+)
+from chamjax_torch.index.pq import (  # noqa: F401
+    train_pq, pq_encode, pq_decode, train_opq,
+)
+from chamjax_torch.index.ivf import PackedIVF, build_ivfpq  # noqa: F401

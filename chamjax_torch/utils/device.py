@@ -1,0 +1,31 @@
+"""Device resolution shared by the entry points."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means ``"cuda"``.  Raises when the resolved device is a card
+    and none is present: an entry point never carries on on the CPU unless
+    the caller asked for it with ``device="cpu"``."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "chamjax_torch: no CUDA device is available; pass "
+                "device='cpu' to run on the CPU explicitly")
+        if dev.index is None:      # pin "cuda" to the current card
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def as_f32(x, device: torch.device) -> torch.Tensor:
+    """numpy array or tensor → contiguous float32 tensor on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32).contiguous()
+    a = np.ascontiguousarray(x, np.float32)
+    if not a.flags.writeable:      # torch wants writable host memory
+        a = a.copy()
+    return torch.from_numpy(a).to(device)
