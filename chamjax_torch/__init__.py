@@ -7,13 +7,16 @@ Module names mirror ``chamjax/`` so each counterpart is easy to find:
 - ``chamjax_torch.index``   — k-means, PQ/OPQ training and the packed
   IVF-PQ layout (reads and writes the JAX package's npz format).
 - ``chamjax_torch.ops``     — coarse scan, LUT construction, window
-  expansion, the ADC list scan (a hand-written CUDA kernel for the tiled
-  layout, ``csrc/adc_scan_tiles.cu``) and top-k selection.
+  expansion, the ADC list scans (hand-written CUDA kernels: the tiled
+  layout, ``csrc/adc_scan_tiles.cu``; the flat layout and the padded
+  window, ``csrc/adc_scan_flat.cu``) and top-k selection.
 - ``chamjax_torch.searcher`` — ``DeviceIVF`` and ``IVFSearcher``.
+- ``chamjax_torch.streamed`` — ``HostStreamedSearcher``: codes and ids in
+  host memory, each batch's probed windows staged to the card.
 
 The package imports ``torch`` and ``numpy`` only; it never imports ``jax``
-or ``chamjax``.  Entry points (``IVFSearcher``, ``build_ivfpq``,
-``compute_ground_truth``, ``DeviceIVF.from_packed``) run on the card unless
+or ``chamjax``.  Entry points (``IVFSearcher``, ``HostStreamedSearcher``,
+``build_ivfpq``, ``compute_ground_truth``, ``DeviceIVF.from_packed``) run on the card unless
 the caller passes ``device="cpu"``; with no card and no explicit CPU device
 they raise.
 """

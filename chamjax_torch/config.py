@@ -78,10 +78,12 @@ class SearchConfig:
     approx_recall_target: float = 0.9
     # Distance compute dtype ("float32" | "bfloat16").
     dtype: str = "float32"
-    # Scan backend: "seg" (segmented scan over the tiled layout, the CUDA
-    # kernel), "pallas" (not ported) or "xla" (plain torch gather scan).
+    # Scan backend: "seg" (segmented window scan, a CUDA kernel), "pallas"
+    # (padded-window scan of scan_len rows per probe, a CUDA kernel) or
+    # "xla" (plain torch gather scan).
     backend: str = "seg"
-    # Code-tile width of the "pallas" backend; 0 = auto.
+    # DMA chunk of the JAX package's "pallas" kernel; 0 = auto.  Carried,
+    # not needed by the CUDA kernel.
     tile: int = 0
     # Segmented backend: static per-query window budget (0 = auto-sized from
     # the index's list-length distribution, IVFSearcher._auto_windows).
@@ -105,6 +107,6 @@ class SearchConfig:
     # seg_group > 1): selection sees W·128 candidates instead of W·seg.
     lane_l1: bool = False
     # Seg backend: codes seg-tiled ((n_tiles, m, seg), every list on a tile
-    # boundary).  The port's seg backend needs it (the flat-layout kernels
-    # are not ported yet).
+    # boundary) as a second device copy; False scans the flat layout alone
+    # (less device memory).  The host-streamed tier reads it too.
     tiled: bool = True

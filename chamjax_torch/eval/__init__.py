@@ -1,1 +1,2 @@
 from chamjax_torch.eval.recall import recall_at_k  # noqa: F401
+from chamjax_torch.eval.ties import tie_mismatches  # noqa: F401

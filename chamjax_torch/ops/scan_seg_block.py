@@ -14,17 +14,12 @@ from typing import Tuple
 
 import torch
 
-from chamjax_torch.ops.scan_seg import LANES, expand_windows, prepare_luts
-from chamjax_torch.ops.topk import select_topk
+from chamjax_torch.ops.scan_seg import (LANES, adc_windows_reference,
+                                        expand_windows, prepare_luts,
+                                        select_rows, select_rows_lane_l1)
 from chamjax_torch.utils import cuda_lib
 
 _OUT_F32, _OUT_BF16, _OUT_LANE_L1 = 0, 1, 2
-
-
-def _wrap_int32(u: torch.Tensor) -> torch.Tensor:
-    """int64 tensor holding 32-bit patterns in [0, 2^32) → int32 with the
-    same bits (two's complement), without relying on overflow behaviour."""
-    return torch.where(u >= 2 ** 31, u - 2 ** 32, u).to(torch.int32)
 
 
 def adc_scan_tiles_reference(
@@ -39,33 +34,12 @@ def adc_scan_tiles_reference(
     lane_l1: bool = False,
     dist_bf16: bool = False,
 ) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: a gather, a sum over m in fp32
-    and a mask.  Same contract as :func:`adc_scan_tiles`."""
-    bw = tile_idx.shape[0]
-    codes = codes_tiled[tile_idx.long()].long()           # (bW, m, seg)
-    lut = luts[lut_idx.long()]                            # (bW, m, ksub)
-    if lut_bf16:
-        v = torch.gather(lut, 2, codes >> 1).long() & 0xFFFFFFFF
-        bits = torch.where((codes & 1) == 1, v & 0xFFFF0000,
-                           (v << 16) & 0xFFFFFFFF)
-        g = _wrap_int32(bits).view(torch.float32)
-    else:
-        g = torch.gather(lut, 2, codes)
-    dist = g.sum(dim=1)                                   # (bW, seg)
-    pos = torch.arange(seg, device=dist.device)
-    inf = torch.full_like(dist, float("inf"))
-    dist = torch.where(pos[None, :] < lens[:, None], dist, inf)
-    if lane_l1:
-        rows = dist.reshape(bw, seg // LANES, LANES)
-        best = torch.full((bw, LANES), float("inf"), device=dist.device)
-        best_t = torch.zeros((bw, LANES), dtype=torch.int32,
-                             device=dist.device)
-        for t in range(seg // LANES):
-            take = rows[:, t] < best          # strict: first group wins ties
-            best = torch.where(take, rows[:, t], best)
-            best_t = torch.where(take, torch.full_like(best_t, t), best_t)
-        return torch.stack([best, best_t.view(torch.float32)], dim=1)
-    return dist.to(torch.bfloat16) if dist_bf16 else dist
+    """Plain version of the kernel: a gather, a sum over m in fp32 and a
+    mask.  Same contract as :func:`adc_scan_tiles`."""
+    dist = adc_windows_reference(
+        codes_tiled[tile_idx.long()], luts[lut_idx.long()], lens,
+        lut_bf16=lut_bf16, lane_l1=lane_l1)
+    return dist.to(torch.bfloat16) if dist_bf16 and not lane_l1 else dist
 
 
 def _check_inputs(codes_tiled, tile_idx, lens, lut_idx, luts, *, seg, group,
@@ -212,24 +186,9 @@ def scan_lists_seg_block(
         lens.reshape(-1).contiguous(), lut_idx, luts_k, seg=seg, group=group,
         lut_bf16=lut_bf16, lane_l1=lane_l1,
         dist_bf16=dist_bf16 and not lane_l1)
+    sel = dict(k=k, use_approx=use_approx, recall_target=recall_target,
+               select_l1=select_l1)
     if lane_l1:
-        flat = dists[:, 0, :].reshape(b, windows * LANES)
-        tile_sel = dists[:, 1, :].contiguous().view(torch.int32).reshape(
-            b, windows * LANES)
-        best_d, pos = select_topk(flat, k, use_approx=use_approx,
-                                  recall_target=recall_target, l1=select_l1)
-        pos = pos.long()
-        t_sel = torch.gather(tile_sel, 1, pos).long()
-        row = (torch.gather(starts.long(), 1, pos // LANES)
-               + t_sel * LANES + pos % LANES)
-    else:
-        flat = dists.reshape(b, windows * seg)
-        best_d, pos = select_topk(flat, k, use_approx=use_approx,
-                                  recall_target=recall_target, l1=select_l1)
-        best_d = best_d.to(torch.float32)
-        pos = pos.long()
-        row = torch.gather(starts.long(), 1, pos // seg) + pos % seg
-    best_i = ids[row]
-    best_i = torch.where(torch.isfinite(best_d), best_i,
-                         torch.full_like(best_i, -1))
-    return best_d, best_i
+        return select_rows_lane_l1(dists, starts, ids, **sel)
+    return select_rows(dists.reshape(b, windows * seg), starts, ids,
+                       width=seg, **sel)

@@ -1,9 +1,12 @@
 """End-to-end IVF-PQ search (the port of ``chamjax/searcher.py``).
 
 The query path — OPQ rotation → coarse scan → LUT construction → window
-expansion → ADC scan over the seg-tiled codes (the CUDA kernel of
-``csrc/adc_scan_tiles.cu``) → top-k → row→id map — runs on one device,
-with no host round trip between the stages.
+expansion → ADC scan → top-k → row→id map — runs on one device, with no
+host round trip between the stages.  The scan routes: ``backend="seg"``
+over the seg-tiled twin (``csrc/adc_scan_tiles.cu``) or, without one, over
+the flat layout (``csrc/adc_scan_flat.cu``, ``group > 1`` multi-window,
+``group == 1`` single-window); ``backend="pallas"``, the padded-window scan
+(``adc_scan_flat.cu`` too); ``backend="xla"``, the plain torch oracle.
 """
 
 from __future__ import annotations
@@ -19,10 +22,14 @@ from chamjax_torch.config import SearchConfig
 from chamjax_torch.index.ivf import PackedIVF
 from chamjax_torch.ops.coarse import select_probes
 from chamjax_torch.ops.lut import build_luts
-from chamjax_torch.ops.scan_seg import MAX_SEG, WINDOW_FIXED_ROWS
+from chamjax_torch.ops.scan_pallas import (GROUP, resolve_chunk,
+                                           scan_lists_pallas)
+from chamjax_torch.ops.scan_seg import (MAX_SEG, WINDOW_FIXED_ROWS,
+                                        scan_lists_seg)
 from chamjax_torch.ops.scan_seg_block import scan_lists_seg_block
+from chamjax_torch.ops.scan_seg_multi import scan_lists_seg_multi
 from chamjax_torch.ops.scan_xla import scan_lists_xla
-from chamjax_torch.utils.device import resolve_device
+from chamjax_torch.utils.device import as_f32, resolve_device
 from chamjax_torch.utils.precision import fp32_matmul
 
 
@@ -108,36 +115,46 @@ class DeviceIVF:
         )
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to chamjax_torch yet (ROADMAP.md, kernels "
-        f"queue: {item})")
-
-
 def _dispatch_scan(index: DeviceIVF, luts, list_ids, *, k, scan_len,
                    windows, seg, group, probe_chunk, use_approx,
-                   recall_target, backend, lut_bf16=False, select_l1=0,
+                   recall_target, backend, tile, lut_bf16=False, select_l1=0,
                    lane_l1=False, slot_major=True):
+    sel = dict(k=k, use_approx=use_approx, recall_target=recall_target)
+    flat = (index.codes_t, index.ids, index.list_start, index.list_len,
+            luts, list_ids)
     if backend == "seg":
         if (index.codes_tiled is not None
                 and index.codes_tiled.shape[2] == seg):
             return scan_lists_seg_block(
                 index.codes_tiled, index.ids, index.list_start,
                 index.list_len, luts, list_ids,
-                windows=windows, seg=seg, group=max(group, 1), k=k,
-                use_approx=use_approx, recall_target=recall_target,
+                windows=windows, seg=seg, group=max(group, 1),
                 lut_bf16=lut_bf16, select_l1=select_l1, lane_l1=lane_l1,
-                slot_major=slot_major)
-        raise _not_ported(
-            "the flat-layout seg scan (no tiled twin at this seg)",
-            "adc_scan_segments_multi / adc_scan_segments")
+                slot_major=slot_major, **sel)
+        if group > 1:
+            return scan_lists_seg_multi(
+                *flat, windows=windows, seg=seg, group=group,
+                lut_bf16=lut_bf16, select_l1=select_l1, lane_l1=lane_l1,
+                **sel)
+        return scan_lists_seg(*flat, windows=windows, seg=seg,
+                              lut_bf16=lut_bf16, select_l1=select_l1, **sel)
     if backend == "pallas":
-        raise _not_ported("backend='pallas'", "adc_scan_distances")
-    return scan_lists_xla(
-        index.codes_t, index.ids, index.list_start, index.list_len,
-        luts, list_ids,
-        scan_len=scan_len, probe_chunk=probe_chunk, k=k,
-        use_approx=use_approx, recall_target=recall_target)
+        return scan_lists_pallas(*flat, scan_len=scan_len, tile=tile, **sel)
+    return scan_lists_xla(*flat, scan_len=scan_len, probe_chunk=probe_chunk,
+                          **sel)
+
+
+def _pallas_or_xla(backend: str, scan_len: int) -> str:
+    """``backend``, or "xla" with a warning where the padded-window scan
+    cannot take ``scan_len``."""
+    if backend == "pallas" and scan_len % GROUP:
+        warnings.warn(
+            f"backend='pallas' needs scan_len % {GROUP} == 0 (the kernel's "
+            f"window is a whole number of {GROUP}-row groups); got "
+            f"scan_len={scan_len} — falling back to the xla scan",
+            stacklevel=3)
+        return "xla"
+    return backend
 
 
 @fp32_matmul()
@@ -175,11 +192,13 @@ def ivfpq_search(
     in-kernel per-(window, lane) min (seg backend, ``group > 1``).
     ``coarse_cand`` > 0 selects probes with the two-stage coarse scan.
     ``use_approx``/``recall_target``/``select_l1``/``coarse_approx`` keep
-    the JAX package's contract; selection is exact.  ``tile`` belongs to
-    the unported "pallas" backend.
+    the JAX package's contract; selection is exact.  ``tile`` is the
+    "pallas" backend's chunk (accepted, not needed on the card).  With
+    ``backend="pallas"`` and ``scan_len % 1024`` it warns and runs xla.
     """
     if backend == "seg" and windows <= 0:
         windows = 2 * nprobe       # conservative default; searcher sizes it
+    backend = _pallas_or_xla(backend, scan_len)
     q = _rotate(index, queries)
     list_ids, _ = select_probes(q, index.centroids, nprobe,
                                 coarse_cand=coarse_cand,
@@ -189,7 +208,7 @@ def ivfpq_search(
     return _dispatch_scan(
         index, luts, list_ids, k=k, scan_len=scan_len, windows=windows,
         seg=seg, group=group, probe_chunk=probe_chunk, use_approx=use_approx,
-        recall_target=recall_target, backend=backend,
+        recall_target=recall_target, backend=backend, tile=tile,
         lut_bf16=lut_bf16 and backend == "seg", select_l1=select_l1,
         lane_l1=lane_l1 and group > 1, slot_major=slot_major)
 
@@ -219,6 +238,7 @@ def ivfpq_search_preassigned(
     ``search_preassigned``)."""
     if backend == "seg" and windows <= 0:
         windows = 2 * nprobe
+    backend = _pallas_or_xla(backend, scan_len)
     q = _rotate(index, queries)
     luts = build_luts(q, index.centroids, index.codebooks, list_ids,
                       by_residual=by_residual)
@@ -226,8 +246,8 @@ def ivfpq_search_preassigned(
         index, luts, list_ids, k=k, scan_len=scan_len, windows=windows,
         seg=seg, group=group, probe_chunk=min(8, nprobe),
         use_approx=use_approx, recall_target=recall_target, backend=backend,
-        lut_bf16=lut_bf16 and backend == "seg", select_l1=select_l1,
-        lane_l1=lane_l1 and group > 1)
+        tile=tile, lut_bf16=lut_bf16 and backend == "seg",
+        select_l1=select_l1, lane_l1=lane_l1 and group > 1)
 
 
 def resolve_coarse_cand(cfg_cand: int, nlist: int, nprobe: int) -> int:
@@ -298,13 +318,11 @@ class IVFSearcher:
         self.scfg = search_cfg
         self.backend = search_cfg.backend
         self.tile = search_cfg.tile
-        if self.backend == "pallas":
-            raise _not_ported("backend='pallas'", "adc_scan_distances")
-        if self.backend == "seg" and index.cfg.nbits != 8:
+        if self.backend in ("pallas", "seg") and index.cfg.nbits != 8:
             warnings.warn(
-                f"backend='seg' kernels are specialized for 8-bit PQ; index "
-                f"has nbits={index.cfg.nbits} — using the xla scan",
-                stacklevel=2)
+                f"backend='{self.backend}' kernels are specialized for 8-bit "
+                f"PQ; index has nbits={index.cfg.nbits} — falling back to "
+                "the xla scan", stacklevel=2)
             self.backend = "xla"
         self.seg = search_cfg.seg or auto_seg(index.list_len)
         self.dev = DeviceIVF.from_packed(
@@ -319,6 +337,14 @@ class IVFSearcher:
         # never let a window run past the packed array's tail padding
         max_scan = index.n_pad - int(index.list_start.max())
         self.scan_len = min(self.scan_len, max_scan)
+        if self.backend == "pallas":
+            # whole GROUP-row groups: round up if the tail padding allows,
+            # else down (never below one group)
+            up = -(-self.scan_len // GROUP) * GROUP
+            self.scan_len = (up if up <= max_scan else
+                             max(GROUP, self.scan_len - self.scan_len % GROUP))
+            if self.tile == 0:
+                self.tile = resolve_chunk(self.scan_len, 0)
 
     def _auto_windows(self, nprobe: int) -> int:
         return auto_windows(self.packed.list_len, self.seg, nprobe)
@@ -328,8 +354,7 @@ class IVFSearcher:
                 else self._auto_windows(nprobe))
 
     def _queries(self, queries) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(queries, np.float32)).to(
-            self.device)
+        return as_f32(queries, self.device)   # any strides, e.g. xq[::-1]
 
     def search(self, queries: np.ndarray,
                nprobe: Optional[int] = None,
@@ -359,7 +384,7 @@ class IVFSearcher:
 
     def search_preassigned(self, queries: np.ndarray, list_ids: np.ndarray,
                            k: Optional[int] = None):
-        li = torch.as_tensor(np.asarray(list_ids, np.int32)).to(self.device)
+        li = torch.from_numpy(np.array(list_ids, np.int32)).to(self.device)
         np_ = li.shape[1]
         d, i = ivfpq_search_preassigned(
             self.dev, self._queries(queries), li,

@@ -26,15 +26,23 @@ from typing import Dict, Iterable
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-SOURCES = ("adc_scan_tiles",)
+SOURCES = ("adc_scan_tiles", "adc_scan_flat")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_VP, _I = ctypes.c_void_p, ctypes.c_int
+_VP, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # (argtypes, restype) of each library's C entry points
 SIGNATURES = {
     "adc_scan_tiles": {
         "chamjax_adc_scan_tiles": ([_VP] * 6 + [_I] * 5 + [_VP], _I),
+    },
+    "adc_scan_flat": {
+        "chamjax_adc_scan_segments_multi": (
+            [_VP, _I64] + [_VP] * 5 + [_I] * 5 + [_VP], _I),
+        "chamjax_adc_scan_segments": (
+            [_VP, _I64] + [_VP] * 5 + [_I] * 4 + [_VP], _I),
+        "chamjax_adc_scan_distances": (
+            [_VP, _I64] + [_VP] * 4 + [_I] * 3 + [_VP], _I),
     },
 }
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of chamjax_torch on one NVIDIA card: builds the CUDA kernels
 from ``chamjax_torch/csrc``, holds each against its plain PyTorch version,
-then drives the IVF-PQ query path at the 1M flagship size.
+then drives every scan route of the IVF-PQ query path at the 1M flagship
+size.
 
     python3 chip_smoke.py
 
@@ -9,11 +10,19 @@ Phases (any failure exits non-zero and prints no result):
 
 1. Build the kernels (one ``nvcc`` per source, started together); print the
    card's name and power limit.
-2. Kernel vs plain version at the flagship shape (m=16, seg=512,
-   bW=4096 windows over 4096 random tiles, some windows empty, some
-   partial) for four option sets: f32 LUT, packed-bf16 LUT, bf16 distance
-   output, and the in-kernel lane-L1 reduction.  Each is timed with CUDA
-   events (median of 30) beside its plain version and its bound.
+2. Kernels vs plain versions, each timed with CUDA events (median of 30)
+   beside its plain version and its bound:
+   - ``adc_scan_tiles`` at the flagship shape (m=16, seg=512, bW=4096
+     windows over 4096 random tiles, some windows empty, some partial) for
+     four option sets: f32 LUT, packed-bf16 LUT, bf16 distance output, and
+     the in-kernel lane-L1 reduction;
+   - ``adc_scan_segments_multi`` (f32, packed, lane_l1) and
+     ``adc_scan_segments`` (f32, packed) over a flat layout the size of the
+     flagship's (16 x ~1.05M u8), bW=4096 windows of seg 512 whose starts
+     are multiples of 64, some empty, some partial;
+   - ``adc_scan_distances`` at the shape of ``configs/vector_search.yaml``
+     (IVF1024 over 1M: lists of ~1k rows with a tail), bp=4096, scan_len
+     4096, list lengths from 0 to above scan_len.
 3. The main path: ``synthetic_dataset`` (1M x 128, 4096 clusters, seed 42)
    → ``build_ivfpq`` (OPQ16 + IVF4096 + PQ16, hard-balanced) →
    ``compute_ground_truth`` (256 queries) → ``IVFSearcher.search``
@@ -21,7 +30,21 @@ Phases (any failure exits non-zero and prints no result):
    checked against the same index searched by the plain ``xla`` backend;
    the kernel's launch count must rise during the search.  Times a
    b=128 and a b=1 search and the stages of a b=128 search.
-4. Print the kernels line, the main-path line, and the result line.
+4. The other routes on the same index, each run over the 256 recall
+   queries with the launch counts set to 0 just before and read just
+   after (its kernel must have launched): the flat layout (``tiled=False``)
+   at group 8 and group 1 and ``backend="pallas"`` with f32 LUTs, each
+   within 0.002 R@10 of the xla oracle and equal to the tiled f32 route
+   except in the order of distance ties (``tie_mismatches``); flat group 8
+   with packed-bf16 LUTs within 0.01 of the oracle; ``HostStreamedSearcher``
+   with ``tiled`` True and False, each equal to the resident search up to
+   the order of ties, at the same R@10.  Each route's kernel is held
+   against its plain version on one real batch; b=128 and b=1 searches are timed on
+   the flat and pallas routes; ``search_pipelined`` over the 65 remaining
+   b=128 batches and one batch's host gather, copy and device scan on the
+   streamed tier.
+5. Print the kernels line, the main-path line, the routes line, and the
+   result line.
 
 Needs the card, the CUDA toolkit (``nvcc``) and the rest of this repository
 beside the script.
@@ -42,6 +65,8 @@ FLAGSHIP = dict(nb=1_000_000, nq=128 * 65 + 256, nt=100_000, d=128, seed=42,
 BATCH, NPROBE, K, SEG, GROUP = 128, 32, 100, 512, 8
 N_GT = 256
 MIN_R10 = 0.85
+# configs/vector_search.yaml: IVF1024 over 1M, backend pallas
+PALLAS_NLIST, PALLAS_SCAN_LEN = 1024, 4096
 
 
 def log(msg: str) -> None:
@@ -92,6 +117,55 @@ def scan_bound(codes_tiled, tile_idx, lens, lut_idx, luts, out_bytes: int):
     t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
     t_ops = adds / H100_FP32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flat_bound(codes_t, starts, lens, lut_rows, luts, *, width: int,
+               n_idx: int, out_bytes: int):
+    """``scan_bound`` for the flat-layout kernels: the distinct code columns
+    the windows read (the union of ``[start, start + len)``, len cut at
+    ``width`` and at the end of ``codes_t``) x m, the distinct LUT rows,
+    ``n_idx`` int32 index arrays of bW entries and the output, over the HBM
+    rate; the adds over the fp32 rate."""
+    import torch
+    m, n_cols = codes_t.shape
+    s = starts.long()
+    ln = torch.minimum(lens.long().clamp(max=width), n_cols - s).clamp(min=0)
+    ln = torch.where(s < 0, torch.zeros_like(ln), ln)
+    active = ln > 0
+    one = torch.ones(int(active.sum()), dtype=torch.int64, device=s.device)
+    diff = torch.zeros(n_cols + 1, dtype=torch.int64, device=s.device)
+    diff.index_add_(0, s[active], one)
+    diff.index_add_(0, (s + ln)[active], -one)
+    cols = int((torch.cumsum(diff, 0)[:n_cols] > 0).sum())
+    lut_rows_n = int(torch.unique(lut_rows[active]).numel())
+    nbytes = (cols * m + lut_rows_n * luts.shape[1] * luts.shape[2] * 4
+              + n_idx * 4 * starts.numel() + out_bytes)
+    t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
+    t_ops = int(ln.sum()) * m / H100_FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def hold(name, fn, ref, args, kw, ref_kw, bound):
+    """Launch ``fn``, synchronise, compare with the plain version ``ref`` on
+    the same inputs (``check_scan``), and time both (median of 30).
+    ``bound(out)`` gives (ms, by).  Returns the measurement, or raises."""
+    import torch
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    want = ref(*args, **ref_kw)
+    full = (ref(*args, **dict(ref_kw, lane_l1=False))
+            if ref_kw.get("lane_l1") else None)
+    ok, err = check_scan(got, want, dist_bf16=False, full=full)
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version "
+                             f"(max abs err {err})")
+    ms = time_ms(lambda: fn(*args, **kw))
+    plain_ms = time_ms(lambda: ref(*args, **ref_kw))
+    bound_ms, bound_by = bound(got)
+    log(f"{name}: ok, max_abs_err={err:.3g} kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 def bf16_ulp_ok(got, want) -> bool:
@@ -192,6 +266,120 @@ def kernel_phase(dev):
     return results
 
 
+def flat_kernel_phase(dev):
+    """Phase 2, flat layout: adc_scan_segments_multi, adc_scan_segments and
+    adc_scan_distances vs their plain versions.  Returns {kernel: [entry
+    per option set]}, or raises."""
+    import numpy as np
+    import torch
+    from chamjax_torch.ops.scan_pallas import (adc_scan_distances,
+                                               adc_scan_distances_reference)
+    from chamjax_torch.ops.scan_seg import (MAX_SEG, adc_scan_segments,
+                                            adc_scan_segments_reference,
+                                            pack_luts_bf16)
+    from chamjax_torch.ops.scan_seg_multi import (
+        adc_scan_segments_multi, adc_scan_segments_multi_reference)
+    m, seg, bw = 16, SEG, BATCH * NPROBE
+    rng = np.random.default_rng(1)
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    # the flagship's flat layout: ~1.05M padded rows + MAX_SEG tail padding
+    n_cols = (1 << 20) + MAX_SEG
+    codes_t = torch.randint(0, 256, (m, n_cols), generator=g, device=dev,
+                            dtype=torch.uint8)
+    starts = rng.integers(0, (n_cols - MAX_SEG) // 64, bw) * 64
+    lens = rng.integers(1, seg + 1, bw)
+    lens[::2] = seg                    # half full, a quarter-ish partial,
+    lens[1::8] = 0                     # one in eight empty (start 0)
+    starts[1::8] = 0
+    lut_idx = rng.integers(0, bw, bw)
+    starts, lens, lut_idx = (torch.from_numpy(a.astype(np.int32)).to(dev)
+                             for a in (starts, lens, lut_idx))
+    luts_f32 = torch.rand((bw, m, 256), generator=g, device=dev) * 4.0
+    luts_bf = pack_luts_bf16(luts_f32)
+    out = {}
+    for name, fn, ref, sets in (
+            ("adc_scan_segments_multi", adc_scan_segments_multi,
+             adc_scan_segments_multi_reference,
+             [("f32_lut", dict(lut_bf16=False)),
+              ("bf16_lut", dict(lut_bf16=True)),
+              ("bf16_lut_lane_l1", dict(lut_bf16=True, lane_l1=True))]),
+            ("adc_scan_segments", adc_scan_segments,
+             adc_scan_segments_reference,
+             [("f32_lut", dict(lut_bf16=False)),
+              ("bf16_lut", dict(lut_bf16=True))])):
+        out[name] = []
+        for opt_name, opt in sets:
+            luts = luts_bf if opt["lut_bf16"] else luts_f32
+            args = (codes_t, starts, lens, lut_idx, luts)
+            kw = dict(seg=seg, **opt)
+            if fn is adc_scan_segments_multi:
+                kw["group"] = GROUP
+            ref_kw = dict(seg=seg, **opt)
+            r = hold(f"{name}[{opt_name}]", fn, ref, args, kw, ref_kw,
+                     lambda o, a=args: flat_bound(
+                         *a, width=seg, n_idx=3,
+                         out_bytes=o.numel() * o.element_size()))
+            out[name].append(dict(options=opt_name, **r))
+
+    # adc_scan_distances: IVF1024 over 1M rows, lists of ~1k rows with a
+    # tail (gamma-distributed, some empty, a few longer than scan_len),
+    # list_pad 128; bp (query, probe) pairs over random lists
+    nb, nlist, scan_len = FLAGSHIP["nb"], PALLAS_NLIST, PALLAS_SCAN_LEN
+    list_len = rng.gamma(4.0, nb / nlist / 4.0, nlist).astype(np.int64)
+    list_len[:8] = 0
+    list_len[8:12] = rng.integers(scan_len + 1, scan_len + 2000, 4)
+    padded = np.maximum(-(-list_len // 128) * 128, 128)
+    list_start = np.concatenate([[0], np.cumsum(padded)[:-1]])
+    n_cols_p = int(padded.sum()) + 8192 + MAX_SEG
+    codes_p = torch.randint(0, 256, (m, n_cols_p), generator=g, device=dev,
+                            dtype=torch.uint8)
+    lids = rng.integers(0, nlist, bw)
+    lids[:16] = np.arange(16)          # empty lists and the long tail
+    p_starts, p_lens = (torch.from_numpy(a[lids].astype(np.int32)).to(dev)
+                        for a in (list_start, list_len))
+    p_luts = torch.rand((bw, m, 256), generator=g, device=dev) * 4.0
+    args = (codes_p, p_starts, p_lens, p_luts)
+    rows = torch.arange(bw, dtype=torch.int32, device=dev)
+    r = hold("adc_scan_distances[f32_lut]", adc_scan_distances,
+             adc_scan_distances_reference, args,
+             dict(scan_len=scan_len), dict(scan_len=scan_len),
+             lambda o: flat_bound(codes_p, p_starts, p_lens, rows, p_luts,
+                                  width=scan_len, n_idx=2,
+                                  out_bytes=o.numel() * 4))
+    out["adc_scan_distances"] = [dict(
+        options=f"f32_lut nlist={nlist} scan_len={scan_len} "
+                f"mean_list={float(list_len.mean()):.1f} "
+                f"max_list={int(list_len.max())}", **r)]
+    return out
+
+
+def time_search(dev_index, kw, xq_dev):
+    """Device time of 65 back-to-back b=128 searches and of 200 b=1
+    searches (CUDA events), beside the host time to enqueue them."""
+    import torch
+    from chamjax_torch.searcher import ivfpq_search
+    n_b = xq_dev.shape[0] // BATCH
+    batches = [xq_dev[i * BATCH:(i + 1) * BATCH] for i in range(n_b)]
+    singles = [xq_dev[i:i + 1] for i in range(200)]
+    res = {}
+    for name, qs, warm in (("b128", batches, 3), ("b1", singles, 5)):
+        for q in qs[:warm]:
+            ivfpq_search(dev_index, q, **kw)
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        t0 = time.perf_counter()
+        for q in qs:
+            ivfpq_search(dev_index, q, **kw)
+        res[f"host_{name}"] = (time.perf_counter() - t0) * 1e3 / len(qs)
+        b.record()
+        b.synchronize()
+        res[f"ms_{name}"] = a.elapsed_time(b) / len(qs)
+    return res
+
+
 def main_path(dev):
     """Phase 3: the port's IVF-PQ query path at the 1M flagship."""
     import numpy as np
@@ -206,7 +394,7 @@ def main_path(dev):
     from chamjax_torch.ops.scan_seg_block import (adc_scan_tiles,
                                                   adc_scan_tiles_reference)
     from chamjax_torch.ops.topk import select_topk
-    from chamjax_torch.searcher import IVFSearcher, _rotate, ivfpq_search
+    from chamjax_torch.searcher import IVFSearcher, _rotate
     from chamjax_torch.utils import cuda_lib
     from chamjax_torch.utils.precision import fp32_matmul
 
@@ -261,7 +449,8 @@ def main_path(dev):
     r10_xla = recall_at_k(s_x.search(xq)[1], gt, 10)
     s_f = IVFSearcher(idx, dataclasses.replace(scfg, lut_bf16=False),
                       device=dev)
-    r10_f32 = recall_at_k(s_f.search(xq)[1], gt, 10)
+    res_f = s_f.search(xq)
+    r10_f32 = recall_at_k(res_f[1], gt, 10)
     log(f"recall {rec}, f32-LUT kernel path R@10 {r10_f32:.4f}, xla oracle "
         f"R@10 {r10_xla:.4f}, launches {launches}")
     if abs(r10_f32 - r10_xla) > 0.002:
@@ -317,35 +506,14 @@ def main_path(dev):
     kw = dict(nprobe=NPROBE, k=K, windows=s.windows, seg=SEG, group=GROUP,
               lut_bf16=True, backend="seg")
     xq_dev = torch.as_tensor(ds.xq[N_GT:]).to(dev)
-    n_b = xq_dev.shape[0] // BATCH
-    batches = [xq_dev[i * BATCH:(i + 1) * BATCH] for i in range(n_b)]
-    for b_ in batches[:3]:
-        ivfpq_search(s.dev, b_, **kw)
-    torch.cuda.synchronize()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
-        enable_timing=True)
-    a.record()
-    t0 = time.perf_counter()
-    for b_ in batches:
-        ivfpq_search(s.dev, b_, **kw)
-    host_b128 = (time.perf_counter() - t0) * 1e3 / n_b  # enqueue only
-    b.record()
-    b.synchronize()
-    ms_b128 = a.elapsed_time(b) / n_b
-    singles = [xq_dev[i:i + 1] for i in range(200)]
-    for q1 in singles[:5]:
-        ivfpq_search(s.dev, q1, **kw)
-    torch.cuda.synchronize()
-    a.record()
-    t0 = time.perf_counter()
-    for q1 in singles:
-        ivfpq_search(s.dev, q1, **kw)
-    host_b1 = (time.perf_counter() - t0) * 1e3 / len(singles)
-    b.record()
-    b.synchronize()
-    ms_b1 = a.elapsed_time(b) / len(singles)
+    ts = time_search(s.dev, kw, xq_dev)
+    ms_b128, ms_b1 = ts["ms_b128"], ts["ms_b1"]
+    host_b128, host_b1 = ts["host_b128"], ts["host_b1"]
+    ctx = dict(idx=idx, ds=ds, gt=gt, scfg=scfg, r10_xla=r10_xla,
+               tiled_bf16=(d_s, i_s), tiled_f32=res_f, xq_dev=xq_dev,
+               main_search=(s.dev, kw))
     return dict(
-        launches=launches, main_kernel=main_kernel,
+        launches=launches, main_kernel=main_kernel, ctx=ctx,
         line=dict(
             main_path="ivfpq_search 1M flagship (OPQ16,IVF4096,PQ16 hard-"
                       "balanced; seg=512 group=8 nprobe=32 k=100 lut_bf16)",
@@ -359,6 +527,219 @@ def main_path(dev):
             host_enqueue_ms_b128=host_b128, host_enqueue_ms_b1=host_b1,
             dataset_s=t_data, build_s=t_build, ground_truth_s=t_gt,
             max_list_len=int(idx.list_len.max())))
+
+
+def check_same_up_to_ties(name, d, i, d_ref, i_ref, rtol: float) -> None:
+    """Distances allclose(rtol) rank by rank, and ids equal except in the
+    order of distance ties (``chamjax_torch.eval.tie_mismatches``)."""
+    from chamjax_torch.eval import tie_mismatches
+    bad = tie_mismatches(d, i, d_ref, i_ref, rtol=rtol, atol=rtol)
+    if bad:
+        raise AssertionError(f"{name}: {bad}")
+
+
+def run_path(name, kernel, search, xq):
+    """Drive one path over the recall queries in b=128 batches with every
+    launch count set to 0 just before; its kernel must have launched.
+    Returns (dists, ids, launches)."""
+    import numpy as np
+    from chamjax_torch.utils import cuda_lib
+    cuda_lib.launch_counts.clear()
+    outs = [search(xq[i:i + BATCH]) for i in range(0, len(xq), BATCH)]
+    launches = dict(cuda_lib.launch_counts)
+    if launches.get(kernel, 0) < 1:
+        raise AssertionError(f"{name} did not launch {kernel}: {launches}")
+    return (np.concatenate([o[0] for o in outs]),
+            np.concatenate([o[1] for o in outs]), launches)
+
+
+def routes_phase(dev, ctx):
+    """Phase 4a: the flat-layout and padded-window routes of the resident
+    searcher on the flagship index."""
+    import dataclasses as dc
+    import torch
+    from chamjax_torch.eval import recall_at_k
+    from chamjax_torch.ops.coarse import select_probes
+    from chamjax_torch.ops.lut import build_luts
+    from chamjax_torch.ops.scan_pallas import (adc_scan_distances,
+                                               adc_scan_distances_reference)
+    from chamjax_torch.ops.scan_seg import (adc_scan_segments,
+                                            adc_scan_segments_reference,
+                                            expand_windows, prepare_luts)
+    from chamjax_torch.ops.scan_seg_multi import (
+        adc_scan_segments_multi, adc_scan_segments_multi_reference)
+    from chamjax_torch.searcher import IVFSearcher, _rotate
+    idx, gt, scfg = ctx["idx"], ctx["gt"], ctx["scfg"]
+    xq = ctx["ds"].xq[:N_GT]
+    r10_xla = ctx["r10_xla"]
+    routes = (
+        # name, options, kernel, R@10 bar vs the oracle, equal to
+        ("flat_g8_f32", dict(tiled=False, seg_group=8, lut_bf16=False),
+         "adc_scan_segments_multi", 0.002, "tiled_f32"),
+        ("flat_g1_f32", dict(tiled=False, seg_group=1, lut_bf16=False),
+         "adc_scan_segments", 0.002, "tiled_f32"),
+        ("pallas", dict(backend="pallas", lut_bf16=False),
+         "adc_scan_distances", 0.002, "tiled_f32"),
+        ("flat_g8_bf16", dict(tiled=False, seg_group=8, lut_bf16=True),
+         "adc_scan_segments_multi", 0.01, "tiled_bf16"),
+    )
+    line, kernels, results = {}, {}, {}
+    q = ctx["xq_dev"][:BATCH]
+    for name, opt, kernel, bar, ref in routes:
+        sr = IVFSearcher(idx, dc.replace(scfg, **opt), device=dev)
+        if sr.dev.codes_tiled is not None:
+            raise AssertionError(f"{name}: a tiled twin was built")
+        d, i, launches = run_path(name, kernel, sr.search, xq)
+        results[name] = (d, i)
+        r10 = recall_at_k(i, gt, 10)
+        if abs(r10 - r10_xla) > bar:
+            raise AssertionError(f"{name} R@10 {r10} vs xla oracle "
+                                 f"{r10_xla} (bar {bar})")
+        check_same_up_to_ties(f"{name} vs the {ref} route", d, i, *ctx[ref],
+                              rtol=1e-5)
+        entry = dict(recall_at_10=r10, launches=launches,
+                     scan_len=sr.scan_len, windows=sr.windows)
+        kw = dict(nprobe=NPROBE, k=K, windows=sr.windows, seg=SEG,
+                  group=sr.group, lut_bf16=sr.scfg.lut_bf16,
+                  backend=sr.backend, scan_len=sr.scan_len, tile=sr.tile)
+        if name != "flat_g1_f32":
+            entry.update(time_search(sr.dev, kw, ctx["xq_dev"]))
+            entry["qps_b128"] = BATCH * 1e3 / entry["ms_b128"]
+        line[name] = entry
+        log(f"route {name}: {entry}")
+        if kernel in kernels:
+            continue
+        # the route's kernel vs its plain version on one real batch (these
+        # launches are not counted above)
+        dv = sr.dev
+        qr = _rotate(dv, q)
+        list_ids, _ = select_probes(qr, dv.centroids, NPROBE)
+        luts = build_luts(qr, dv.centroids, dv.codebooks, list_ids)
+        if kernel == "adc_scan_distances":
+            lid = list_ids.long()
+            p_starts = dv.list_start[lid].reshape(-1).contiguous()
+            p_lens = torch.clamp(dv.list_len[lid], max=sr.scan_len).reshape(
+                -1).contiguous()
+            luts_k = luts.permute(0, 1, 3, 2).reshape(
+                -1, luts.shape[3], luts.shape[2]).contiguous()
+            args = (dv.codes_t, p_starts, p_lens, luts_k)
+            rows = torch.arange(p_starts.numel(), dtype=torch.int32,
+                                device=dev)
+            meas = hold(f"{kernel}[main path]", adc_scan_distances,
+                     adc_scan_distances_reference, args,
+                     dict(scan_len=sr.scan_len), dict(scan_len=sr.scan_len),
+                     lambda o: flat_bound(
+                         dv.codes_t, p_starts, p_lens, rows, luts_k,
+                         width=sr.scan_len, n_idx=2,
+                         out_bytes=o.numel() * 4))
+        else:
+            windows = -(-sr.windows // sr.group) * sr.group
+            starts, lens, probe, _ = expand_windows(
+                list_ids, dv.list_start, dv.list_len, windows=windows,
+                seg=SEG)
+            luts_k, lut_idx = prepare_luts(luts, probe, lut_bf16=False)
+            args = (dv.codes_t, starts.reshape(-1).contiguous(),
+                    lens.reshape(-1).contiguous(), lut_idx, luts_k)
+            fn, ref = ((adc_scan_segments_multi,
+                        adc_scan_segments_multi_reference)
+                       if kernel == "adc_scan_segments_multi" else
+                       (adc_scan_segments, adc_scan_segments_reference))
+            kw_k = dict(seg=SEG, lut_bf16=False)
+            if fn is adc_scan_segments_multi:
+                kw_k["group"] = sr.group
+            meas = hold(f"{kernel}[main path]", fn, ref, args, kw_k,
+                     dict(seg=SEG, lut_bf16=False),
+                     lambda o, a=args: flat_bound(
+                         *a, width=SEG, n_idx=3, out_bytes=o.numel() * 4))
+        kernels[kernel] = dict(meas, path=name,
+                               launches=launches.get(kernel, 0),
+                               windows=int(args[1].numel()))
+    # the main path timed again after the routes, so that the order of the
+    # timings does not decide the comparison between layouts
+    line["tiled_bf16_repeat"] = time_search(*ctx["main_search"],
+                                            ctx["xq_dev"])
+    return dict(line=line, kernels=kernels, results=results)
+
+
+def streamed_phase(dev, ctx, flat_bf16):
+    """Phase 4b: HostStreamedSearcher, tiled and flat, against the resident
+    search; search_pipelined over the 65 remaining b=128 batches; one
+    batch's host gather, copy and device scan."""
+    import dataclasses as dc
+    import numpy as np
+    import torch
+    from chamjax_torch.eval import recall_at_k
+    from chamjax_torch.streamed import HostStreamedSearcher
+    idx, scfg, gt = ctx["idx"], ctx["scfg"], ctx["gt"]
+    xq = ctx["ds"].xq
+    batches = [xq[N_GT + i * BATCH:N_GT + (i + 1) * BATCH]
+               for i in range((len(xq) - N_GT) // BATCH)]
+    line, launches_by_kernel = {}, {}
+    for tiled, kernel, resident in (
+            (True, "adc_scan_tiles", ctx["tiled_bf16"]),
+            (False, "adc_scan_segments_multi", flat_bf16)):
+        name = f"streamed_{'tiled' if tiled else 'flat'}"
+        st = HostStreamedSearcher(idx, dc.replace(scfg, tiled=tiled),
+                                  device=dev)
+        d, i, launches = run_path(name, kernel, st.search, xq[:N_GT])
+        launches_by_kernel[kernel] = launches.get(kernel, 0)
+        check_same_up_to_ties(f"{name} vs the resident search", d, i,
+                              *resident, rtol=1e-4)
+        r10 = recall_at_k(i, gt, 10)
+        r10_res = recall_at_k(resident[1], gt, 10)
+        if r10 != r10_res:
+            raise AssertionError(f"{name} R@10 {r10} vs resident {r10_res}")
+        # the pipelined stream equals the sequential search
+        st.search_pipelined(batches[:2])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        piped = st.search_pipelined(batches)
+        t_pipe = time.perf_counter() - t0
+        for j in (0, len(batches) - 1):
+            d_s, i_s = st.search(batches[j])
+            if not (np.array_equal(piped[j][0], d_s)
+                    and np.array_equal(piped[j][1], i_s)):
+                raise AssertionError(f"{name}: search_pipelined batch {j} "
+                                     "differs from search")
+        t_seq0 = time.perf_counter()
+        for b_ in batches[:16]:
+            st.search(b_)
+        t_seq = (time.perf_counter() - t_seq0) / 16
+        # one batch, part by part
+        plan_ms, gather_ms = [], []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plan = st._plan(batches[0])
+            starts_h = plan[0].cpu().numpy()
+            t1 = time.perf_counter()
+            host = st._gather(starts_h, 0)
+            t2 = time.perf_counter()
+            plan_ms.append((t1 - t0) * 1e3)
+            gather_ms.append((t2 - t1) * 1e3)
+        slab = st._upload(host, 0)
+        _s, lens, probe, list_ids, q_rot = plan
+        h2d = time_ms(lambda: st._upload(host, 0), reps=10)
+        scan = time_ms(lambda: st._scan(slab, lens, probe, list_ids, q_rot,
+                                        K), reps=10)
+        d_b, pos_b = st._scan(slab, lens, probe, list_ids, q_rot, K)
+        d_h = d_b.cpu().numpy()
+        t0 = time.perf_counter()
+        st._map_ids(d_h, pos_b.cpu().numpy(), starts_h)
+        map_ms = (time.perf_counter() - t0) * 1e3
+        entry = dict(
+            recall_at_10=r10, launches=launches, windows=st.windows,
+            slab_mb=host.numel() / 2 ** 20,
+            pipelined_qps_b128=len(batches) * BATCH / t_pipe,
+            pipelined_ms_per_batch=t_pipe * 1e3 / len(batches),
+            sequential_ms_per_batch=t_seq * 1e3,
+            batch_ms=dict(plan_and_pull=float(np.median(plan_ms)),
+                          host_gather=float(np.median(gather_ms)),
+                          h2d_copy=h2d, device_scan=scan,
+                          map_ids=map_ms))
+        line[name] = entry
+        log(f"{name}: {entry}")
+    return dict(line=line, launches=launches_by_kernel)
 
 
 def main() -> int:
@@ -393,7 +774,11 @@ def main() -> int:
 
     try:
         options = kernel_phase(dev)
+        flat_options = flat_kernel_phase(dev)
         main = main_path(dev)
+        routes = routes_phase(dev, main["ctx"])
+        streamed = streamed_phase(dev, main["ctx"],
+                                  routes["results"]["flat_g8_bf16"])
     except AssertionError as e:
         return fail(str(e))
     mk = main["main_kernel"]
@@ -404,10 +789,27 @@ def main() -> int:
         launches=main["launches"].get("adc_scan_tiles", 0),
         max_abs_err=mk["max_abs_err"], ms=mk["ms"], plain_ms=mk["plain_ms"],
         bound_ms=mk["bound_ms"], bound_by=mk["bound_by"], library_ms=None,
-        main_path_windows=mk["windows"], options=options)]
+        main_path_windows=mk["windows"], options=options,
+        launches_streamed_tiled=streamed["launches"]["adc_scan_tiles"])]
+    for name, replaces in (
+            ("adc_scan_segments_multi", "chamjax/ops/scan_seg_multi.py:134"),
+            ("adc_scan_segments", "chamjax/ops/scan_seg.py:162"),
+            ("adc_scan_distances", "chamjax/ops/scan_pallas.py:118")):
+        rk = routes["kernels"][name]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="chamjax_torch/csrc/adc_scan_flat.cu", replaces=replaces,
+            launches=rk["launches"], max_abs_err=rk["max_abs_err"],
+            ms=rk["ms"], plain_ms=rk["plain_ms"], bound_ms=rk["bound_ms"],
+            bound_by=rk["bound_by"], library_ms=None, path=rk["path"],
+            main_path_windows=rk["windows"], options=flat_options[name]))
+    kernels[1]["launches_streamed_flat"] = (
+        streamed["launches"]["adc_scan_segments_multi"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps(dict(main["line"], card=card, nvcc_s=t_nvcc)),
           flush=True)
+    print(json.dumps(dict(routes=routes["line"], **streamed["line"],
+                          card=card)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

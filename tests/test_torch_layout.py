@@ -158,7 +158,9 @@ def test_recall_at_k_matches_chamjax():
 def test_import_leaves_jax_out():
     code = ("import sys, chamjax_torch, chamjax_torch.searcher, "
             "chamjax_torch.index, chamjax_torch.data, chamjax_torch.eval, "
-            "chamjax_torch.ops.scan_seg_block, chamjax_torch.utils.cuda_lib; "
+            "chamjax_torch.ops.scan_seg_block, chamjax_torch.ops.scan_pallas, "
+            "chamjax_torch.ops.scan_seg_multi, chamjax_torch.streamed, "
+            "chamjax_torch.utils.cuda_lib; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'chamjax' "
             "or m.startswith('chamjax.')); print(bad); sys.exit(bool(bad))")

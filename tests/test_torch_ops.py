@@ -12,6 +12,7 @@ from chamjax.ops import scan_seg as jseg
 from chamjax.ops import scan_xla as jxla
 from chamjax.ops import topk as jtopk
 
+from chamjax_torch.eval import tie_mismatches
 from chamjax_torch.ops import coarse as tcoarse
 from chamjax_torch.ops import lut as tlut
 from chamjax_torch.ops import scan_seg as tseg
@@ -23,12 +24,9 @@ def t(x):
     return torch.from_numpy(np.ascontiguousarray(x))
 
 
-def assert_ids_equal_except_ties(ids_a, ids_b, d_a, d_b, tol=1e-4):
-    ids_a, ids_b = np.asarray(ids_a), np.asarray(ids_b)
-    d_a, d_b = np.asarray(d_a), np.asarray(d_b)
-    agree = ids_a == ids_b
-    close = np.abs(d_a - d_b) < tol
-    assert np.all(agree | close), np.argwhere(~(agree | close))[:5]
+def assert_ids_equal_except_ties(ids_a, ids_b, d_a, d_b, tol=1e-5):
+    bad = tie_mismatches(d_a, ids_a, d_b, ids_b, rtol=tol, atol=tol)
+    assert not bad, bad
 
 
 @pytest.fixture(scope="module")

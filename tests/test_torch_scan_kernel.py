@@ -141,8 +141,12 @@ def test_wrapper_rejects_bad_inputs():
 def test_cuda_loader_layout():
     """Every kernel source is where the loader looks, and builds for
     sm_90a into the package's build directory."""
-    assert cuda_lib.SOURCES == ("adc_scan_tiles",)
+    assert cuda_lib.SOURCES == ("adc_scan_tiles", "adc_scan_flat")
     for name in cuda_lib.SOURCES:
-        assert (cuda_lib.CSRC_DIR / f"{name}.cu").exists()
+        src = (cuda_lib.CSRC_DIR / f"{name}.cu").read_text()
         assert cuda_lib.library_path(name).parent == cuda_lib.BUILD_DIR
+        # every bound entry point is defined with a plain C interface
+        for fn in cuda_lib.SIGNATURES[name]:
+            assert f'extern "C" int {fn}(' in src, fn
+        assert 'extern "C" const char* chamjax_cuda_error_string' in src
     assert "arch=compute_90a,code=sm_90a" in cuda_lib.NVCC_FLAGS
