@@ -1,0 +1,105 @@
+"""Count the memory instructions of every kernel in the built CUDA
+libraries, from ``cuobjdump -sass``: global loads (``LDG``, by width),
+``cp.async`` copies (``LDGSTS``), shared-memory loads and stores (``LDS``,
+``STS``) and global stores (``STG``).  It shows which loads a kernel kept:
+the measurement bodies use some code bytes only to feed a sink, and must
+still load every one.  Run it again whenever a measurement body or its
+sink changes (``adc_scan_variants.cu``, the ``copy``/``nogather`` bodies of
+``adc_scan_tiles.cu``): the counts in those files' notes are this report's.
+
+    python -m chamjax_torch.benchmarks.sass_report
+    python -m chamjax_torch.benchmarks.sass_report --match adc_scan_tiles
+
+prints one JSON line per kernel (library, demangled name, counts).  Builds
+the libraries first where needed; needs the CUDA toolkit (``cuobjdump``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+from typing import Dict, Iterator, List, Optional
+
+from chamjax_torch.utils import cuda_lib
+
+KINDS = ("LDG", "LDGSTS", "LDS", "STS", "STG")
+_FUNCTION = re.compile(r"^\s*Function\s*:\s*(\S+)")
+# "/*0090*/   @!P0 LDG.E.U8 R2, desc[UR4][R2.64] ;"
+_INSTR = re.compile(
+    r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
+
+
+def _tool(name: str) -> Optional[str]:
+    nvcc_dir = os.path.dirname(cuda_lib._nvcc())
+    cand = os.path.join(nvcc_dir, name)
+    return cand if os.path.exists(cand) else shutil.which(name)
+
+
+def parse_sass(text: str) -> Dict[str, collections.Counter]:
+    """{mangled kernel name: Counter of opcodes of the kinds in KINDS, by
+    full opcode (e.g. ``LDG.E.U8``) and by kind}."""
+    out: Dict[str, collections.Counter] = {}
+    current = None
+    for line in text.splitlines():
+        f = _FUNCTION.match(line)
+        if f:
+            current = out.setdefault(f.group(1), collections.Counter())
+            continue
+        i = _INSTR.search(line)
+        if current is None or not i:
+            continue
+        op = i.group(1)
+        kind = op.split(".")[0]
+        if kind in KINDS:
+            current[op] += 1
+            if op != kind:
+                current[kind] += 1
+    return out
+
+
+def _demangle(names: List[str]) -> List[str]:
+    tool = _tool("cu++filt") or shutil.which("c++filt")
+    if not tool or not names:
+        return names
+    res = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True, timeout=60)
+    lines = res.stdout.splitlines()
+    return lines if res.returncode == 0 and len(lines) == len(names) else names
+
+
+def report(match: str = "") -> Iterator[Dict]:
+    cuda_lib.build()
+    cuobjdump = _tool("cuobjdump")
+    if not cuobjdump:
+        raise RuntimeError("cuobjdump not found beside nvcc or on PATH")
+    for lib in cuda_lib.SOURCES:
+        sass = subprocess.run([cuobjdump, "-sass",
+                               str(cuda_lib.library_path(lib))],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        counts = parse_sass(sass)
+        mangled = sorted(counts)
+        for raw, name in zip(mangled, _demangle(mangled)):
+            if match in name:
+                yield dict(library=lib, kernel=name,
+                           counts=dict(sorted(counts[raw].items())))
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--match", default="",
+                    help="only kernels whose demangled name holds this")
+    args = ap.parse_args(argv)
+    for row in report(args.match):
+        print(json.dumps(row), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -27,6 +27,18 @@
 // writes coalesced.  Rows at or past lens[w] read no codes; an empty
 // window reads nothing.  Reusing one LUT row across a probe's consecutive
 // windows, TMA staging and wider code loads are left for later work.
+//
+// Two measurement bodies (debug_ablate of the TPU kernel, used by
+// chamjax_torch/benchmarks/kernel_roofline.py) keep the production body's
+// memory traffic, the LUT row staged and every code byte of the tile read
+// once, but ignore lens and never gather: "copy" writes float(code[0, r])
+// and "nogather" the integer sum over j of code[j, r].  copy's loads of rows
+// 1..m-1 feed an XOR stored only when the runtime argument `never` is
+// non-zero (the wrapper passes 0), so the compiler keeps them.  Checked in
+// the SASS (chamjax_torch/benchmarks/sass_report.py, nvcc 12.8, sm_90a):
+// both bodies keep the production body's byte code loads (15 LDG.E.U8 in
+// the unrolled loop) and its 16-byte LUT-row loads and shared stores, and
+// issue no shared-memory gather (no LDS).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -37,6 +49,7 @@ namespace {
 constexpr int kLanes = 128;
 
 enum OutMode { kOutF32 = 0, kOutBF16 = 1, kOutLaneL1 = 2 };
+enum Body { kBodyAdc = 0, kBodyCopy = 1, kBodyNoGather = 2 };
 
 template <bool kPacked>
 __device__ __forceinline__ float lut_entry(const uint32_t* __restrict__ lut,
@@ -50,19 +63,20 @@ __device__ __forceinline__ float lut_entry(const uint32_t* __restrict__ lut,
   return __uint_as_float(lut[j * 256 + c]);
 }
 
-template <bool kPacked, int kOut>
+template <bool kPacked, int kOut, int kBody>
 __global__ void __launch_bounds__(kLanes)
 adc_scan_tiles_kernel(const uint8_t* __restrict__ codes,
                       const int32_t* __restrict__ tile_idx,
                       const int32_t* __restrict__ lens,
                       const int32_t* __restrict__ lut_idx,
                       const uint32_t* __restrict__ luts,
-                      void* __restrict__ out, int m, int seg) {
+                      void* __restrict__ out, int m, int seg, int never) {
   extern __shared__ uint4 smem[];
   const uint32_t* lut = reinterpret_cast<const uint32_t*>(smem);
   const int64_t w = blockIdx.x;
   const int t = threadIdx.x;
-  const int len = lens[w];
+  // the measurement bodies ignore lens: every row is read and written
+  const int len = kBody == kBodyAdc ? lens[w] : seg;
   const int groups = seg / kLanes;
   const float inf = __int_as_float(0x7f800000);
 
@@ -79,10 +93,31 @@ adc_scan_tiles_kernel(const uint8_t* __restrict__ codes,
 
   float best = inf;
   int best_g = 0;
+  uint32_t sink = 0;
   for (int g = 0; g < groups; ++g) {
     const int r = g * kLanes + t;
     float acc = inf;
-    if (r < len) {
+    if constexpr (kBody == kBodyCopy) {
+      // the production loop's shape over j = 0..m-1: a row-0 load apart
+      // and a loop over 1..m-1 left a remainder of loads that ran one at a
+      // time, and doubled this body's time on the card
+      uint32_t first = 0;
+#pragma unroll 8
+      for (int j = 0; j < m; ++j) {
+        const uint32_t v = tile[j * seg + r];
+        if (j == 0) {
+          first = v;
+        } else {
+          sink ^= v;
+        }
+      }
+      acc = static_cast<float>(first);
+    } else if constexpr (kBody == kBodyNoGather) {
+      uint32_t s = 0;
+#pragma unroll 8
+      for (int j = 0; j < m; ++j) s += tile[j * seg + r];
+      acc = static_cast<float>(s);
+    } else if (r < len) {
       acc = 0.f;
 #pragma unroll 8
       for (int j = 0; j < m; ++j) {
@@ -105,15 +140,25 @@ adc_scan_tiles_kernel(const uint8_t* __restrict__ codes,
     o[t] = best;
     o[kLanes + t] = __int_as_float(best_g);
   }
+  if constexpr (kBody == kBodyCopy) {
+    if (never) {
+      const float x = __uint_as_float(sink);
+      if (kOut == kOutBF16) {
+        static_cast<__nv_bfloat16*>(out)[w * seg + t] = __float2bfloat16_rn(x);
+      } else {
+        static_cast<float*>(out)[w * seg + t] = x;
+      }
+    }
+  }
 }
 
-template <bool kPacked, int kOut>
+template <bool kPacked, int kOut, int kBody>
 cudaError_t launch(const uint8_t* codes, const int32_t* tile_idx,
                    const int32_t* lens, const int32_t* lut_idx,
                    const uint32_t* luts, void* out, int bw, int m, int seg,
-                   cudaStream_t stream) {
+                   int never, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(m) * (kPacked ? 128 : 256) * 4;
-  auto kernel = adc_scan_tiles_kernel<kPacked, kOut>;
+  auto kernel = adc_scan_tiles_kernel<kPacked, kOut, kBody>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -121,49 +166,54 @@ cudaError_t launch(const uint8_t* codes, const int32_t* tile_idx,
     if (e != cudaSuccess) return e;
   }
   kernel<<<bw, kLanes, smem, stream>>>(codes, tile_idx, lens, lut_idx, luts,
-                                       out, m, seg);
+                                       out, m, seg, never);
   return cudaGetLastError();
+}
+
+using LaunchFn = cudaError_t (*)(const uint8_t*, const int32_t*,
+                                 const int32_t*, const int32_t*,
+                                 const uint32_t*, void*, int, int, int, int,
+                                 cudaStream_t);
+
+template <bool kPacked>
+LaunchFn pick(int out_mode, int body) {
+  const bool bf16 = out_mode == kOutBF16;
+  if (body == kBodyCopy) {
+    if (bf16) return &launch<kPacked, kOutBF16, kBodyCopy>;
+    return &launch<kPacked, kOutF32, kBodyCopy>;
+  }
+  if (body == kBodyNoGather) {
+    if (bf16) return &launch<kPacked, kOutBF16, kBodyNoGather>;
+    return &launch<kPacked, kOutF32, kBodyNoGather>;
+  }
+  if (bf16) return &launch<kPacked, kOutBF16, kBodyAdc>;
+  if (out_mode == kOutLaneL1) return &launch<kPacked, kOutLaneL1, kBodyAdc>;
+  return &launch<kPacked, kOutF32, kBodyAdc>;
 }
 
 }  // namespace
 
 // Plain C entry point (loaded with ctypes).  All pointers are device
-// pointers; the launch goes on `stream` and does not synchronise.  Returns
-// a cudaError_t (0 = success).
+// pointers; the launch goes on `stream` and does not synchronise.  `body`
+// is 0 (the scan), 1 (copy) or 2 (nogather); the measurement bodies take no
+// lane_l1 output.  `never` must be 0.  Returns a cudaError_t (0 = success).
 extern "C" int chamjax_adc_scan_tiles(const void* codes_tiled,
                                       const void* tile_idx, const void* lens,
                                       const void* lut_idx, const void* luts,
                                       void* out, int bw, int m, int seg,
-                                      int lut_bf16, int out_mode,
-                                      void* stream) {
-  const auto* c = static_cast<const uint8_t*>(codes_tiled);
-  const auto* ti = static_cast<const int32_t*>(tile_idx);
-  const auto* ln = static_cast<const int32_t*>(lens);
-  const auto* li = static_cast<const int32_t*>(lut_idx);
-  const auto* lu = static_cast<const uint32_t*>(luts);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (bw <= 0 || m <= 0 || seg <= 0 || seg % kLanes) {
+                                      int lut_bf16, int out_mode, int body,
+                                      int never, void* stream) {
+  if (bw <= 0 || m <= 0 || seg <= 0 || seg % kLanes || body < 0 ||
+      body > kBodyNoGather || (body != kBodyAdc && out_mode == kOutLaneL1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t e;
-  if (lut_bf16) {
-    if (out_mode == kOutBF16) {
-      e = launch<true, kOutBF16>(c, ti, ln, li, lu, out, bw, m, seg, s);
-    } else if (out_mode == kOutLaneL1) {
-      e = launch<true, kOutLaneL1>(c, ti, ln, li, lu, out, bw, m, seg, s);
-    } else {
-      e = launch<true, kOutF32>(c, ti, ln, li, lu, out, bw, m, seg, s);
-    }
-  } else {
-    if (out_mode == kOutBF16) {
-      e = launch<false, kOutBF16>(c, ti, ln, li, lu, out, bw, m, seg, s);
-    } else if (out_mode == kOutLaneL1) {
-      e = launch<false, kOutLaneL1>(c, ti, ln, li, lu, out, bw, m, seg, s);
-    } else {
-      e = launch<false, kOutF32>(c, ti, ln, li, lu, out, bw, m, seg, s);
-    }
-  }
-  return static_cast<int>(e);
+  LaunchFn go = lut_bf16 ? pick<true>(out_mode, body)
+                         : pick<false>(out_mode, body);
+  return static_cast<int>(go(
+      static_cast<const uint8_t*>(codes_tiled),
+      static_cast<const int32_t*>(tile_idx), static_cast<const int32_t*>(lens),
+      static_cast<const int32_t*>(lut_idx), static_cast<const uint32_t*>(luts),
+      out, bw, m, seg, never, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* chamjax_cuda_error_string(int err) {

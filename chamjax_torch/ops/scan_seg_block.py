@@ -6,6 +6,8 @@ starting on a tile boundary, so a window is one contiguous ``m·seg``-byte
 tile.  ``adc_scan_tiles`` scores a batch of windows: on a CUDA tensor it
 launches the hand-written kernel ``chamjax_torch/csrc/adc_scan_tiles.cu``;
 on a CPU tensor it runs the plain version ``adc_scan_tiles_reference``.
+Its ``debug_ablate`` bodies (``copy``, ``nogather``) are the measurement
+bodies of ``chamjax_torch/benchmarks/kernel_roofline.py``.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from chamjax_torch.ops.scan_seg import (LANES, adc_windows_reference,
 from chamjax_torch.utils import cuda_lib
 
 _OUT_F32, _OUT_BF16, _OUT_LANE_L1 = 0, 1, 2
+# debug_ablate body → the kernel's ``body`` argument
+_BODIES = {"": 0, "copy": 1, "nogather": 2}
 
 
 def adc_scan_tiles_reference(
@@ -33,9 +37,17 @@ def adc_scan_tiles_reference(
     lut_bf16: bool = False,
     lane_l1: bool = False,
     dist_bf16: bool = False,
+    debug_ablate: str = "",
 ) -> torch.Tensor:
     """Plain version of the kernel: a gather, a sum over m in fp32 and a
-    mask.  Same contract as :func:`adc_scan_tiles`."""
+    mask; for ``debug_ablate`` the first code row (``copy``) or the sum of
+    the codes over m (``nogather``), lens ignored.  Same contract as
+    :func:`adc_scan_tiles`."""
+    if debug_ablate:
+        tiles = codes_tiled[tile_idx.long()]
+        dist = (tiles[:, 0] if debug_ablate == "copy"
+                else tiles.sum(dim=1, dtype=torch.int32)).float()
+        return dist.to(torch.bfloat16) if dist_bf16 else dist
     dist = adc_windows_reference(
         codes_tiled[tile_idx.long()], luts[lut_idx.long()], lens,
         lut_bf16=lut_bf16, lane_l1=lane_l1)
@@ -43,7 +55,14 @@ def adc_scan_tiles_reference(
 
 
 def _check_inputs(codes_tiled, tile_idx, lens, lut_idx, luts, *, seg, group,
-                  lut_bf16, lane_l1, dist_bf16) -> None:
+                  lut_bf16, lane_l1, dist_bf16, debug_ablate) -> None:
+    if debug_ablate not in _BODIES:
+        raise ValueError(f"adc_scan_tiles: debug_ablate={debug_ablate!r}, "
+                         f"one of 'copy', 'nogather' or ''")
+    if debug_ablate and lane_l1:
+        raise ValueError("adc_scan_tiles: debug_ablate writes (bW, seg) "
+                         "rows, which the lane_l1 output (bW, 2, 128) does "
+                         "not hold")
     if lane_l1 and dist_bf16:
         raise ValueError("adc_scan_tiles: lane_l1 and dist_bf16 exclude "
                          "each other (lane_l1 carries int32 bits through "
@@ -98,19 +117,19 @@ def adc_scan_tiles(
     per-lane min over the window's row groups plus the winning group
     index as int32 bits (read it with ``.view(torch.int32)``).
 
+    ``debug_ablate`` (``"copy"`` or ``"nogather"``) swaps in a measurement
+    body that reads the same bytes but gathers nothing, ignoring ``lens``
+    (see :func:`adc_scan_tiles_reference`); it takes no ``lane_l1``.
+
     CPU tensors run :func:`adc_scan_tiles_reference`; CUDA tensors launch
     the kernel (or raise).  ``group`` is kept for the JAX package's
     contract (``bW % group == 0``); the kernel runs one window per CTA.
     """
-    if debug_ablate:
-        raise NotImplementedError(
-            "adc_scan_tiles: debug_ablate measurement bodies are not ported "
-            "(ROADMAP.md, kernels queue: measurement variants)")
     _check_inputs(codes_tiled, tile_idx, lens, lut_idx, luts, seg=seg,
                   group=group, lut_bf16=lut_bf16, lane_l1=lane_l1,
-                  dist_bf16=dist_bf16)
+                  dist_bf16=dist_bf16, debug_ablate=debug_ablate)
     kw = dict(seg=seg, lut_bf16=lut_bf16, lane_l1=lane_l1,
-              dist_bf16=dist_bf16)
+              dist_bf16=dist_bf16, debug_ablate=debug_ablate)
     dev = codes_tiled.device
     if dev.type == "cpu":
         return adc_scan_tiles_reference(codes_tiled, tile_idx, lens, lut_idx,
@@ -137,7 +156,7 @@ def adc_scan_tiles(
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.chamjax_adc_scan_tiles(
             *(t.data_ptr() for t in tensors), out.data_ptr(), bw, m, seg,
-            int(lut_bf16), mode, stream)
+            int(lut_bf16), mode, _BODIES[debug_ablate], 0, stream)
     cuda_lib.check(lib, err, "adc_scan_tiles")
     cuda_lib.launch_counts["adc_scan_tiles"] += 1
     return out

@@ -26,7 +26,7 @@ from typing import Dict, Iterable
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-SOURCES = ("adc_scan_tiles", "adc_scan_flat")
+SOURCES = ("adc_scan_tiles", "adc_scan_flat", "adc_scan_variants")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -34,7 +34,7 @@ _VP, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # (argtypes, restype) of each library's C entry points
 SIGNATURES = {
     "adc_scan_tiles": {
-        "chamjax_adc_scan_tiles": ([_VP] * 6 + [_I] * 5 + [_VP], _I),
+        "chamjax_adc_scan_tiles": ([_VP] * 6 + [_I] * 7 + [_VP], _I),
     },
     "adc_scan_flat": {
         "chamjax_adc_scan_segments_multi": (
@@ -43,6 +43,11 @@ SIGNATURES = {
             [_VP, _I64] + [_VP] * 5 + [_I] * 4 + [_VP], _I),
         "chamjax_adc_scan_distances": (
             [_VP, _I64] + [_VP] * 4 + [_I] * 3 + [_VP], _I),
+    },
+    "adc_scan_variants": {
+        "chamjax_run_variant": ([_VP, _I64] + [_VP] * 4 + [_I] * 5 + [_VP],
+                                _I),
+        "chamjax_run_block_variant": ([_VP] * 5 + [_I] * 4 + [_VP], _I),
     },
 }
 

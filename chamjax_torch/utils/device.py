@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import subprocess
+
 import numpy as np
 import torch
 
@@ -29,3 +31,15 @@ def as_f32(x, device: torch.device) -> torch.Tensor:
     if not a.flags.writeable:      # torch wants writable host memory
         a = a.copy()
     return torch.from_numpy(a).to(device)
+
+
+def card_description() -> str:
+    """The first card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them, e.g.
+    ``NVIDIA H100 80GB HBM3, 700.00 W``: every time on the card is kept
+    beside it.  Raises ``OSError`` or ``subprocess.SubprocessError`` where
+    ``nvidia-smi`` is missing or fails."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]

@@ -15,21 +15,31 @@ Phases (any failure exits non-zero and prints no result):
    - ``adc_scan_tiles`` at the flagship shape (m=16, seg=512, bW=4096
      windows over 4096 random tiles, some windows empty, some partial) for
      four option sets: f32 LUT, packed-bf16 LUT, bf16 distance output, and
-     the in-kernel lane-L1 reduction;
+     the in-kernel lane-L1 reduction; and its ``debug_ablate`` measurement
+     bodies ``copy`` and ``nogather`` with f32 and packed LUTs (exact);
    - ``adc_scan_segments_multi`` (f32, packed, lane_l1) and
      ``adc_scan_segments`` (f32, packed) over a flat layout the size of the
      flagship's (16 x ~1.05M u8), bW=4096 windows of seg 512 whose starts
      are multiples of 64, some empty, some partial;
    - ``adc_scan_distances`` at the shape of ``configs/vector_search.yaml``
      (IVF1024 over 1M: lists of ~1k rows with a tail), bp=4096, scan_len
-     4096, list lengths from 0 to above scan_len.
+     4096, list lengths from 0 to above scan_len;
+   - the measurement kernels of ``chamjax_torch/benchmarks/
+     kernel_variants.py``: ``run_variant`` for each of its 17 variants and
+     ``run_block_variant``, at m=16 over a 16 x 2^20 u8 slab, bW=4096,
+     seg 512 and 2048 (exact where the output is a code, an integer sum or
+     one LUT entry; else rtol 1e-5).
 3. The main path: ``synthetic_dataset`` (1M x 128, 4096 clusters, seed 42)
    → ``build_ivfpq`` (OPQ16 + IVF4096 + PQ16, hard-balanced) →
    ``compute_ground_truth`` (256 queries) → ``IVFSearcher.search``
    (seg=512, group=8, nprobe=32, k=100, packed-bf16 LUTs).  Recall is
    checked against the same index searched by the plain ``xla`` backend;
    the kernel's launch count must rise during the search.  Times a
-   b=128 and a b=1 search and the stages of a b=128 search.
+   b=128 and a b=1 search and the stages of a b=128 search, and traces
+   10 back-to-back b=128 searches (``chamjax_torch.utils.tracing``): the
+   card's busy share (CUDA kernel time over the profiled window, and its
+   kernel time a search over the unprofiled b=128 batch time) and the
+   kernels that took the most device time.
 4. The other routes on the same index, each run over the 256 recall
    queries with the launch counts set to 0 just before and read just
    after (its kernel must have launched): the flat layout (``tiled=False``)
@@ -43,8 +53,16 @@ Phases (any failure exits non-zero and prints no result):
    the flat and pallas routes; ``search_pipelined`` over the 65 remaining
    b=128 batches and one batch's host gather, copy and device scan on the
    streamed tier.
-5. Print the kernels line, the main-path line, the routes line, and the
-   result line.
+5. The kernel-study path at full width (the JAX harness's defaults: a
+   16M x m16 slab, bW=4096, n_lut=4096), counts set to 0 just before and
+   read just after: ``kernel_variants.study`` over every variant at seg
+   2048, again with ``--same-lut``, and ``kernel_roofline.study`` over
+   ``seg_f32 seg_bf16 block_f32 block_bf16 block_bf16copy
+   block_bf16nogather`` at seg 1024 and 2048, runlen 0 and 8; each
+   configuration's first output is held against its plain version at
+   that shape before it is timed.
+6. Print the kernels line, the main-path line, the routes line, the
+   kernel-study line, and the result line.
 
 Needs the card, the CUDA toolkit (``nvcc``) and the rest of this repository
 beside the script.
@@ -58,8 +76,6 @@ import subprocess
 import sys
 import time
 
-H100_HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
-H100_FP32_FLOP_PER_S = 67e12        # non-tensor fp32
 FLAGSHIP = dict(nb=1_000_000, nq=128 * 65 + 256, nt=100_000, d=128, seed=42,
                 n_clusters=4096)
 BATCH, NPROBE, K, SEG, GROUP = 128, 32, 100, 512, 8
@@ -94,55 +110,6 @@ def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
-
-
-def scan_bound(codes_tiled, tile_idx, lens, lut_idx, luts, out_bytes: int):
-    """Least time for the scan on an H100: each needed input byte read once
-    and each output byte written once, over the HBM rate; the adds this
-    data needs over the fp32 rate.  Returns (ms, "bytes" | "operations")."""
-    import torch
-    m, seg = codes_tiled.shape[1], codes_tiled.shape[2]
-    active = lens > 0
-    # codes: per referenced tile, the rows the longest window over it needs
-    rows = torch.zeros(codes_tiled.shape[0], dtype=torch.int64,
-                       device=lens.device)
-    rows.scatter_reduce_(0, tile_idx[active].long(), lens[active].long(),
-                         reduce="amax")
-    code_bytes = int(rows.sum()) * m
-    lut_rows = int(torch.unique(lut_idx[active]).numel())
-    lut_bytes = lut_rows * luts.shape[1] * luts.shape[2] * 4
-    idx_bytes = 3 * 4 * tile_idx.numel()
-    nbytes = code_bytes + lut_bytes + idx_bytes + out_bytes
-    adds = int(lens.long().sum()) * m
-    t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
-    t_ops = adds / H100_FP32_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def flat_bound(codes_t, starts, lens, lut_rows, luts, *, width: int,
-               n_idx: int, out_bytes: int):
-    """``scan_bound`` for the flat-layout kernels: the distinct code columns
-    the windows read (the union of ``[start, start + len)``, len cut at
-    ``width`` and at the end of ``codes_t``) x m, the distinct LUT rows,
-    ``n_idx`` int32 index arrays of bW entries and the output, over the HBM
-    rate; the adds over the fp32 rate."""
-    import torch
-    m, n_cols = codes_t.shape
-    s = starts.long()
-    ln = torch.minimum(lens.long().clamp(max=width), n_cols - s).clamp(min=0)
-    ln = torch.where(s < 0, torch.zeros_like(ln), ln)
-    active = ln > 0
-    one = torch.ones(int(active.sum()), dtype=torch.int64, device=s.device)
-    diff = torch.zeros(n_cols + 1, dtype=torch.int64, device=s.device)
-    diff.index_add_(0, s[active], one)
-    diff.index_add_(0, (s + ln)[active], -one)
-    cols = int((torch.cumsum(diff, 0)[:n_cols] > 0).sum())
-    lut_rows_n = int(torch.unique(lut_rows[active]).numel())
-    nbytes = (cols * m + lut_rows_n * luts.shape[1] * luts.shape[2] * 4
-              + n_idx * 4 * starts.numel() + out_bytes)
-    t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
-    t_ops = int(ln.sum()) * m / H100_FP32_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def hold(name, fn, ref, args, kw, ref_kw, bound):
@@ -214,6 +181,7 @@ def kernel_phase(dev):
     """Phase 2: adc_scan_tiles vs adc_scan_tiles_reference at the flagship
     shape.  Returns the kernels-line entry, or raises."""
     import torch
+    from chamjax_torch.benchmarks.bounds import ablate_bound, tile_scan_bound
     from chamjax_torch.ops.scan_seg import pack_luts_bf16
     from chamjax_torch.ops.scan_seg_block import (adc_scan_tiles,
                                                   adc_scan_tiles_reference)
@@ -236,6 +204,10 @@ def kernel_phase(dev):
             ("bf16_lut", dict(lut_bf16=True)),
             ("bf16_lut_dist_bf16", dict(lut_bf16=True, dist_bf16=True)),
             ("bf16_lut_lane_l1", dict(lut_bf16=True, lane_l1=True))]
+    # the debug_ablate measurement bodies (exact: a code, or a sum of codes)
+    sets += [(f"{lut}_lut_{body}", dict(lut_bf16=lut == "bf16",
+                                        debug_ablate=body))
+             for body in ("copy", "nogather") for lut in ("f32", "bf16")]
     results = []
     for name, opt in sets:
         luts = luts_bf if opt["lut_bf16"] else luts_f32
@@ -248,6 +220,8 @@ def kernel_phase(dev):
                 if opt.get("lane_l1") else None)
         ok, err = check_scan(got, want, dist_bf16=bool(opt.get("dist_bf16")),
                              full=full)
+        if opt.get("debug_ablate"):
+            ok = ok and torch.equal(got, want)
         if not ok:
             raise AssertionError(f"adc_scan_tiles[{name}] disagrees with its "
                                  f"plain version (max abs err {err})")
@@ -256,7 +230,9 @@ def kernel_phase(dev):
         plain_ms = time_ms(lambda: adc_scan_tiles_reference(*args, seg=seg,
                                                             **opt))
         out_bytes = got.numel() * got.element_size()
-        bound_ms, bound_by = scan_bound(*args, out_bytes)
+        bound_ms, bound_by = (
+            ablate_bound(opt["debug_ablate"], codes, tile_idx, out_bytes)
+            if opt.get("debug_ablate") else tile_scan_bound(*args, out_bytes))
         results.append(dict(options=name, max_abs_err=err, ms=ms,
                             plain_ms=plain_ms, bound_ms=bound_ms,
                             bound_by=bound_by))
@@ -272,6 +248,7 @@ def flat_kernel_phase(dev):
     per option set]}, or raises."""
     import numpy as np
     import torch
+    from chamjax_torch.benchmarks.bounds import flat_scan_bound as flat_bound
     from chamjax_torch.ops.scan_pallas import (adc_scan_distances,
                                                adc_scan_distances_reference)
     from chamjax_torch.ops.scan_seg import (MAX_SEG, adc_scan_segments,
@@ -384,6 +361,7 @@ def main_path(dev):
     """Phase 3: the port's IVF-PQ query path at the 1M flagship."""
     import numpy as np
     import torch
+    from chamjax_torch.benchmarks.bounds import tile_scan_bound as scan_bound
     from chamjax_torch.config import IndexConfig, SearchConfig
     from chamjax_torch.data import compute_ground_truth, synthetic_dataset
     from chamjax_torch.eval import recall_at_k
@@ -558,6 +536,7 @@ def routes_phase(dev, ctx):
     searcher on the flagship index."""
     import dataclasses as dc
     import torch
+    from chamjax_torch.benchmarks.bounds import flat_scan_bound as flat_bound
     from chamjax_torch.eval import recall_at_k
     from chamjax_torch.ops.coarse import select_probes
     from chamjax_torch.ops.lut import build_luts
@@ -742,6 +721,171 @@ def streamed_phase(dev, ctx, flat_bf16):
     return dict(line=line, launches=launches_by_kernel)
 
 
+ROOFLINE_VARIANTS = ("seg_f32", "seg_bf16", "block_f32", "block_bf16",
+                     "block_bf16copy", "block_bf16nogather")
+N_TRACED = 10
+
+
+def variants_phase(dev):
+    """Phase 2: every run_variant variant and run_block_variant against
+    their plain versions at m=16, n=2^20, bW=4096, seg 512 and 2048, each
+    timed beside its plain version and its bound.  Returns {kernel: [entry
+    per (variant, seg)]}, or raises."""
+    import torch
+    from chamjax_torch.benchmarks import kernel_variants as kv
+    from chamjax_torch.benchmarks.bounds import variant_bound
+    args = kv.parse_args(["--n", str(1 << 20), "--seed", "3"])
+    data = kv.make_data(args, dev)
+    out = {"run_variant": [], "run_block_variant": []}
+    for seg in (512, 2048):
+        starts = torch.randint(0, (args.n - seg) // 512, (args.bw,),
+                               generator=data["gen"], device=dev,
+                               dtype=torch.int32) * 512
+        lens = torch.full((args.bw,), seg, dtype=torch.int32, device=dev)
+        for variant in (*kv.VARIANTS, kv.BLOCK_VARIANT):
+            cd, st = kv.inputs_for(data, variant, seg, starts)
+            lt = data["luts_p"] if kv.packed(variant) else data["luts"]
+            call = (cd, st, lens, data["lut_idx"], lt)
+            if variant == kv.BLOCK_VARIANT:
+                name = "run_block_variant"
+                got = kv.run_block_variant(*call, seg=seg, group=GROUP)
+                ref = lambda c=call, s_=seg: kv.run_block_variant_reference(
+                    *c, seg=s_, group=GROUP)
+            else:
+                name = "run_variant"
+                got = kv.run_variant(*call, seg=seg, group=GROUP,
+                                     variant=variant)
+                ref = lambda c=call, s_=seg, v=variant: \
+                    kv.run_variant_reference(*c, seg=s_, group=GROUP,
+                                             variant=v)
+            torch.cuda.synchronize()
+            err = kv.hold(f"{name}[{variant}] seg {seg}", got, ref(),
+                          exact=variant in kv.EXACT_VARIANTS)
+            ms = kv.event_ms(lambda c=call, s_=seg, v=variant: kv.launch(
+                v, c[0], c[1], c[3], c[4], seg=s_))
+            plain_ms = kv.event_ms(ref, launches=3, reps=3, warmup=1)
+            bound_ms, bound_by = variant_bound(variant, cd, st,
+                                               data["lut_idx"], lt, seg=seg,
+                                               out_bytes=got.numel() * 4)
+            out[name].append(dict(variant=variant, seg=seg, max_abs_err=err,
+                                  ms=ms, plain_ms=plain_ms,
+                                  bound_ms=bound_ms, bound_by=bound_by))
+            log(f"{name}[{variant}] seg {seg}: ok, max_abs_err={err:.3g} "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms ({bound_by})")
+    return out
+
+
+def trace_phase(dev, ctx):
+    """Phase 3: the card's busy share over ``N_TRACED`` back-to-back b=128
+    main-path searches: CUDA kernel time in a ``tracing.trace`` window over
+    the window's host time (synchronised at both ends, profiler on), and
+    the kernels that took the most device time."""
+    import os
+    import torch
+    from chamjax_torch.searcher import ivfpq_search
+    from chamjax_torch.utils import tracing
+    dv, kw = ctx["main_search"]
+    xq = ctx["xq_dev"]
+    qs = [xq[i * BATCH:(i + 1) * BATCH] for i in range(N_TRACED)]
+    for q in qs[:3]:
+        ivfpq_search(dv, q, **kw)
+    torch.cuda.synchronize()
+    log_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "chamjax_torch", "build", "traces")
+    annotation = f"{N_TRACED}_searches_b{BATCH}"
+    with tracing.trace(log_dir) as prof:
+        t0 = time.perf_counter()
+        with tracing.annotate(annotation):
+            for q in qs:
+                ivfpq_search(dv, q, **kw)
+            torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    # device events, less the annotation's own device-side range
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)
+                  and e.name != annotation]
+    kernels = [e for e in dev_events
+               if not e.name.startswith(("Memcpy", "Memset"))]
+    res = dict(window_ms=window_ms, searches=N_TRACED,
+               trace_files=sorted(os.listdir(log_dir))[-1:])
+    if not kernels:
+        res.update(busy_share=None, reason=(
+            "torch.profiler recorded no CUDA activity on this machine "
+            f"({len(dev_events)} device events)"))
+        return res
+
+    def busy_us(events):
+        """Length of the union of the events' device intervals."""
+        total, end = 0.0, float("-inf")
+        for a, b in sorted((e.time_range.start, e.time_range.end)
+                           for e in events):
+            if b > end:
+                total += b - max(a, end)
+                end = b
+        return total
+
+    by_name = {}
+    for e in kernels:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    kernel_ms = busy_us(kernels) / 1e3
+    res.update(busy_share=kernel_ms / window_ms, kernel_ms=kernel_ms,
+               copy_ms=busy_us([e for e in dev_events
+                                if e.name.startswith(("Memcpy", "Memset"))]
+                               ) / 1e3,
+               kernel_launches=len(kernels),
+               top_kernels=[dict(name=n[:160], ms=v[0], launches=v[1])
+                            for n, v in top])
+    return res
+
+
+def study_phase(dev, card):
+    """Phase 5: the kernel-study path at its full width (the JAX harness's
+    defaults: a 16M x m16 slab, bW=4096, n_lut=4096): every measurement
+    variant at seg 2048, again with --same-lut, then the roofline matrix
+    at seg 1024 and 2048 with runlen 0 and 8.  Both harnesses hold each
+    configuration's first output against its plain version before timing
+    it (a disagreement fails the phase).  Counts are set to 0 just before
+    and read just after; every kernel of the path must launch."""
+    from chamjax_torch.benchmarks import kernel_roofline as kr
+    from chamjax_torch.benchmarks import kernel_variants as kv
+    from chamjax_torch.utils import cuda_lib
+    every = [*kv.VARIANTS, kv.BLOCK_VARIANT]
+    t0 = time.perf_counter()
+    cuda_lib.launch_counts.clear()
+    rows = list(kv.study(kv.parse_args(["--variants", *every]), dev, card))
+    rows += list(kv.study(kv.parse_args(["--variants", *every, "--same-lut"]),
+                          dev, card))
+    roof = list(kr.study(kr.parse_args(["--variants", *ROOFLINE_VARIANTS,
+                                        "--runlen", "0", "8"]), dev, card))
+    launches = dict(cuda_lib.launch_counts)
+    bad = [r for r in rows if "error" in r]
+    if bad:
+        raise AssertionError(f"kernel study: {bad}")
+    for name in ("run_variant", "run_block_variant", "adc_scan_tiles",
+                 "adc_scan_segments_multi"):
+        if launches.get(name, 0) < 1:
+            raise AssertionError(f"kernel study did not launch {name}: "
+                                 f"{launches}")
+    timed = rows + [r for r in roof if "ms" in r]
+    if not all(0 < r["ms"] < float("inf") for r in timed):
+        raise AssertionError("kernel study: a time is not finite and > 0")
+    for r in rows:
+        log(f"study {r['variant']}{' same_lut' if r['same_lut'] else ''}: "
+            f"{r['ms']:.4f} ms, {r['code_gbs']:.0f} code GB/s, bound "
+            f"{r['bound_ms']:.4f} ms, max_abs_err {r['max_abs_err']:.3g}")
+    for r in roof:
+        log(f"roofline {r}")
+    return dict(variants=[r for r in rows if not r["same_lut"]],
+                variants_same_lut=[r for r in rows if r["same_lut"]],
+                roofline=[r for r in roof if "best" not in r],
+                best=roof[-1]["best"], launches=launches,
+                seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     try:
         import torch
@@ -775,12 +919,16 @@ def main() -> int:
     try:
         options = kernel_phase(dev)
         flat_options = flat_kernel_phase(dev)
+        variant_options = variants_phase(dev)
         main = main_path(dev)
+        traced = trace_phase(dev, main["ctx"])
         routes = routes_phase(dev, main["ctx"])
         streamed = streamed_phase(dev, main["ctx"],
                                   routes["results"]["flat_g8_bf16"])
+        study = study_phase(dev, card)
     except AssertionError as e:
         return fail(str(e))
+    log(f"trace: {traced}")
     mk = main["main_kernel"]
     kernels = [dict(
         name="adc_scan_tiles", route="cuda",
@@ -790,7 +938,8 @@ def main() -> int:
         max_abs_err=mk["max_abs_err"], ms=mk["ms"], plain_ms=mk["plain_ms"],
         bound_ms=mk["bound_ms"], bound_by=mk["bound_by"], library_ms=None,
         main_path_windows=mk["windows"], options=options,
-        launches_streamed_tiled=streamed["launches"]["adc_scan_tiles"])]
+        launches_streamed_tiled=streamed["launches"]["adc_scan_tiles"],
+        launches_kernel_study=study["launches"]["adc_scan_tiles"])]
     for name, replaces in (
             ("adc_scan_segments_multi", "chamjax/ops/scan_seg_multi.py:134"),
             ("adc_scan_segments", "chamjax/ops/scan_seg.py:162"),
@@ -805,11 +954,39 @@ def main() -> int:
             main_path_windows=rk["windows"], options=flat_options[name]))
     kernels[1]["launches_streamed_flat"] = (
         streamed["launches"]["adc_scan_segments_multi"])
+    kernels[1]["launches_kernel_study"] = (
+        study["launches"]["adc_scan_segments_multi"])
+    # the measurement kernels: the row's times are the baseline body's
+    # (f32; block_bf16t) at seg 2048 against its plain version; options
+    # hold every variant at seg 512 and 2048
+    for name, head, replaces in (
+            ("run_variant", "f32", "benchmarks/kernel_variants.py:322"),
+            ("run_block_variant", "block_bf16t",
+             "benchmarks/kernel_variants.py:280")):
+        rows = variant_options[name]
+        h = next(r for r in rows if r["variant"] == head and r["seg"] == 2048)
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="chamjax_torch/csrc/adc_scan_variants.cu",
+            replaces=replaces, launches=study["launches"][name],
+            max_abs_err=max(r["max_abs_err"] for r in rows), ms=h["ms"],
+            plain_ms=h["plain_ms"], bound_ms=h["bound_ms"],
+            bound_by=h["bound_by"], library_ms=None, path="kernel study",
+            options=rows))
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps(dict(main["line"], card=card, nvcc_s=t_nvcc)),
+    # busy_share divides by the profiled window, which the profiler
+    # stretches; busy_share_unprofiled divides the same kernel time a
+    # search by this run's unprofiled b=128 batch time
+    unprofiled = (traced["kernel_ms"] / traced["searches"]
+                  / main["line"]["ms_per_batch_b128"]
+                  if traced["busy_share"] is not None else None)
+    print(json.dumps(dict(main["line"], busy_share=traced["busy_share"],
+                          busy_share_unprofiled=unprofiled,
+                          trace=traced, card=card, nvcc_s=t_nvcc)),
           flush=True)
     print(json.dumps(dict(routes=routes["line"], **streamed["line"],
                           card=card)), flush=True)
+    print(json.dumps(dict(kernel_study=study, card=card)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

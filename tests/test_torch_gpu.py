@@ -1,6 +1,8 @@
-"""chamjax_torch on an NVIDIA card: the CUDA kernels against their plain
-versions, and the query routes (tiled, flat, padded-window, host-streamed)
-on the card against the same routes on the CPU.  Every test is marked ``gpu`` and skips where there
+"""chamjax_torch on an NVIDIA card: the CUDA kernels (the scans, their
+``debug_ablate`` bodies and the measurement variants) against their plain
+versions, the query routes (tiled, flat, padded-window, host-streamed) on
+the card against the same routes on the CPU, and profiler tracing of the
+card.  Every test is marked ``gpu`` and skips where there
 is no card.  This file imports neither jax nor chamjax, so it runs on a
 machine that has only PyTorch:
 
@@ -11,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from chamjax_torch.benchmarks import kernel_variants as kv
 from chamjax_torch.config import IndexConfig, SearchConfig
 from chamjax_torch.data import synthetic_dataset
 from chamjax_torch.eval import tie_mismatches
@@ -26,7 +29,7 @@ from chamjax_torch.ops.scan_seg_multi import (
     adc_scan_segments_multi, adc_scan_segments_multi_reference)
 from chamjax_torch.searcher import IVFSearcher
 from chamjax_torch.streamed import HostStreamedSearcher
-from chamjax_torch.utils import cuda_lib
+from chamjax_torch.utils import cuda_lib, tracing
 
 OPTION_SETS = {
     "f32_lut": dict(lut_bf16=False),
@@ -284,3 +287,120 @@ def test_streamed_on_card_matches_cpu(card_index, tiled):
         d_s, i_s = st.search(q)
         np.testing.assert_array_equal(d_p, d_s)
         np.testing.assert_array_equal(i_p, i_s)
+
+
+def variant_args(variant, seg, dev, *, m=16, n=1 << 18, bw=512, n_lut=64):
+    """Codes in the layout the variant takes, window starts (multiples of
+    512; tile starts for the tiled layouts), full lens, LUT rows and LUTs
+    (packed for the names holding bf16)."""
+    rng = np.random.default_rng(seg)
+    codes = rng.integers(0, 256, (m, n)).astype(np.uint8)
+    starts = (rng.integers(0, (n - seg) // 512, bw) * 512).astype(np.int32)
+    if variant == "i32codes":
+        codes = codes.astype(np.int32)
+    elif variant.startswith("i32view"):
+        codes = codes.view(np.int32).reshape(m, n // 4)
+    elif variant.startswith(("contig", "block")):
+        codes = np.ascontiguousarray(
+            codes.reshape(m, n // seg, seg).transpose(1, 0, 2))
+        starts = (rng.integers(0, n // seg, bw) * seg).astype(np.int32)
+    lens = np.full(bw, seg, np.int32)
+    lut_idx = rng.integers(0, n_lut, bw).astype(np.int32)
+    luts = torch.from_numpy(
+        (rng.random((n_lut, m, 256)) * 4.0).astype(np.float32)).to(dev)
+    if kv.packed(variant):
+        luts = pack_luts_bf16(luts)
+    return [torch.from_numpy(a).to(dev)
+            for a in (codes, starts, lens, lut_idx)] + [luts]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seg", [512, 2048])
+@pytest.mark.parametrize("variant", [*kv.VARIANTS, kv.BLOCK_VARIANT])
+def test_variant_matches_plain_on_card(cuda_device, variant, seg):
+    args = variant_args(variant, seg, cuda_device)
+    if variant == kv.BLOCK_VARIANT:
+        name, fn, ref = ("run_block_variant", kv.run_block_variant,
+                         kv.run_block_variant_reference)
+        kw = dict(seg=seg, group=8)
+    else:
+        name, fn, ref = ("run_variant", kv.run_variant,
+                         kv.run_variant_reference)
+        kw = dict(seg=seg, group=8, variant=variant)
+    before = cuda_lib.launch_counts[name]
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts[name] == before + 1
+    want = ref(*args, **kw)
+    assert got.dtype == want.dtype == torch.float32
+    assert got.shape == want.shape == (512, 128 if variant == "bf16_min"
+                                       else seg)
+    if variant in kv.EXACT_VARIANTS:
+        assert torch.equal(got, want)
+    else:                                    # f32 sums over m
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_variant_refuses_on_card(cuda_device):
+    """The card's wrapper keeps the CPU one's checks, plus the card's."""
+    args = variant_args("f32", 512, cuda_device)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        kv.run_variant(args[0], args[1] + 64, *args[2:], seg=512, group=8,
+                       variant="f32")
+    with pytest.raises(ValueError, match="contiguous"):
+        kv.run_variant(args[0][:, ::2], *args[1:], seg=512, group=8,
+                       variant="f32")
+    with pytest.raises(ValueError, match="shared memory"):
+        wide = variant_args("bf16_mxu", 2048, cuda_device, m=64, n=1 << 16,
+                            bw=8)
+        kv.run_variant(*wide, seg=2048, group=8, variant="bf16_mxu")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dist_bf16", [False, True])
+@pytest.mark.parametrize("lut_bf16", [False, True])
+@pytest.mark.parametrize("body", ["copy", "nogather"])
+@pytest.mark.parametrize("seg", [512, 1024, 2048])
+def test_debug_ablate_matches_plain_on_card(cuda_device, seg, body, lut_bf16,
+                                            dist_bf16):
+    """Flagship widths and the roofline's segs; lens (some 0, some
+    partial) are ignored and both bodies are exact."""
+    arrays = make_inputs(9, n_tiles=(1 << 21) // seg, m=16, seg=seg,
+                         bw=4096, n_lut=4096)
+    args = [torch.from_numpy(a).to(cuda_device) for a in arrays]
+    if lut_bf16:
+        args[4] = pack_luts_bf16(args[4])
+    opt = dict(lut_bf16=lut_bf16, dist_bf16=dist_bf16, debug_ablate=body)
+    before = cuda_lib.launch_counts["adc_scan_tiles"]
+    got = adc_scan_tiles(*args, seg=seg, group=8, **opt)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts["adc_scan_tiles"] == before + 1
+    want = adc_scan_tiles_reference(*args, seg=seg, **opt)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_trace_records_the_kernel_on_card(cuda_device, tmp_path):
+    arrays = make_inputs(2, n_tiles=64, m=16, seg=512, bw=256, n_lut=64)
+    args = [torch.from_numpy(a).to(cuda_device) for a in arrays]
+    with tracing.trace(str(tmp_path)) as prof:
+        with tracing.annotate("chamjax_scan"):
+            adc_scan_tiles(*args, seg=512)
+            torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert any("adc_scan_tiles_kernel" in k for k in kernels), kernels
+    (trace_file,) = tmp_path.glob("*.pt.trace.json")
+    text = trace_file.read_text()
+    assert "chamjax_scan" in text and "adc_scan_tiles_kernel" in text
+
+
+@pytest.mark.gpu
+def test_device_memory_profile_on_card(cuda_device, tmp_path):
+    x = torch.empty(1 << 20, device=cuda_device)
+    path = tmp_path / "mem.pickle"
+    tracing.device_memory_profile(str(path))
+    assert path.stat().st_size > 0
+    del x

@@ -134,14 +134,20 @@ def test_wrapper_rejects_bad_inputs():
         adc_scan_tiles(*ok, seg=128, group=3)
     with pytest.raises(ValueError, match="tile_idx is torch.int64"):
         adc_scan_tiles(codes, tile_idx.long(), lens, lut_idx, luts, seg=128)
-    with pytest.raises(NotImplementedError, match="debug_ablate"):
-        adc_scan_tiles(*ok, seg=128, debug_ablate="copy")
+    # the debug_ablate bodies write (bW, seg) rows: no lane_l1 output, and
+    # no body by another name
+    for body in ("copy", "nogather"):
+        with pytest.raises(ValueError, match="lane_l1"):
+            adc_scan_tiles(*ok, seg=128, lane_l1=True, debug_ablate=body)
+    with pytest.raises(ValueError, match="debug_ablate"):
+        adc_scan_tiles(*ok, seg=128, debug_ablate="dma_only")
 
 
 def test_cuda_loader_layout():
     """Every kernel source is where the loader looks, and builds for
     sm_90a into the package's build directory."""
-    assert cuda_lib.SOURCES == ("adc_scan_tiles", "adc_scan_flat")
+    assert cuda_lib.SOURCES == ("adc_scan_tiles", "adc_scan_flat",
+                                "adc_scan_variants")
     for name in cuda_lib.SOURCES:
         src = (cuda_lib.CSRC_DIR / f"{name}.cu").read_text()
         assert cuda_lib.library_path(name).parent == cuda_lib.BUILD_DIR

@@ -159,20 +159,26 @@ def test_nprobe_and_k_overrides(setup):
 
 
 def test_unported_routes_raise(setup):
-    """The one refusal left on the scan routes: the ``debug_ablate``
-    measurement bodies of the tiled kernel (queued with the measurement
-    variants); every backend and layout of the searcher now runs."""
+    """Nothing on the scan routes is refused any more: the ``debug_ablate``
+    measurement bodies of the tiled kernel run on the index's own tiles,
+    ignore ``lens`` and give their definitions (``copy`` the first code
+    row, ``nogather`` the sum of the codes over m), in f32 or bf16."""
     _ds, _idx, tidx, _gt = setup
     from chamjax_torch.ops.scan_seg_block import adc_scan_tiles
     dev = tsearcher.DeviceIVF.from_packed(tidx, device="cpu", tile_seg=128)
     n = 8
-    args = (dev.codes_tiled, torch.zeros(n, dtype=torch.int32),
-            torch.full((n,), 128, dtype=torch.int32),
-            torch.zeros(n, dtype=torch.int32),
+    tile_idx = torch.arange(n, dtype=torch.int32) % dev.codes_tiled.shape[0]
+    lens = torch.tensor([128, 0, 5, 128, 64, 1, 128, 0], dtype=torch.int32)
+    args = (dev.codes_tiled, tile_idx, lens, torch.zeros(n, dtype=torch.int32),
             torch.zeros((1, tidx.cfg.m, 256)))
-    for body in ("copy", "nogather"):
-        with pytest.raises(NotImplementedError, match="debug_ablate"):
-            adc_scan_tiles(*args, seg=128, debug_ablate=body)
+    tiles = dev.codes_tiled[tile_idx.long()].long()
+    for body, want in (("copy", tiles[:, 0]), ("nogather", tiles.sum(1))):
+        got = adc_scan_tiles(*args, seg=128, debug_ablate=body)
+        assert got.dtype == torch.float32 and got.shape == (n, 128)
+        assert torch.equal(got, want.float())
+        got = adc_scan_tiles(*args, seg=128, debug_ablate=body,
+                             dist_bf16=True)
+        assert torch.equal(got, want.float().to(torch.bfloat16))
     assert adc_scan_tiles(*args, seg=128).shape == (n, 128)
     assert not hasattr(tsearcher, "_not_ported")
 
