@@ -32,6 +32,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 from typing import Dict, Iterator, List, Optional
 
 import torch
@@ -369,18 +370,41 @@ def hold(what: str, got: torch.Tensor, want: torch.Tensor, *, exact: bool,
 def event_ms(fn, launches: int = 10, reps: int = 5, warmup: int = 3
              ) -> float:
     """Device ms of one call of ``fn``: CUDA events around ``launches``
-    back-to-back calls after ``warmup`` calls, the median of ``reps``."""
+    back-to-back calls after ``warmup`` calls, the median of ``reps``.
+
+    A short kernel runs faster than the host enqueues it (a wrapper's
+    checks and launch take tens of microseconds), so timed as it is
+    enqueued the events would measure the host.  Each repetition first
+    holds the card in a spin kernel (``torch.cuda._sleep``) for twice the
+    time the host took to enqueue ``launches`` calls, and checks that the
+    first event had not yet run when the host finished: the calls then run
+    back to back on the device.  Where it had (a call that waits on the
+    card, or a slow host), the spin is doubled, up to four times."""
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(launches):
+        fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    # cycles at 2 GHz, above the card's clock: the spin lasts at least this
+    cycles = int(4e9 * enqueue_s) + 100_000
     times = []
     for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(launches):
-            fn()
-        b.record()
-        b.synchronize()
+        for _ in range(5):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(cycles)
+            a.record()
+            for _ in range(launches):
+                fn()
+            b.record()
+            held = not a.query()
+            b.synchronize()
+            if held:
+                break
+            cycles *= 2
         times.append(a.elapsed_time(b) / launches)
     times.sort()
     return times[len(times) // 2]

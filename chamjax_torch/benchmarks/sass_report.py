@@ -3,9 +3,11 @@ libraries, from ``cuobjdump -sass``: global loads (``LDG``, by width),
 ``cp.async`` copies (``LDGSTS``), shared-memory loads and stores (``LDS``,
 ``STS``) and global stores (``STG``).  It shows which loads a kernel kept:
 the measurement bodies use some code bytes only to feed a sink, and must
-still load every one.  Run it again whenever a measurement body or its
-sink changes (``adc_scan_variants.cu``, the ``copy``/``nogather`` bodies of
-``adc_scan_tiles.cu``): the counts in those files' notes are this report's.
+still load every one, and the staged scans must copy their code bytes with
+``LDGSTS.128`` instead of byte loads.  Run it again whenever a measurement
+body, its sink or the staged body changes (``adc_scan_variants.cu``,
+``adc_scan_stage.cuh``): the counts in the notes and in PERF.md are this
+report's.
 
     python -m chamjax_torch.benchmarks.sass_report
     python -m chamjax_torch.benchmarks.sass_report --match adc_scan_tiles
@@ -86,7 +88,7 @@ def report(match: str = "") -> Iterator[Dict]:
         counts = parse_sass(sass)
         mangled = sorted(counts)
         for raw, name in zip(mangled, _demangle(mangled)):
-            if match in name:
+            if match in name or match == lib:
                 yield dict(library=lib, kernel=name,
                            counts=dict(sorted(counts[raw].items())))
 
@@ -94,7 +96,8 @@ def report(match: str = "") -> Iterator[Dict]:
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--match", default="",
-                    help="only kernels whose demangled name holds this")
+                    help="only kernels whose demangled name holds this, "
+                         "or every kernel of the library of this name")
     args = ap.parse_args(argv)
     for row in report(args.match):
         print(json.dumps(row), flush=True)

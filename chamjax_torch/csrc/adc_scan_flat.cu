@@ -23,121 +23,57 @@
 // one probe's list); on the card all three are this one kernel.
 //
 // Bound on an H100 SXM (3.35 TB/s HBM; the adds are negligible next to the
-// bytes): with 4096 windows of seg 512 at m=16 the kernel must read up to
-// 4096*16*512 = 33.6 MB of codes, 4096 LUT rows of 16 KB (f32) = 67 MB and
-// write 4096*512*4 = 8.4 MB: ~109 MB, ~33 us.  adc_scan_distances at
-// bp=4096, scan_len=4096 writes 67 MB of distances, most of them +inf past
-// short lists, so its output bytes bound it as much as its reads.  Both are
-// bound by bytes.
+// bytes): the distinct code columns the windows read x m, the distinct LUT
+// rows, the index arrays and the output (benchmarks/bounds.py::
+// flat_scan_bound).  adc_scan_distances at bp=4096, scan_len=4096 writes
+// 67 MB of distances, most of them +inf past short lists, so its output
+// bytes bound it as much as its reads.  All are bound by bytes.
 //
-// The design is the simple one of adc_scan_tiles.cu: one CTA of 128 threads
-// per window, the window's LUT row staged in shared memory with 16-byte
-// loads (above 48 KB, e.g. f32 at m=64, it opts in to more dynamic shared
-// memory), thread t owning rows t, t+128, ... and reading code byte
-// codes_t[j*n_cols + start + r] for j = 0..m-1, so neighbouring threads read
-// neighbouring bytes whatever the alignment of `start` (list starts are
-// list_pad multiples, not 128- or 16-byte aligned).  Offsets are 64-bit:
-// m*n_cols passes 2^31 at m=16 past ~134M rows.  Sums are fp32 in the order
-// j = 0..m-1.  Rows at or past lens[w] (or past the end of codes_t) read
-// nothing and write +inf; an empty window reads nothing at all.  LUT reuse
-// across a probe's windows, TMA staging and wider code loads are left for
-// later work.
+// Design: the staged body of adc_scan_stage.cuh (read its note), the same
+// as adc_scan_tiles.cu's.  One CTA of 128 threads a window, cut into work
+// items of at most 1024 columns (a scan_len 4096 window is 4), through a
+// two-slot ring in shared memory.  The first item copies the window's LUT
+// row; every item copies, with 16-byte cp.async.cg issued before any wait,
+// the 16-byte-aligned pieces of each code row j that cover columns [start
+// + c0, start + c0 + n): list starts are list_pad multiples, and with
+// n_cols not a multiple of 16 each row has its own misalignment, so a
+// thread joins two shared-memory words with __funnelshift_r where a row is
+// not 4-byte aligned.  An item past the window's length copies nothing and
+// writes +inf with 16-byte stores (most of adc_scan_distances' output).
+//
+// No read outside the data: n is cut at lens[w], at the width and at
+// n_cols - start, and each 16-byte copy is aligned and holds at least one
+// byte of [start + c0, start + c0 + n) of its row, so it lies inside
+// codes_t's allocation (its blocks are 512-byte aligned); a window with a
+// negative start or length copies nothing.  A LUT row is copied whole from
+// 16-byte aligned luts (the wrappers check it).  Offsets are 64-bit
+// (m * n_cols passes 2^31).
+//
+// Tuning (NVIDIA H100 80GB HBM3, 700 W, medians of 3; PERF.md): one
+// window a CTA, chunk 1024 columns, 128 threads, registers bounded to 12
+// CTAs an SM.  At the flagship's shapes (f32 LUTs) that / two windows a
+// CTA / 256 threads / no register bound / the earlier byte-load kernel:
+// adc_scan_segments_multi (probe-major windows of seg 512) 0.0346 / 0.0363
+// / 0.0343 / 0.0349 / 0.0401 ms; adc_scan_distances at scan_len 1024
+// 0.0369 / 0.0399 / 0.0368 / 0.0372 / 0.0425 ms, at scan_len 4096 over
+// IVF1024-sized lists 0.0757 / 0.0852 / 0.0737 / 0.0723 / 0.0929 ms (chunk
+// 512: 0.0768).  Two windows a CTA double its shared memory and halve the
+// CTAs an SM holds; more CTAs in flight hide the copies better than a ring
+// across windows inside one CTA.  benchmarks/scan_timing.py times the
+// chosen setting against an earlier csrc.
+// SASS (chamjax_torch/benchmarks/sass_report.py --match adc_scan_flat,
+// nvcc 12.8, sm_90a): 24 LDGSTS.E.BYPASS.128, 6 LDG.E (indices), no
+// LDG.E.U8 in each of the four instantiations; the earlier body held 15
+// LDG.E.U8 in its unrolled code loop.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "adc_scan_stage.cuh"
+
 namespace {
 
-constexpr int kLanes = 128;
-
-// Same decode as adc_scan_tiles.cu (each .cu builds into its own library).
-template <bool kPacked>
-__device__ __forceinline__ float lut_entry(const uint32_t* __restrict__ lut,
-                                           int j, uint32_t c) {
-  if (kPacked) {
-    const uint32_t v = lut[j * 128 + (c >> 1)];
-    return __uint_as_float((c & 1u) ? (v & 0xFFFF0000u) : (v << 16));
-  }
-  return __uint_as_float(lut[j * 256 + c]);
-}
-
-template <bool kPacked, bool kLaneL1>
-__global__ void __launch_bounds__(kLanes)
-adc_scan_flat_kernel(const uint8_t* __restrict__ codes_t, int64_t n_cols,
-                     const int32_t* __restrict__ starts,
-                     const int32_t* __restrict__ lens,
-                     const int32_t* __restrict__ lut_idx,  // null: row w
-                     const uint32_t* __restrict__ luts,
-                     float* __restrict__ out, int m, int width) {
-  extern __shared__ uint4 smem[];
-  const uint32_t* lut = reinterpret_cast<const uint32_t*>(smem);
-  const int64_t w = blockIdx.x;
-  const int t = threadIdx.x;
-  const int64_t start = starts[w];
-  // rows this window reads: its length, cut to its width and to codes_t
-  int64_t n = lens[w];
-  n = n < width ? n : width;
-  n = n < n_cols - start ? n : n_cols - start;
-  const int len = (start < 0 || n < 0) ? 0 : static_cast<int>(n);
-  const float inf = __int_as_float(0x7f800000);
-
-  if (len > 0) {
-    constexpr int kWords = kPacked ? 128 : 256;
-    const int n16 = m * kWords / 4;   // 16-byte chunks in one LUT row
-    const int64_t row = lut_idx ? lut_idx[w] : w;
-    const uint4* src = reinterpret_cast<const uint4*>(luts + row * m * kWords);
-    for (int i = t; i < n16; i += kLanes) smem[i] = src[i];
-    __syncthreads();
-  }
-  const uint8_t* col = codes_t + start;
-
-  float best = inf;
-  int best_g = 0;
-  const int groups = width / kLanes;
-  for (int g = 0; g < groups; ++g) {
-    const int r = g * kLanes + t;
-    float acc = inf;
-    if (r < len) {
-      acc = 0.f;
-      const uint8_t* p = col + r;
-#pragma unroll 8
-      for (int j = 0; j < m; ++j, p += n_cols) {
-        acc += lut_entry<kPacked>(lut, j, *p);
-      }
-    }
-    if (kLaneL1) {
-      if (acc < best) {   // strict: the first group wins ties
-        best = acc;
-        best_g = g;
-      }
-    } else {
-      out[w * width + r] = acc;
-    }
-  }
-  if (kLaneL1) {
-    float* o = out + w * 2 * kLanes;
-    o[t] = best;
-    o[kLanes + t] = __int_as_float(best_g);
-  }
-}
-
-template <bool kPacked, bool kLaneL1>
-cudaError_t launch(const uint8_t* codes_t, int64_t n_cols,
-                   const int32_t* starts, const int32_t* lens,
-                   const int32_t* lut_idx, const uint32_t* luts, float* out,
-                   int bw, int m, int width, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(m) * (kPacked ? 128 : 256) * 4;
-  auto kernel = adc_scan_flat_kernel<kPacked, kLaneL1>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  kernel<<<bw, kLanes, smem, stream>>>(codes_t, n_cols, starts, lens, lut_idx,
-                                       luts, out, m, width);
-  return cudaGetLastError();
-}
+using namespace chamjax_stage;
 
 int run(const void* codes_t, long long n_cols, const void* starts,
         const void* lens, const void* lut_idx, const void* luts, void* out,
@@ -145,16 +81,23 @@ int run(const void* codes_t, long long n_cols, const void* starts,
   if (bw <= 0 || m <= 0 || n_cols <= 0 || width <= 0 || width % kLanes) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto* c = static_cast<const uint8_t*>(codes_t);
-  const auto* st = static_cast<const int32_t*>(starts);
-  const auto* ln = static_cast<const int32_t*>(lens);
-  const auto* li = static_cast<const int32_t*>(lut_idx);
-  const auto* lu = static_cast<const uint32_t*>(luts);
-  auto* o = static_cast<float*>(out);
-  auto s = static_cast<cudaStream_t>(stream);
-  auto go = lut_bf16 ? (lane_l1 ? launch<true, true> : launch<true, false>)
-                     : (lane_l1 ? launch<false, true> : launch<false, false>);
-  return static_cast<int>(go(c, n_cols, st, ln, li, lu, o, bw, m, width, s));
+  StageArgs a{};
+  a.codes = static_cast<const uint8_t*>(codes_t);
+  a.n_cols = n_cols;
+  a.where = static_cast<const int32_t*>(starts);
+  a.lens = static_cast<const int32_t*>(lens);
+  a.lut_idx = static_cast<const int32_t*>(lut_idx);
+  a.luts = static_cast<const uint32_t*>(luts);
+  a.out = out;
+  a.bw = bw;
+  a.m = m;
+  a.width = width;
+  auto go = lut_bf16
+      ? (lane_l1 ? launch_staged<true, kOutLaneL1, kBodyAdc, true>
+                 : launch_staged<true, kOutF32, kBodyAdc, true>)
+      : (lane_l1 ? launch_staged<false, kOutLaneL1, kBodyAdc, true>
+                 : launch_staged<false, kOutF32, kBodyAdc, true>);
+  return static_cast<int>(go(a, static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace

@@ -2,8 +2,9 @@
 
 Each ``chamjax_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, at first use,
-into ``chamjax_torch/build/`` (named by a hash of the source and flags, so
-an edited source rebuilds), and loaded with ``ctypes``.  Nothing here runs
+into ``chamjax_torch/build/`` (named by a hash of the source, the local
+headers it includes and the flags, so an edit to any of them rebuilds),
+and loaded with ``ctypes``.  Nothing here runs
 at import time: the CPU tests import every module on a machine with no
 ``nvcc``.
 
@@ -18,6 +19,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -64,8 +66,29 @@ def _nvcc() -> str:
                        "the CUDA kernels build only where the toolkit is")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _source_bytes(path: Path, seen: set) -> bytes:
+    """``path`` followed by every local header it includes (``#include
+    "x.cuh"``, found beside it), recursively, each once."""
+    if path in seen:
+        return b""
+    seen.add(path)
+    src = path.read_bytes()
+    parts = [src]
+    for inc in _INCLUDE.findall(src):
+        header = path.parent / inc.decode()
+        if header.exists():
+            parts.append(_source_bytes(header, seen))
+    return b"".join(parts)
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    """Where library ``name`` is built: named by a hash of its source, the
+    headers it includes and the compiler flags, so an edit to any of them
+    builds a new library."""
+    src = _source_bytes(CSRC_DIR / f"{name}.cu", set())
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -10,17 +10,20 @@ Phases (any failure exits non-zero and prints no result):
 
 1. Build the kernels (one ``nvcc`` per source, started together); print the
    card's name and power limit.
-2. Kernels vs plain versions, each timed with CUDA events (median of 30)
+2. Kernels vs plain versions, each timed on the device (``device_ms``:
+   CUDA events around back-to-back calls queued behind a spin kernel)
    beside its plain version and its bound:
    - ``adc_scan_tiles`` at the flagship shape (m=16, seg=512, bW=4096
      windows over 4096 random tiles, some windows empty, some partial) for
-     four option sets: f32 LUT, packed-bf16 LUT, bf16 distance output, and
-     the in-kernel lane-L1 reduction; and its ``debug_ablate`` measurement
-     bodies ``copy`` and ``nogather`` with f32 and packed LUTs (exact);
+     five option sets: f32 LUT, packed-bf16 LUT, bf16 distance output, the
+     in-kernel lane-L1 reduction, and packed LUTs shared by runs of 8
+     windows; and its ``debug_ablate`` measurement bodies ``copy`` and
+     ``nogather`` with f32 and packed LUTs (exact);
    - ``adc_scan_segments_multi`` (f32, packed, lane_l1) and
      ``adc_scan_segments`` (f32, packed) over a flat layout the size of the
      flagship's (16 x ~1.05M u8), bW=4096 windows of seg 512 whose starts
-     are multiples of 64, some empty, some partial;
+     are multiples of 64, some empty, some partial; and again with the
+     starts at every residue mod 16 over a layout whose n_cols is 7 mod 16;
    - ``adc_scan_distances`` at the shape of ``configs/vector_search.yaml``
      (IVF1024 over 1M: lists of ~1k rows with a tail), bp=4096, scan_len
      4096, list lengths from 0 to above scan_len;
@@ -71,6 +74,7 @@ beside the script.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -95,7 +99,9 @@ def fail(msg: str) -> int:
 
 
 def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
-    """Median of ``reps`` CUDA-event timings of one call of ``fn``."""
+    """Median of ``reps`` CUDA-event timings of one call of ``fn`` as the
+    host enqueues it: the host's time where it is the longer (the search
+    stages)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -112,9 +118,21 @@ def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
+def device_ms(fn, plain: bool = False) -> float:
+    """Device time of one call of a kernel's wrapper (or, ``plain``, of its
+    plain version): ``kernel_variants.event_ms``, which holds the card
+    while the host enqueues the calls, so the wrapper's host time is not
+    counted.  ``time_ms`` above times a call as it is enqueued: for a short
+    kernel that is the host's time."""
+    from chamjax_torch.benchmarks.kernel_variants import event_ms
+    if plain:
+        return event_ms(fn, launches=3, reps=5, warmup=1)
+    return event_ms(fn, launches=20, reps=9)
+
+
 def hold(name, fn, ref, args, kw, ref_kw, bound):
     """Launch ``fn``, synchronise, compare with the plain version ``ref`` on
-    the same inputs (``check_scan``), and time both (median of 30).
+    the same inputs (``check_scan``), and time both (``device_ms``).
     ``bound(out)`` gives (ms, by).  Returns the measurement, or raises."""
     import torch
     got = fn(*args, **kw)
@@ -126,8 +144,8 @@ def hold(name, fn, ref, args, kw, ref_kw, bound):
     if not ok:
         raise AssertionError(f"{name} disagrees with its plain version "
                              f"(max abs err {err})")
-    ms = time_ms(lambda: fn(*args, **kw))
-    plain_ms = time_ms(lambda: ref(*args, **ref_kw))
+    ms = device_ms(lambda: fn(*args, **kw))
+    plain_ms = device_ms(lambda: ref(*args, **ref_kw), plain=True)
     bound_ms, bound_by = bound(got)
     log(f"{name}: ok, max_abs_err={err:.3g} kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
@@ -200,10 +218,14 @@ def kernel_phase(dev):
     lens[1::8] = 0                     # one in eight empty
     luts_f32 = torch.rand((n_lut, m, 256), generator=g, device=dev) * 4.0
     luts_bf = pack_luts_bf16(luts_f32)
+    # runs of 8 windows that share a LUT row (the staged row is kept)
+    lut_runs = torch.randint(0, n_lut, (bw // 8,), generator=g, device=dev,
+                             dtype=torch.int32).repeat_interleave(8)
     sets = [("f32_lut", dict(lut_bf16=False)),
             ("bf16_lut", dict(lut_bf16=True)),
             ("bf16_lut_dist_bf16", dict(lut_bf16=True, dist_bf16=True)),
-            ("bf16_lut_lane_l1", dict(lut_bf16=True, lane_l1=True))]
+            ("bf16_lut_lane_l1", dict(lut_bf16=True, lane_l1=True)),
+            ("bf16_lut_runs8", dict(lut_bf16=True))]
     # the debug_ablate measurement bodies (exact: a code, or a sum of codes)
     sets += [(f"{lut}_lut_{body}", dict(lut_bf16=lut == "bf16",
                                         debug_ablate=body))
@@ -211,7 +233,8 @@ def kernel_phase(dev):
     results = []
     for name, opt in sets:
         luts = luts_bf if opt["lut_bf16"] else luts_f32
-        args = (codes, tile_idx, lens, lut_idx, luts)
+        args = (codes, tile_idx, lens,
+                lut_runs if name.endswith("runs8") else lut_idx, luts)
         got = adc_scan_tiles(*args, seg=seg, group=GROUP, **opt)
         torch.cuda.synchronize()
         want = adc_scan_tiles_reference(*args, seg=seg, **opt)
@@ -225,10 +248,10 @@ def kernel_phase(dev):
         if not ok:
             raise AssertionError(f"adc_scan_tiles[{name}] disagrees with its "
                                  f"plain version (max abs err {err})")
-        ms = time_ms(lambda: adc_scan_tiles(*args, seg=seg, group=GROUP,
-                                            **opt))
-        plain_ms = time_ms(lambda: adc_scan_tiles_reference(*args, seg=seg,
-                                                            **opt))
+        ms = device_ms(lambda: adc_scan_tiles(*args, seg=seg, group=GROUP,
+                                              **opt))
+        plain_ms = device_ms(lambda: adc_scan_tiles_reference(
+            *args, seg=seg, **opt), plain=True)
         out_bytes = got.numel() * got.element_size()
         bound_ms, bound_by = (
             ablate_bound(opt["debug_ablate"], codes, tile_idx, out_bytes)
@@ -270,10 +293,19 @@ def flat_kernel_phase(dev):
     lens[1::8] = 0                     # one in eight empty (start 0)
     starts[1::8] = 0
     lut_idx = rng.integers(0, bw, bw)
-    starts, lens, lut_idx = (torch.from_numpy(a.astype(np.int32)).to(dev)
-                             for a in (starts, lens, lut_idx))
+    # the same windows at every start residue mod 16 over a layout whose
+    # n_cols is 7 mod 16, so each code row has its own misalignment
+    n_cols_u = n_cols + 7
+    codes_u = torch.randint(0, 256, (m, n_cols_u), generator=g, device=dev,
+                            dtype=torch.uint8)
+    starts_u = starts + np.arange(bw) % 16
+    starts_u[1::8] = 0
+    starts, starts_u, lens, lut_idx = (
+        torch.from_numpy(a.astype(np.int32)).to(dev)
+        for a in (starts, starts_u, lens, lut_idx))
     luts_f32 = torch.rand((bw, m, 256), generator=g, device=dev) * 4.0
     luts_bf = pack_luts_bf16(luts_f32)
+    layouts = (("", codes_t, starts), ("unaligned_", codes_u, starts_u))
     out = {}
     for name, fn, ref, sets in (
             ("adc_scan_segments_multi", adc_scan_segments_multi,
@@ -286,18 +318,19 @@ def flat_kernel_phase(dev):
              [("f32_lut", dict(lut_bf16=False)),
               ("bf16_lut", dict(lut_bf16=True))])):
         out[name] = []
-        for opt_name, opt in sets:
+        for (prefix, codes, sts), (opt_name, opt) in itertools.product(
+                layouts, sets):
             luts = luts_bf if opt["lut_bf16"] else luts_f32
-            args = (codes_t, starts, lens, lut_idx, luts)
+            args = (codes, sts, lens, lut_idx, luts)
             kw = dict(seg=seg, **opt)
             if fn is adc_scan_segments_multi:
                 kw["group"] = GROUP
             ref_kw = dict(seg=seg, **opt)
-            r = hold(f"{name}[{opt_name}]", fn, ref, args, kw, ref_kw,
+            r = hold(f"{name}[{prefix}{opt_name}]", fn, ref, args, kw, ref_kw,
                      lambda o, a=args: flat_bound(
                          *a, width=seg, n_idx=3,
                          out_bytes=o.numel() * o.element_size()))
-            out[name].append(dict(options=opt_name, **r))
+            out[name].append(dict(options=prefix + opt_name, **r))
 
     # adc_scan_distances: IVF1024 over 1M rows, lists of ~1k rows with a
     # tail (gamma-distributed, some empty, a few longer than scan_len),
@@ -458,10 +491,11 @@ def main_path(dev):
     ok, err = check_scan(got, want, dist_bf16=False)
     if not ok:
         raise AssertionError(f"kernel vs plain on main-path inputs: {err}")
-    k_ms = time_ms(lambda: adc_scan_tiles(*args, seg=SEG, group=GROUP,
-                                          lut_bf16=True))
-    p_ms = time_ms(lambda: adc_scan_tiles_reference(*args, seg=SEG,
-                                                    lut_bf16=True))
+    k_ms = device_ms(lambda: adc_scan_tiles(*args, seg=SEG, group=GROUP,
+                                            lut_bf16=True))
+    p_ms = device_ms(lambda: adc_scan_tiles_reference(*args, seg=SEG,
+                                                      lut_bf16=True),
+                     plain=True)
     b_ms, b_by = scan_bound(*args, got.numel() * 4)
     main_kernel = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                        bound_ms=b_ms, bound_by=b_by,
@@ -477,7 +511,8 @@ def main_path(dev):
         "windows": time_ms(lambda: prepare_luts(luts, expand_windows(
             list_ids, dv.list_start, dv.list_len, windows=s.windows,
             seg=SEG)[2], lut_bf16=True)),
-        "scan": k_ms,
+        "scan": time_ms(lambda: adc_scan_tiles(*args, seg=SEG, group=GROUP,
+                                               lut_bf16=True)),
         "topk": time_ms(lambda: select_topk(flat, K)),
     }
 

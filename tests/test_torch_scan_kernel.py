@@ -3,6 +3,8 @@
 The CUDA kernel itself is held against the plain version on the card by
 ``tests/test_torch_gpu.py`` and ``chip_smoke.py``."""
 
+import shutil
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -156,3 +158,25 @@ def test_cuda_loader_layout():
             assert f'extern "C" int {fn}(' in src, fn
         assert 'extern "C" const char* chamjax_cuda_error_string' in src
     assert "arch=compute_90a,code=sm_90a" in cuda_lib.NVCC_FLAGS
+
+
+def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
+    """An edit to the shared staged body (adc_scan_stage.cuh) names a new
+    library for both scans that include it, and not for the others; an edit
+    to a source does the same for that source alone."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_lib.CSRC_DIR, csrc)
+    monkeypatch.setattr(cuda_lib, "CSRC_DIR", csrc)
+    before = {n: cuda_lib.library_path(n) for n in cuda_lib.SOURCES}
+    header = csrc / "adc_scan_stage.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    after = {n: cuda_lib.library_path(n) for n in cuda_lib.SOURCES}
+    for name in ("adc_scan_tiles", "adc_scan_flat"):
+        assert after[name] != before[name], name
+        assert after[name].parent == cuda_lib.BUILD_DIR
+    assert after["adc_scan_variants"] == before["adc_scan_variants"]
+    src = csrc / "adc_scan_flat.cu"
+    src.write_bytes(src.read_bytes() + b"\n")
+    again = {n: cuda_lib.library_path(n) for n in cuda_lib.SOURCES}
+    assert again["adc_scan_flat"] != after["adc_scan_flat"]
+    assert again["adc_scan_tiles"] == after["adc_scan_tiles"]
