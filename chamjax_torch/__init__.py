@@ -1,4 +1,5 @@
-"""chamjax_torch — the IVF-PQ query path of chamjax in PyTorch and CUDA.
+"""chamjax_torch — chamjax's IVF-PQ query path and RALM serving loop in
+PyTorch and CUDA.
 
 A port of the JAX package ``chamjax`` to PyTorch on an NVIDIA Hopper card.
 Module names mirror ``chamjax/`` so each counterpart is easy to find:
@@ -13,12 +14,24 @@ Module names mirror ``chamjax/`` so each counterpart is easy to find:
 - ``chamjax_torch.searcher`` — ``DeviceIVF`` and ``IVFSearcher``.
 - ``chamjax_torch.streamed`` — ``HostStreamedSearcher``: codes and ids in
   host memory, each batch's probed windows staged to the card.
+- ``chamjax_torch.models``  — the decoder and encoder-decoder transformer
+  (``init_decoder``, ``init_encoder_decoder``, ``decoder_prefill``,
+  ``decoder_step``, ``encoder_forward``) and the llama family
+  (``init_llama``, ``llama_prefill``, ``llama_step``), with in-place KV
+  caches; ``models.convert`` carries the JAX package's parameters across.
+- ``chamjax_torch.retrieval`` — the retriever contract and the in-process
+  retrievers ``LocalRetriever`` (over a ``PackedIVF``) and
+  ``DeviceRetriever`` (over a ``DeviceIVF``), whose ``retrieve_device``
+  takes and returns tensors on the card.
+- ``chamjax_torch.serving`` — ``RalmDecoder`` and ``RalmEncoderDecoder``:
+  decode steps fused with the on-card retrieval, and ``StepProfiler``.
 
 The package imports ``torch`` and ``numpy`` only; it never imports ``jax``
 or ``chamjax``.  Entry points (``IVFSearcher``, ``HostStreamedSearcher``,
-``build_ivfpq``, ``compute_ground_truth``, ``DeviceIVF.from_packed``) run on the card unless
-the caller passes ``device="cpu"``; with no card and no explicit CPU device
-they raise.
+``build_ivfpq``, ``compute_ground_truth``, ``DeviceIVF.from_packed``, the
+model inits and converters, the retrievers, and through their parameters
+the RALM loops) run on the card unless the caller passes ``device="cpu"``;
+with no card and no explicit CPU device they raise.
 """
 
 __version__ = "0.1.0"

@@ -1,15 +1,17 @@
-"""Index and search configuration: the port's copy of the two dataclasses
-of ``chamjax/config.py`` that the IVF-PQ query path reads.
+"""Index, search and model configuration: the port's copy of the
+dataclasses of ``chamjax/config.py`` that the IVF-PQ query path and the
+RALM serving path read, and of ``MODEL_PRESETS``.
 
 Field names and defaults are identical to the JAX package's, so an index's
 saved ``cfg`` (the ``repr`` of ``dataclasses.asdict``) loads in either
-package.  The model, mesh, service and YAML parts wait for the slices that
-need them.
+package.  The mesh, service and YAML parts wait for the slices that need
+them.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Dict
 
 
 @dataclass(frozen=True)
@@ -110,3 +112,52 @@ class SearchConfig:
     # boundary) as a second device copy; False scans the flat layout alone
     # (less device memory).  The host-streamed tier reads it too.
     tiled: bool = True
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Transformer shape, mirroring ``experiments/config/{Dec-S,...}.yaml``."""
+
+    model_type: str = "decoder"      # "decoder" | "encoder-decoder" | "llama"
+    embed_dim: int = 512
+    ffn_embed_dim: int = 2048
+    layers: int = 24
+    attention_heads: int = 8
+    encoder_layers: int = 2          # enc-dec only
+    vocab_size: int = 50000
+    max_seq_len: int = 512
+    dtype: str = "bfloat16"
+    # llama family only (RMSNorm + rotary + SwiGLU, optional GQA)
+    kv_heads: int = 0                # 0 → = attention_heads (MHA)
+    rope_theta: float = 10000.0
+    # retrieval plumbing
+    retrieval_interval: int = 1
+    retrieval_token_len: int = 64    # enc-dec: tokens per retrieved doc
+    k: int = 10                      # neighbours per retrieval
+
+
+# Model presets matching the reference experiment shapes
+# (``experiments/config/{Dec-S,Dec-L,EncDec-S,EncDec-L}.yaml``) and the
+# llama family at the same scales, plus the canonical 7B shape.
+MODEL_PRESETS: Dict[str, ModelConfig] = {
+    "Dec-S": ModelConfig(model_type="decoder", embed_dim=512,
+                         ffn_embed_dim=2048, layers=24, attention_heads=8),
+    "Dec-L": ModelConfig(model_type="decoder", embed_dim=1024,
+                         ffn_embed_dim=4096, layers=96, attention_heads=16),
+    "EncDec-S": ModelConfig(model_type="encoder-decoder", embed_dim=512,
+                            ffn_embed_dim=2048, layers=24, attention_heads=8,
+                            encoder_layers=2, retrieval_interval=8, k=10),
+    "EncDec-L": ModelConfig(model_type="encoder-decoder", embed_dim=1024,
+                            ffn_embed_dim=4096, layers=96, attention_heads=16,
+                            encoder_layers=2, retrieval_interval=8, k=10),
+    "Llama-S": ModelConfig(model_type="llama", embed_dim=512,
+                           ffn_embed_dim=1408, layers=24, attention_heads=8,
+                           kv_heads=4),
+    "Llama-L": ModelConfig(model_type="llama", embed_dim=1024,
+                           ffn_embed_dim=2816, layers=96, attention_heads=16,
+                           kv_heads=4),
+    "Llama-7B": ModelConfig(model_type="llama", embed_dim=4096,
+                            ffn_embed_dim=11008, layers=32,
+                            attention_heads=32, kv_heads=32,
+                            vocab_size=32000, max_seq_len=512),
+}

@@ -1,0 +1,5 @@
+from chamjax_torch.serving.profiling import StepProfiler  # noqa: F401
+from chamjax_torch.serving.ralm import (  # noqa: F401
+    RalmDecoder,
+    RalmEncoderDecoder,
+)

@@ -1,0 +1,318 @@
+"""RALM generation loops: retrieval-augmented decoding (the port of
+``chamjax/serving/ralm.py``).
+
+- ``RalmDecoder``        — decoder-only generation (the decoder and the
+  llama families) with retrieval every ``retrieval_interval`` steps; the
+  retrieval query is the last hidden state or a replayed ``query_set``.
+- ``RalmEncoderDecoder`` — enc-dec RALM: a retrieval step encodes the query,
+  retrieves k neighbours, encodes k·retrieval_token_len retrieved tokens and
+  refreshes the decoder's cross-attention K/V; the other steps reuse it.
+
+With a retriever that has ``retrieve_device`` and no query replay, the
+whole step chain (decode → hidden state → search, and for enc-dec →
+token synthesis → encode → cross K/V) stays on the device: no step reads a
+device value on the host, and the per-step spans time the host's enqueue.
+``batch_inference`` ends with the one device sync of a batch.
+"""
+
+from __future__ import annotations
+
+import functools
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from chamjax_torch.config import ModelConfig
+from chamjax_torch.models import (
+    KVCache,
+    TransformerParams,
+    decoder_step,
+    encoder_forward,
+    init_kv_cache,
+)
+from chamjax_torch.models.llama import init_llama_kv_cache, llama_step
+from chamjax_torch.models.transformer import build_cross_kv
+from chamjax_torch.retrieval.interface import BaseRetriever
+from chamjax_torch.serving.profiling import StepProfiler
+
+_U32 = 0xFFFFFFFF
+
+
+def _ids_to_tokens(ids: np.ndarray, tokens_per_doc: int, vocab: int,
+                   seed: int = 7) -> np.ndarray:
+    """Deterministically expand neighbour ids → pseudo token sequences
+    (the reference synthesizes retrieved-document tokens for perf-parity
+    benchmarking; derived from the ids, so reproducible and
+    content-dependent)."""
+    b, k = ids.shape
+    base = (ids.astype(np.int64)[:, :, None] * 2654435761 + seed
+            + np.arange(tokens_per_doc)[None, None, :] * 40503)
+    return np.abs(base % max(vocab - 2, 1)).astype(np.int32).reshape(b, -1) + 1
+
+
+def _mul_u32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``x · c mod 2^32`` for int64 ``x`` in [0, 2^32) and ``c`` < 2^32,
+    with no intermediate past 2^49: ``c`` is split into 16-bit halves."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _U32
+
+
+def _ids_to_tokens_device(ids: torch.Tensor, tokens_per_doc: int, vocab: int,
+                          seed: int = 7) -> torch.Tensor:
+    """Device twin of ``_ids_to_tokens``, so the enc-dec retrieval step never
+    leaves the device: the JAX package's uint32 wrapping hash, bit for bit
+    (an id of -1 hashes as 4294967295).  torch has no full uint32
+    arithmetic, so the hash runs in int64 reduced mod 2^32."""
+    b, k = ids.shape
+    x = ids.long() & _U32                                   # as uint32
+    t = torch.arange(tokens_per_doc, dtype=torch.int64, device=ids.device)
+    base = (_mul_u32(x, 2654435761)[:, :, None] + seed
+            + t[None, None, :] * 40503) & _U32
+    return (base % max(vocab - 2, 1)).to(torch.int32).reshape(b, -1) + 1
+
+
+def step_fns(cfg: ModelConfig):
+    """``(step, new_cache)`` of ``cfg``'s family: ``llama_step`` and
+    ``init_llama_kv_cache`` for llama, else ``decoder_step`` and
+    ``init_kv_cache``; ``step(params, tokens, cache, **cross)`` has the
+    config's heads (and rotary settings) bound."""
+    if cfg.model_type == "llama":
+        return (functools.partial(llama_step, heads=cfg.attention_heads,
+                                  kv_heads=cfg.kv_heads,
+                                  theta=cfg.rope_theta),
+                init_llama_kv_cache)
+    return (functools.partial(decoder_step, heads=cfg.attention_heads),
+            init_kv_cache)
+
+
+def _block(t: torch.Tensor) -> None:
+    """Wait for ``t`` (``block_until_ready``): on the host-retriever path
+    only."""
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+
+
+def _finish(device: torch.device) -> None:
+    """The one device sync of a batch; allowed under
+    ``torch.cuda.set_sync_debug_mode``, which flags every other."""
+    if device.type != "cuda":
+        return
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(0)
+    try:
+        torch.cuda.synchronize(device)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+
+
+class RalmDecoder:
+    """Decoder-only RALM loop (reference ``ralmDecoder``), for the decoder
+    and the llama families.  Runs on the parameters' device."""
+
+    def __init__(
+        self,
+        params,
+        cfg: ModelConfig,
+        retriever: BaseRetriever,
+        batch_size: int,
+        retrieval_interval: Optional[int] = None,
+        nprobe: int = 32,
+        k: Optional[int] = None,
+        query_set: Optional[np.ndarray] = None,
+        use_query_set: bool = False,
+    ):
+        self.params = params
+        self.cfg = cfg
+        self.retriever = retriever
+        self.batch = batch_size
+        self.interval = retrieval_interval or cfg.retrieval_interval
+        self.nprobe = nprobe
+        self.k = k or cfg.k
+        self.query_set = query_set      # (steps, b, dim) replay buffer
+        self.use_query_set = use_query_set
+        self.device = params.embed.device
+        self.prof = StepProfiler()
+        self._step_fn, new_cache = step_fns(cfg)
+        self._cache_fn = functools.partial(new_cache, cfg, batch_size,
+                                           device=self.device)
+        self.reset_inference_state()
+
+    def reset_inference_state(self) -> None:
+        self.cache: KVCache = self._cache_fn()
+        self.tokens = torch.ones((self.batch,), dtype=torch.int32,
+                                 device=self.device)
+        self.step_count = 0
+        self.last_result = None
+        self.prof.reset()
+
+    def _query_vector(self, hidden: torch.Tensor) -> np.ndarray:
+        if self.use_query_set and self.query_set is not None:
+            return self.query_set[self.step_count % len(self.query_set)]
+        return hidden.float().cpu().numpy()
+
+    @property
+    def _device_path(self) -> bool:
+        """Fused path: when the retriever takes device tensors and no query
+        replay is requested, decode → retrieve stays on the device with no
+        per-step host transfer."""
+        return (hasattr(self.retriever, "retrieve_device")
+                and not self.use_query_set)
+
+    def single_step(self) -> None:
+        with self.prof.step_span():
+            with self.prof.model_span():
+                logits, hidden, self.cache = self._step_fn(
+                    self.params, self.tokens, self.cache)
+                self.tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+                if not self._device_path:
+                    _block(hidden)
+            if self.step_count % self.interval == 0:
+                with self.prof.retriever_span():
+                    if self._device_path:
+                        self.last_result = self.retriever.retrieve_device(
+                            hidden.float(), self.nprobe, self.k)
+                    else:
+                        self.last_result = self.retriever.retrieve(
+                            self._query_vector(hidden), self.nprobe, self.k)
+            else:
+                self.prof.time_retriever.append(0.0)
+        self.step_count += 1
+
+    def multi_steps(self, n: int) -> None:
+        for _ in range(n):
+            self.single_step()
+
+    def batch_inference(self, num_step: Optional[int] = None) -> None:
+        """Runs ``num_step`` steps; ``self.total_wall_s`` then holds the
+        wall-clock including a final device sync (per-step spans are the
+        host's enqueue times on the fused device path)."""
+        t0 = time.perf_counter()
+        self.multi_steps(num_step or self.cfg.max_seq_len)
+        _finish(self.device)
+        self.total_wall_s = time.perf_counter() - t0
+
+    def throughput_tokens_per_sec(self, num_step: Optional[int] = None
+                                  ) -> float:
+        n = num_step or self.step_count
+        return self.batch * n / self.total_wall_s
+
+    def get_profiling(self):
+        return self.prof.get_profiling()
+
+    def print_profiling_stats(self, warmup: int = 0) -> None:
+        self.prof.print_stats(self.batch, warmup)
+
+
+class RalmEncoderDecoder:
+    """Encoder-decoder RALM loop (reference ``ralmEncoderDecoder``).  Runs
+    on the parameters' device."""
+
+    def __init__(
+        self,
+        enc_params: TransformerParams,
+        dec_params: TransformerParams,
+        cfg: ModelConfig,
+        retriever: BaseRetriever,
+        batch_size: int,
+        retrieval_interval: Optional[int] = None,
+        nprobe: int = 32,
+        k: Optional[int] = None,
+        retrieval_token_len: Optional[int] = None,
+    ):
+        self.enc = enc_params
+        self.dec = dec_params
+        self.cfg = cfg
+        self.retriever = retriever
+        self.batch = batch_size
+        self.interval = retrieval_interval or cfg.retrieval_interval
+        self.nprobe = nprobe
+        self.k = k or cfg.k
+        self.tok_len = retrieval_token_len or cfg.retrieval_token_len
+        self.device = dec_params.embed.device
+        self.prof = StepProfiler()
+        self.reset_inference_state()
+
+    def reset_inference_state(self) -> None:
+        self.cache: KVCache = init_kv_cache(self.cfg, self.batch,
+                                            device=self.device)
+        self.tokens = torch.ones((self.batch,), dtype=torch.int32,
+                                 device=self.device)
+        self.step_count = 0
+        self.cross_kv = None
+        self.last_result = None
+        self.prof.reset()
+
+    def _retrieval_step(self) -> None:
+        device_path = hasattr(self.retriever, "retrieve_device")
+        # 1. encode the current query token window → query vector
+        q_tokens = self.tokens[:, None].expand(self.batch, 1)
+        with self.prof.model_span():
+            enc_q = encoder_forward(self.enc, q_tokens,
+                                    self.cfg.attention_heads)
+        # 2. retrieve  3. encode retrieved tokens → fresh decoder cross K/V;
+        # with a device retriever the chain stays on the device
+        if device_path:
+            with self.prof.retriever_span():
+                res = self.retriever.retrieve_device(
+                    enc_q[:, -1, :].float(), self.nprobe, self.k)
+            ret_tokens = _ids_to_tokens_device(
+                res.ids, self.tok_len, self.cfg.vocab_size
+            )[:, : self.cfg.max_seq_len]
+        else:
+            query = enc_q[:, -1, :].float().cpu().numpy()
+            with self.prof.retriever_span():
+                res = self.retriever.retrieve(query, self.nprobe, self.k)
+            ids = res.ids if res is not None else np.zeros(
+                (self.batch, self.k), np.int64)
+            ret_tokens = torch.from_numpy(_ids_to_tokens(
+                ids, self.tok_len, self.cfg.vocab_size
+            )[:, : self.cfg.max_seq_len]).to(self.device)
+        self.last_result = res
+        with self.prof.model_span():
+            enc_out = encoder_forward(
+                self.enc, ret_tokens, self.cfg.attention_heads)
+            self.cross_kv = build_cross_kv(self.dec, enc_out,
+                                           self.cfg.attention_heads)
+            if not device_path:
+                _block(self.cross_kv[0])
+
+    def single_step(self) -> None:
+        with self.prof.step_span():
+            if self.step_count % self.interval == 0 or self.cross_kv is None:
+                self._retrieval_step()
+            else:
+                self.prof.time_retriever.append(0.0)
+            with self.prof.model_span():
+                logits, hidden, self.cache = decoder_step(
+                    self.dec, self.tokens, self.cache,
+                    self.cfg.attention_heads, cross_kv=self.cross_kv,
+                )
+                self.tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+                if not hasattr(self.retriever, "retrieve_device"):
+                    _block(hidden)
+        self.step_count += 1
+
+    def multi_steps(self, n: int) -> None:
+        for _ in range(n):
+            self.single_step()
+
+    def batch_inference(self, num_step: Optional[int] = None) -> None:
+        """Runs ``num_step`` steps; ``self.total_wall_s`` holds the
+        wall-clock including a final device sync."""
+        t0 = time.perf_counter()
+        self.multi_steps(num_step or self.cfg.max_seq_len)
+        _finish(self.device)
+        self.total_wall_s = time.perf_counter() - t0
+
+    def throughput_tokens_per_sec(self, num_step: Optional[int] = None
+                                  ) -> float:
+        n = num_step or self.step_count
+        return self.batch * n / self.total_wall_s
+
+    def get_profiling(self):
+        return self.prof.get_profiling()
+
+    def print_profiling_stats(self, warmup: int = 0) -> None:
+        self.prof.print_stats(self.batch, warmup)

@@ -2,7 +2,9 @@
 """Smoke test of chamjax_torch on one NVIDIA card: builds the CUDA kernels
 from ``chamjax_torch/csrc``, holds each against its plain PyTorch version,
 then drives every scan route of the IVF-PQ query path at the 1M flagship
-size.
+size, the kernel study, and the RALM serving path (decode fused with the
+on-card retrieval) at the full width of the Dec-S, Llama-S and EncDec-S
+presets.
 
     python3 chip_smoke.py
 
@@ -64,8 +66,26 @@ Phases (any failure exits non-zero and prints no result):
    block_bf16nogather`` at seg 1024 and 2048, runlen 0 and 8; each
    configuration's first output is held against its plain version at
    that shape before it is timed.
-6. Print the kernels line, the main-path line, the routes line, the
-   kernel-study line, and the result line.
+6. The RALM serving path (``chamjax_torch.benchmarks.ralm_device_bench``,
+   its non-streamed leg): ``synthetic_dataset`` (1M x 512, 4096 clusters,
+   seed 11) → ``build_ivfpq`` (IVF4096 + PQ16, balanced 1.3, 8 k-means and
+   8 PQ iterations) behind one ``LocalRetriever`` (nprobe 32, k 10: the
+   tiled kernel); Dec-S and Llama-S at retrieval interval 1 and EncDec-S at
+   its preset interval 8, full width in bf16 (random weights, seed 0),
+   batch 64, 8 warmup and 128 timed steps.  The timed steps run under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync) with the
+   launch counts set to 0 just before and read just after
+   (``adc_scan_tiles`` must have launched).  Then, per preset: 8 more steps
+   traced (kernel launches and device time a step, busy share); the last
+   step's hidden states searched again by ``retrieve_device`` and by
+   ``IVFSearcher.search``, both equal to the fused result up to ties; the
+   tiled kernel held against its plain version on that step's windows and
+   timed beside its bound.  Last, the first 4 decode steps of Dec-S and
+   Llama-S at batch 4, bf16 on the card against the same parameters in
+   f32 on the CPU (logits within 0.03 of the f32 logits' largest
+   magnitude).
+7. Print the kernels line, the main-path line, the routes line, the
+   kernel-study line, the ralm line, and the result line.
 
 Needs the card, the CUDA toolkit (``nvcc``) and the rest of this repository
 beside the script.
@@ -73,6 +93,7 @@ beside the script.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import itertools
 import json
@@ -390,11 +411,43 @@ def time_search(dev_index, kw, xq_dev):
     return res
 
 
+def tiles_on_queries(name, s, q, nprobe):
+    """``adc_scan_tiles`` on the windows that one search of the queries
+    ``q`` by the tiled ``IVFSearcher`` ``s`` scans (its seg, window budget
+    and LUT type; windows in probe order), held against its plain version
+    and timed beside it (``hold``), with its bound.  Returns the
+    measurement and the stage inputs (``qr``, ``list_ids``, ``luts``, the
+    kernel's ``args`` and ``kw``)."""
+    from chamjax_torch.benchmarks.bounds import tile_scan_bound
+    from chamjax_torch.ops.coarse import select_probes
+    from chamjax_torch.ops.lut import build_luts
+    from chamjax_torch.ops.scan_seg import expand_windows, prepare_luts
+    from chamjax_torch.ops.scan_seg_block import (adc_scan_tiles,
+                                                  adc_scan_tiles_reference)
+    from chamjax_torch.searcher import _rotate
+    dv, seg, lut_bf16 = s.dev, s.seg, s.scfg.lut_bf16
+    qr = _rotate(dv, q)
+    list_ids, _ = select_probes(qr, dv.centroids, nprobe)
+    luts = build_luts(qr, dv.centroids, dv.codebooks, list_ids)
+    starts, lens, probe, _ = expand_windows(list_ids, dv.list_start,
+                                            dv.list_len, windows=s.windows,
+                                            seg=seg)
+    luts_k, lut_idx = prepare_luts(luts, probe, lut_bf16=lut_bf16)
+    args = (dv.codes_tiled, (starts // seg).reshape(-1).contiguous(),
+            lens.reshape(-1).contiguous(), lut_idx, luts_k)
+    kw = dict(seg=seg, group=GROUP, lut_bf16=lut_bf16)
+    measured = hold(name, adc_scan_tiles, adc_scan_tiles_reference, args, kw,
+                    dict(seg=seg, lut_bf16=lut_bf16),
+                    lambda o: tile_scan_bound(*args, o.numel() * 4))
+    measured["windows"] = int(args[1].numel())
+    return dict(measured=measured, qr=qr, list_ids=list_ids, luts=luts,
+                args=args, kw=kw)
+
+
 def main_path(dev):
     """Phase 3: the port's IVF-PQ query path at the 1M flagship."""
     import numpy as np
     import torch
-    from chamjax_torch.benchmarks.bounds import tile_scan_bound as scan_bound
     from chamjax_torch.config import IndexConfig, SearchConfig
     from chamjax_torch.data import compute_ground_truth, synthetic_dataset
     from chamjax_torch.eval import recall_at_k
@@ -402,12 +455,10 @@ def main_path(dev):
     from chamjax_torch.ops.coarse import select_probes
     from chamjax_torch.ops.lut import build_luts
     from chamjax_torch.ops.scan_seg import expand_windows, prepare_luts
-    from chamjax_torch.ops.scan_seg_block import (adc_scan_tiles,
-                                                  adc_scan_tiles_reference)
+    from chamjax_torch.ops.scan_seg_block import adc_scan_tiles
     from chamjax_torch.ops.topk import select_topk
     from chamjax_torch.searcher import IVFSearcher, _rotate
     from chamjax_torch.utils import cuda_lib
-    from chamjax_torch.utils.precision import fp32_matmul
 
     t0 = time.perf_counter()
     ds = synthetic_dataset(**FLAGSHIP)
@@ -476,33 +527,13 @@ def main_path(dev):
     # kernel vs plain on one real main-path batch (not counted above)
     q = torch.as_tensor(xq[:BATCH]).to(dev)
     dv = s.dev
-    with fp32_matmul():
-        qr = q @ dv.opq_R
-    list_ids, _ = select_probes(qr, dv.centroids, NPROBE)
-    luts = build_luts(qr, dv.centroids, dv.codebooks, list_ids)
-    starts, lens, probe, _ = expand_windows(list_ids, dv.list_start,
-                                            dv.list_len, windows=s.windows,
-                                            seg=SEG)
-    luts_k, lut_idx = prepare_luts(luts, probe, lut_bf16=True)
-    args = (dv.codes_tiled, (starts // SEG).reshape(-1).contiguous(),
-            lens.reshape(-1).contiguous(), lut_idx, luts_k)
-    got = adc_scan_tiles(*args, seg=SEG, group=GROUP, lut_bf16=True)
-    want = adc_scan_tiles_reference(*args, seg=SEG, lut_bf16=True)
-    ok, err = check_scan(got, want, dist_bf16=False)
-    if not ok:
-        raise AssertionError(f"kernel vs plain on main-path inputs: {err}")
-    k_ms = device_ms(lambda: adc_scan_tiles(*args, seg=SEG, group=GROUP,
-                                            lut_bf16=True))
-    p_ms = device_ms(lambda: adc_scan_tiles_reference(*args, seg=SEG,
-                                                      lut_bf16=True),
-                     plain=True)
-    b_ms, b_by = scan_bound(*args, got.numel() * 4)
-    main_kernel = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                       bound_ms=b_ms, bound_by=b_by,
-                       windows=int(args[1].numel()))
+    scan = tiles_on_queries("adc_scan_tiles[main path]", s, q, NPROBE)
+    qr, list_ids, luts = scan["qr"], scan["list_ids"], scan["luts"]
+    args, kw_k = scan["args"], scan["kw"]
+    main_kernel = scan["measured"]
 
     # stage times of one b=128 search (CUDA events, median of 30)
-    flat = got.reshape(BATCH, -1)
+    flat = adc_scan_tiles(*args, **kw_k).reshape(BATCH, -1)
     stages = {
         "rotate": time_ms(lambda: _rotate(dv, q)),
         "coarse": time_ms(lambda: select_probes(qr, dv.centroids, NPROBE)),
@@ -511,8 +542,7 @@ def main_path(dev):
         "windows": time_ms(lambda: prepare_luts(luts, expand_windows(
             list_ids, dv.list_start, dv.list_len, windows=s.windows,
             seg=SEG)[2], lut_bf16=True)),
-        "scan": time_ms(lambda: adc_scan_tiles(*args, seg=SEG, group=GROUP,
-                                               lut_bf16=True)),
+        "scan": time_ms(lambda: adc_scan_tiles(*args, **kw_k)),
         "topk": time_ms(lambda: select_topk(flat, K)),
     }
 
@@ -811,6 +841,31 @@ def variants_phase(dev):
     return out
 
 
+def device_events(prof, annotation: str):
+    """The CUDA events of a ``tracing.trace`` window, less the
+    annotation's own device-side range: ``(kernels, copies)``, copies being
+    the Memcpy and Memset events."""
+    import torch
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and e.name != annotation]
+    copy = ("Memcpy", "Memset")
+    return ([e for e in events if not e.name.startswith(copy)],
+            [e for e in events if e.name.startswith(copy)])
+
+
+def busy_us(events) -> float:
+    """Length of the union of the events' device intervals, in µs."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in events):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
 def trace_phase(dev, ctx):
     """Phase 3: the card's busy share over ``N_TRACED`` back-to-back b=128
     main-path searches: CUDA kernel time in a ``tracing.trace`` window over
@@ -836,31 +891,14 @@ def trace_phase(dev, ctx):
                 ivfpq_search(dv, q, **kw)
             torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
-    # device events, less the annotation's own device-side range
-    dev_events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not getattr(e, "is_user_annotation", False)
-                  and e.name != annotation]
-    kernels = [e for e in dev_events
-               if not e.name.startswith(("Memcpy", "Memset"))]
+    kernels, copies = device_events(prof, annotation)
     res = dict(window_ms=window_ms, searches=N_TRACED,
                trace_files=sorted(os.listdir(log_dir))[-1:])
     if not kernels:
         res.update(busy_share=None, reason=(
             "torch.profiler recorded no CUDA activity on this machine "
-            f"({len(dev_events)} device events)"))
+            f"({len(copies)} copies)"))
         return res
-
-    def busy_us(events):
-        """Length of the union of the events' device intervals."""
-        total, end = 0.0, float("-inf")
-        for a, b in sorted((e.time_range.start, e.time_range.end)
-                           for e in events):
-            if b > end:
-                total += b - max(a, end)
-                end = b
-        return total
-
     by_name = {}
     for e in kernels:
         ms, n = by_name.get(e.name, (0.0, 0))
@@ -868,9 +906,7 @@ def trace_phase(dev, ctx):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
     kernel_ms = busy_us(kernels) / 1e3
     res.update(busy_share=kernel_ms / window_ms, kernel_ms=kernel_ms,
-               copy_ms=busy_us([e for e in dev_events
-                                if e.name.startswith(("Memcpy", "Memset"))]
-                               ) / 1e3,
+               copy_ms=busy_us(copies) / 1e3,
                kernel_launches=len(kernels),
                top_kernels=[dict(name=n[:160], ms=v[0], launches=v[1])
                             for n, v in top])
@@ -921,6 +957,171 @@ def study_phase(dev, card):
                 seconds=time.perf_counter() - t0)
 
 
+# The RALM serving path, through ralm_device_bench (its non-streamed leg):
+# one 1M x 512 IVF4096,PQ16 balanced index shared by the presets, Dec-S and
+# Llama-S at interval 1 and EncDec-S at its preset interval 8, batch 64, 8
+# warmup and 128 timed steps (max_seq_len clamped to 144, as the bench does)
+RALM_ARGV = ["--nb", "1000000", "--nlist", "4096", "--m", "16", "--nprobe",
+             "32", "--k", "10", "--batch", "64", "--warmup", "8", "--steps",
+             "128"]
+RALM_RUNS = (("Dec-S,Llama-S", 1), ("EncDec-S", 8))
+RALM_TRACED = 8          # steps traced after the timed ones (8 cache slots)
+# bf16 on the card vs f32 on the CPU, same params and tokens: the first
+# steps of the decoder families at batch 4, logits within BF16_REL of the
+# f32 logits' largest magnitude (0.013-0.018 measured at these widths on
+# the CPU, bf16 against f32)
+PRECISION_PRESETS, PRECISION_BATCH, PRECISION_STEPS = ("Dec-S", "Llama-S"), 4, 4
+BF16_REL = 0.03
+
+
+class QueryRecorder:
+    """The retriever of the RALM loop, unchanged (``retrieve_device`` is
+    passed through), keeping the last queries it was handed and what it
+    answered, so a step's hidden states can be searched again."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.queries = None
+        self.result = None
+
+    def retrieve_device(self, queries, nprobe, k):
+        self.queries = queries
+        self.result = self.inner.retrieve_device(queries, nprobe, k)
+        return self.result
+
+
+def ralm_inspect(rec, args, preset, interval, loop):
+    """After a preset's timed steps: trace ``RALM_TRACED`` more steps
+    (kernel launches and device time a step; the busy share against the
+    timed ms/step), search the last step's hidden states again with
+    ``retrieve_device`` and ``IVFSearcher.search`` (both equal to the fused
+    result up to ties), and hold ``adc_scan_tiles`` on that step's windows
+    against its plain version."""
+    import os
+    import numpy as np
+    import torch
+    from chamjax_torch.utils import tracing
+    torch.cuda.synchronize()
+    log_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "chamjax_torch", "build", "traces")
+    annotation = f"ralm_{preset}_{RALM_TRACED}_steps"
+    with tracing.trace(log_dir) as prof:
+        with tracing.annotate(annotation):
+            loop.multi_steps(RALM_TRACED)
+            torch.cuda.synchronize()
+    kernels, copies = device_events(prof, annotation)
+    ms_per_step = loop.total_wall_s / args.steps * 1e3
+    kernel_ms = busy_us(kernels) / 1e3 / RALM_TRACED
+    host_ops = sorted((e for e in prof.key_averages()
+                       if e.self_cpu_time_total > 0),
+                      key=lambda e: -e.self_cpu_time_total)[:8]
+    traced = dict(
+        traced_steps=RALM_TRACED,
+        launches_per_step=len(kernels) / RALM_TRACED,
+        copies_per_step={n: c / RALM_TRACED for n, c in
+                         collections.Counter(e.name for e in copies).items()},
+        kernel_ms_per_step=kernel_ms,
+        busy_share=kernel_ms / ms_per_step if kernels else None,
+        # host time under the profiler, which adds its own per op
+        top_host_ops=[dict(name=e.key, calls_per_step=e.count / RALM_TRACED,
+                           self_cpu_ms_per_step=e.self_cpu_time_total / 1e3
+                           / RALM_TRACED) for e in host_ops])
+    q, fused = rec.queries, rec.result
+    s = rec.inner.searcher
+    again = rec.inner.retrieve_device(q, args.nprobe, args.k)
+    d_s, i_s = s.search(q.cpu().numpy(), nprobe=args.nprobe, k=args.k)
+    for name, res in (("fused retrieval", fused),
+                      ("retrieve_device", again)):
+        check_same_up_to_ties(
+            f"{preset}: {name} vs IVFSearcher.search",
+            res.dists.cpu().numpy(), res.ids.cpu().numpy().astype(np.int64),
+            d_s, i_s, rtol=1e-5)
+    scan = tiles_on_queries(f"adc_scan_tiles[ralm {preset}]", s, q,
+                            args.nprobe)
+    log(f"ralm {preset} interval {interval}: {traced}; fused retrieval "
+        f"equals IVFSearcher.search up to ties")
+    return dict(traced, fused_equals_searcher=True,
+                queries=list(q.shape), scan=scan["measured"])
+
+
+def ralm_precision(dev, argv):
+    """The first ``PRECISION_STEPS`` decode steps of each
+    ``PRECISION_PRESETS`` model at batch ``PRECISION_BATCH``: bf16 on the
+    card against the same parameters in f32 on the CPU, on the same seeded
+    tokens.  Returns the largest logit gap a step over the f32 logits'
+    largest magnitude, or raises past ``BF16_REL``."""
+    import numpy as np
+    import torch
+    from chamjax_torch.benchmarks import ralm_device_bench as bench
+    from chamjax_torch.serving.ralm import step_fns
+    cfgs = bench.model_configs(bench.parse_args(
+        argv + ["--presets", ",".join(PRECISION_PRESETS)]))
+    out = {}
+    for name, cfg in cfgs.items():
+        f32 = dataclasses.replace(cfg, dtype="float32")
+        card = bench.init_params(cfg, 0, dev)
+        ref = bench.init_params(f32, 0, "cpu")
+        ref.load_state_dict(card.state_dict())      # bf16 → f32: exact
+        step, new_cache = step_fns(cfg)
+        toks = np.random.default_rng(5).integers(
+            0, cfg.vocab_size, (PRECISION_STEPS, PRECISION_BATCH)).astype(
+                np.int32)
+        c_card = new_cache(cfg, PRECISION_BATCH, device=dev)
+        c_ref = new_cache(f32, PRECISION_BATCH, device="cpu")
+        errs = []
+        for t in toks:
+            lg, _, c_card = step(card, torch.from_numpy(t).to(dev), c_card)
+            lr, _, c_ref = step(ref, torch.from_numpy(t), c_ref)
+            lg = lg.float().cpu()
+            if not bool(torch.isfinite(lg).all()):
+                raise AssertionError(f"{name}: non-finite bf16 logits")
+            errs.append(float((lg - lr).abs().max() / lr.abs().max()))
+        log(f"ralm precision {name}: bf16 card vs f32 CPU, rel err a step "
+            f"{errs} (bar {BF16_REL})")
+        if max(errs) > BF16_REL:
+            raise AssertionError(f"{name}: bf16 on the card vs f32 on the "
+                                 f"CPU {max(errs)} > {BF16_REL}")
+        out[name] = dict(rel_err=errs, bar=BF16_REL, batch=PRECISION_BATCH)
+        del card, ref
+    return out
+
+
+def ralm_phase(dev, argv=RALM_ARGV, runs=RALM_RUNS):
+    """Phase 6: the RALM serving path.  One index for every preset, then
+    ``ralm_device_bench.run`` per (presets, interval): its timed steps run
+    under ``set_sync_debug_mode("error")`` with the launch counts set to 0
+    just before and read just after (``adc_scan_tiles`` must have
+    launched), then ``ralm_inspect``; last ``ralm_precision``."""
+    import functools
+    from chamjax_torch.benchmarks import ralm_device_bench as bench
+    first = bench.parse_args(argv + ["--presets", runs[0][0]])
+    d = next(iter(bench.model_configs(first).values())).embed_dim
+    t0 = time.perf_counter()
+    rec = QueryRecorder(bench.build_retriever(first, d, dev))
+    build_s = time.perf_counter() - t0
+    s = rec.inner.searcher
+    log(f"ralm index built in {build_s:.1f} s: seg {s.seg}, windows "
+        f"{s.windows}, max list {int(s.packed.list_len.max())}")
+    rows = []
+    for presets, interval in runs:
+        args = bench.parse_args(argv + ["--presets", presets, "--interval",
+                                        str(interval)])
+        for row in bench.run(args, dev, retriever=rec,
+                             inspect=functools.partial(ralm_inspect, rec,
+                                                       args)):
+            if row["launches_adc_scan_tiles"] < 1:
+                raise AssertionError(f"ralm {row['preset']}: the timed steps "
+                                     f"did not launch adc_scan_tiles")
+            if not row["no_host_sync_checked"]:
+                raise AssertionError("ralm: the timed steps ran unchecked "
+                                     "for host syncs")
+            log(f"ralm row: {row}")
+            rows.append(row)
+    return dict(rows=rows, precision=ralm_precision(dev, argv),
+                index=dict(build_s=build_s, seg=s.seg, windows=s.windows,
+                           nlist=s.cfg.nlist, m=s.cfg.m, dim=s.cfg.dim))
+
+
 def main() -> int:
     try:
         import torch
@@ -961,6 +1162,7 @@ def main() -> int:
         streamed = streamed_phase(dev, main["ctx"],
                                   routes["results"]["flat_g8_bf16"])
         study = study_phase(dev, card)
+        ralm = ralm_phase(dev)
     except AssertionError as e:
         return fail(str(e))
     log(f"trace: {traced}")
@@ -974,7 +1176,9 @@ def main() -> int:
         bound_ms=mk["bound_ms"], bound_by=mk["bound_by"], library_ms=None,
         main_path_windows=mk["windows"], options=options,
         launches_streamed_tiled=streamed["launches"]["adc_scan_tiles"],
-        launches_kernel_study=study["launches"]["adc_scan_tiles"])]
+        launches_kernel_study=study["launches"]["adc_scan_tiles"],
+        launches_ralm={r["preset"]: r["launches_adc_scan_tiles"]
+                       for r in ralm["rows"]})]
     for name, replaces in (
             ("adc_scan_segments_multi", "chamjax/ops/scan_seg_multi.py:134"),
             ("adc_scan_segments", "chamjax/ops/scan_seg.py:162"),
@@ -1022,6 +1226,9 @@ def main() -> int:
     print(json.dumps(dict(routes=routes["line"], **streamed["line"],
                           card=card)), flush=True)
     print(json.dumps(dict(kernel_study=study, card=card)), flush=True)
+    print(json.dumps(dict(ralm={r["preset"]: r for r in ralm["rows"]},
+                          precision=ralm["precision"], index=ralm["index"],
+                          card=card)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

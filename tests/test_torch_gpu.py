@@ -542,3 +542,155 @@ def test_device_memory_profile_on_card(cuda_device, tmp_path):
     tracing.device_memory_profile(str(path))
     assert path.stat().st_size > 0
     del x
+
+
+# ---------------------------------------------------------------------------
+# the RALM serving path: models, the retrieved-token hash, the fused loop
+# ---------------------------------------------------------------------------
+
+RALM_SHAPE = dict(embed_dim=64, ffn_embed_dim=128, layers=3,
+                  attention_heads=4, vocab_size=97, max_seq_len=16)
+RALM_FAMILIES = {"decoder": {}, "llama": dict(ffn_embed_dim=160, kv_heads=2),
+                 "encoder-decoder": dict(encoder_layers=2)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vocab,tokens_per_doc", [(50000, 64), (97, 8)])
+def test_ids_to_tokens_device_on_card(cuda_device, vocab, tokens_per_doc):
+    """The uint32 wrapping hash on the card, bit-equal to numpy in uint64
+    (every intermediate below 2^64, reduced mod 2^32); -1 hashes as
+    4294967295."""
+    from chamjax_torch.serving.ralm import _ids_to_tokens_device
+    rng = np.random.default_rng(vocab)
+    ids = np.concatenate([
+        np.array([[-1, 0, 1, 2 ** 31 - 1], [-2 ** 31, 123456789, -7, 9]]),
+        rng.integers(-2 ** 31, 2 ** 31 - 1, (30, 4))]).astype(np.int32)
+    u = ids.astype(np.uint32).astype(np.uint64)
+    base = (u[:, :, None] * np.uint64(2654435761) + np.uint64(7)
+            + np.arange(tokens_per_doc, dtype=np.uint64)[None, None, :]
+            * np.uint64(40503)) % np.uint64(2 ** 32)
+    want = (base % np.uint64(vocab - 2)).astype(np.int32).reshape(
+        len(ids), -1) + 1
+    got = _ids_to_tokens_device(torch.from_numpy(ids).to(cuda_device),
+                                tokens_per_doc, vocab)
+    assert got.is_cuda and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def ralm_config(family, dtype="float32"):
+    from chamjax_torch.config import ModelConfig
+    return ModelConfig(model_type=family, dtype=dtype,
+                       **dict(RALM_SHAPE, **RALM_FAMILIES[family]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", sorted(RALM_FAMILIES))
+def test_model_steps_on_card_match_cpu(cuda_device, family):
+    """Three decode steps (a cross-attention step over an encoded context
+    for the encoder-decoder) on the card against the same f32 parameters
+    on the CPU: rtol = atol = 2e-4, the JAX package's bar (TF32 is off by
+    default for float32 matmuls)."""
+    from chamjax_torch import models
+    from chamjax_torch.benchmarks.ralm_device_bench import init_params
+    from chamjax_torch.models.transformer import build_cross_kv
+    from chamjax_torch.serving.ralm import step_fns
+    cfg = ralm_config(family)
+    card = init_params(cfg, 0, cuda_device)
+    cpu = init_params(cfg, 1, "cpu")
+    cards, cpus = ((card, cpu) if family == "encoder-decoder"
+                   else ((card,), (cpu,)))
+    for c, h in zip(cpus, cards):
+        c.load_state_dict(h.state_dict())
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, cfg.vocab_size, (3, 2)).astype(np.int32)
+    step, cache_fn = step_fns(cfg)
+    cross = {}
+    if family == "encoder-decoder":
+        src = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 6)).astype(
+            np.int32))
+        vl = torch.tensor([4, 6], dtype=torch.int32)
+        for name, (enc, dec), dev in (("cpu", cpus, "cpu"),
+                                      ("card", cards, cuda_device)):
+            out = models.encoder_forward(enc, src.to(dev), 4,
+                                         valid_len=vl.to(dev))
+            cross[name] = dict(cross_kv=build_cross_kv(dec, out, 4),
+                               cross_valid_len=vl.to(dev))
+        np.testing.assert_allclose(cross["card"]["cross_kv"][0].cpu().numpy(),
+                                   cross["cpu"]["cross_kv"][0].numpy(),
+                                   rtol=2e-4, atol=2e-4)
+    c_card = cache_fn(cfg, 2, device=cuda_device)
+    c_cpu = cache_fn(cfg, 2, device="cpu")
+    for t in toks:
+        lg, hid, c_card = step(cards[-1], torch.from_numpy(t).to(cuda_device),
+                               c_card, **cross.get("card", {}))
+        lr, hr, c_cpu = step(cpus[-1], torch.from_numpy(t), c_cpu,
+                             **cross.get("cpu", {}))
+        np.testing.assert_allclose(lg.cpu().numpy(), lr.numpy(), rtol=2e-4,
+                                   atol=2e-4)
+        np.testing.assert_allclose(hid.cpu().numpy(), hr.numpy(), rtol=2e-4,
+                                   atol=2e-4)
+    assert c_card.idx.is_cuda and int(c_card.idx) == 3
+    np.testing.assert_allclose(c_card.k.cpu().numpy(), c_cpu.k.numpy(),
+                               rtol=2e-4, atol=2e-4)
+
+
+@pytest.fixture(scope="module")
+def ralm_retriever():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA)")
+    from chamjax_torch.retrieval import LocalRetriever
+    d = RALM_SHAPE["embed_dim"]
+    ds = synthetic_dataset(nb=20000, nq=8, nt=8000, d=d, seed=3,
+                           n_clusters=64)
+    idx = build_ivfpq(ds.xb, IndexConfig(dim=d, nlist=64, m=8, list_pad=64,
+                                         balanced=True),
+                      xt=ds.xt, kmeans_iters=4, pq_iters=4, device="cuda")
+    return LocalRetriever(idx, SearchConfig(nprobe=8, k=10), device="cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", sorted(RALM_FAMILIES))
+def test_fused_ralm_on_card_makes_no_host_sync(ralm_retriever, family):
+    """A short fused run (decode → hidden state → search on the card) under
+    ``set_sync_debug_mode("error")``: no step reads a device value on the
+    host, and every retrieval step launches the tiled kernel.  The last
+    retrieval equals ``IVFSearcher.search`` of the same queries up to
+    ties."""
+    from chamjax_torch.benchmarks.ralm_device_bench import (init_params,
+                                                            no_host_sync)
+    from chamjax_torch.serving.ralm import RalmDecoder, RalmEncoderDecoder
+
+    class Recorder:
+        def __init__(self, inner):
+            self.inner, self.queries = inner, None
+
+        def retrieve_device(self, queries, nprobe, k):
+            self.queries = queries
+            return self.inner.retrieve_device(queries, nprobe, k)
+
+    cfg = ralm_config(family, dtype="bfloat16")
+    params = init_params(cfg, 0, "cuda")
+    rec = Recorder(ralm_retriever)
+    if family == "encoder-decoder":
+        loop = RalmEncoderDecoder(*params, cfg, rec, 4, retrieval_interval=2,
+                                  nprobe=8, k=10)
+    else:
+        loop = RalmDecoder(params, cfg, rec, 4, retrieval_interval=2,
+                           nprobe=8, k=10)
+    loop.multi_steps(2)                 # the kernels are built by now
+    dev = torch.device("cuda", torch.cuda.current_device())
+    with no_host_sync(dev):             # the check is not vacuous
+        with pytest.raises(RuntimeError):
+            torch.ones(1, device=dev).item()
+    before = cuda_lib.launch_counts["adc_scan_tiles"]
+    with no_host_sync(dev):
+        loop.multi_steps(6)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts["adc_scan_tiles"] == before + 3
+    assert loop.tokens.is_cuda and int(loop.cache.idx) == 8
+    res = loop.last_result
+    d_s, i_s = ralm_retriever.searcher.search(rec.queries.cpu().numpy(),
+                                              nprobe=8, k=10)
+    assert not tie_mismatches(res.dists.cpu().numpy(),
+                              res.ids.cpu().numpy().astype(np.int64), d_s,
+                              i_s, rtol=1e-5, atol=1e-5)
