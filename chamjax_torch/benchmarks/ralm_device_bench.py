@@ -10,9 +10,15 @@ whole fused chain: one JSON line per (preset, interval).
     python -m chamjax_torch.benchmarks.ralm_device_bench \\
         --presets Dec-S,Llama-S,EncDec-S --batch 64
 
-``run`` does the work and is what ``chip_smoke.py`` calls.  On the card its
-timed steps run under ``torch.cuda.set_sync_debug_mode("error")``, so a
-stage that reads a device value on the host fails the run.
+``run`` does the work and is what ``chip_smoke.py`` calls.  On the card
+every stage of a step is a replay of a captured CUDA graph
+(``utils/graphs.py``); the warm-up steps reach every graph key (the first
+step retrieves, and a plain step replays the same decode graph as a
+retrieval step) and the reset between them and the timed steps keeps the
+graphs.  The timed steps run under
+``torch.cuda.set_sync_debug_mode("error")``, so a stage that reads a device
+value on the host fails the run, and so does a graph captured late (a
+capture synchronises the card).
 """
 
 from __future__ import annotations

@@ -12,7 +12,8 @@ The same stacked-layer parameters and in-place KV cache as
   shared by ``attention_heads // kv_heads`` query heads.
 
 ``llama_prefill``/``llama_step`` are signature-compatible with
-``decoder_prefill``/``decoder_step``.
+``decoder_prefill``/``decoder_step``, and like them a host shell around a
+device core captured in a CUDA graph on the card, owned by the cache.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ from chamjax_torch.models.transformer import (Key, KVCache, _embed, _param,
                                               _zero_cache, check_prompt,
                                               check_room, dtype_of,
                                               fill_prefix, generator,
-                                              prefilled, write_column)
+                                              state_of, write_column)
+from chamjax_torch.utils import graphs
 from chamjax_torch.utils.device import resolve_device
 
 
@@ -151,18 +153,12 @@ def _swiglu(x, L, i):
 # ---------------------------------------------------------------------------
 
 
-@torch.no_grad()
-def llama_prefill(params: LlamaParams, tokens: torch.Tensor, cache: KVCache,
-                  heads: int, kv_heads: int = 0, theta: float = 10000.0
-                  ) -> Tuple[torch.Tensor, torch.Tensor, KVCache]:
-    """Whole-prompt pass; fills the cache in place with pre-rotated K.
-
-    Returns ``(logits (b,t,V), hidden (b,t,d), cache)``."""
+def _llama_prefill(params, tokens, kv, heads, kv_heads, theta):
+    """The device core of :func:`llama_prefill`."""
     b, t = tokens.shape
-    check_prompt(cache, t)
     h = heads
-    kv = kv_heads or heads
-    groups = h // kv
+    kv_h = kv_heads or heads
+    groups = h // kv_h
     hd = params.embed.shape[1] // h
     x = _embed(params, tokens)
     cos, sin = _rope_tables(torch.arange(t, device=x.device), hd, theta)
@@ -172,35 +168,42 @@ def llama_prefill(params: LlamaParams, tokens: torch.Tensor, cache: KVCache,
     for i in range(L.wq.shape[0]):
         y = _rms(x, L.ln1[i])
         qh = _rope((y @ L.wq[i]).reshape(b, t, h, hd), cos, sin)
-        kh = _rope((y @ L.wk[i]).reshape(b, t, kv, hd), cos, sin)
-        vh = (y @ L.wv[i]).reshape(b, t, kv, hd)
+        kh = _rope((y @ L.wk[i]).reshape(b, t, kv_h, hd), cos, sin)
+        vh = (y @ L.wv[i]).reshape(b, t, kv_h, hd)
         s = _gqa_scores(qh, kh, groups).masked_fill(~mask, float("-inf"))
         p = torch.softmax(s, dim=-1).to(x.dtype)
         a = _gqa_mix(p, vh, groups)
         x = x + a.reshape(b, t, h * hd) @ L.wo[i]
         x = _swiglu(x, L, i)
-        fill_prefix(cache, i, kh, vh)
+        fill_prefix(kv, i, kh, vh)
+    kv[2].fill_(t)
     hidden = _rms(x, params.ln_f)
-    logits = hidden @ params.out_proj
-    return logits, hidden, prefilled(cache, t)
+    return hidden @ params.out_proj, hidden
 
 
 @torch.no_grad()
-def llama_step(params: LlamaParams, tokens: torch.Tensor, cache: KVCache,
-               heads: int, kv_heads: int = 0, theta: float = 10000.0
-               ) -> Tuple[torch.Tensor, torch.Tensor, KVCache]:
-    """One incremental decode step; the same cache discipline as
-    ``decoder_step`` (the cache only read in the layer loop, history and
-    self terms apart, one column written in place after it).  Returns
-    ``(logits (b,V), hidden (b,d), cache)``."""
-    check_room(cache)
+def llama_prefill(params: LlamaParams, tokens: torch.Tensor, cache: KVCache,
+                  heads: int, kv_heads: int = 0, theta: float = 10000.0
+                  ) -> Tuple[torch.Tensor, torch.Tensor, KVCache]:
+    """Whole-prompt pass; fills the cache in place with pre-rotated K.
+
+    Returns ``(logits (b,t,V), hidden (b,t,d), cache)``."""
+    t = tokens.shape[1]
+    check_prompt(cache, t)
+    logits, hidden = graphs.call(cache.graphs, _llama_prefill, params, tokens,
+                                 state_of(cache), heads, kv_heads, theta)
+    return logits, hidden, cache._replace(host_idx=t)
+
+
+def _llama_step(params, tokens, kv, heads, kv_heads, theta):
+    """The device core of :func:`llama_step`."""
+    k_cache, v_cache, idx = kv
     b = tokens.shape[0]
     h = heads
-    kv = kv_heads or heads
-    groups = h // kv
+    kv_h = kv_heads or heads
+    groups = h // kv_h
     hd = params.embed.shape[1] // h
-    T = cache.k.shape[2]
-    idx = cache.idx
+    T = k_cache.shape[2]
     x = _embed(params, tokens)[:, None, :]                    # (b, 1, d)
     cos, sin = _rope_tables(idx.reshape(1), hd, theta)        # (1, hd/2)
     cos, sin = cos[None, :, None, :], sin[None, :, None, :]   # (1,1,1,hd/2)
@@ -210,23 +213,37 @@ def llama_step(params: LlamaParams, tokens: torch.Tensor, cache: KVCache,
     for i in range(L.wq.shape[0]):
         y = _rms(x, L.ln1[i])
         qh = _rope((y @ L.wq[i]).reshape(b, 1, h, hd), cos, sin)
-        kh = _rope((y @ L.wk[i]).reshape(b, 1, kv, hd), cos, sin)
-        vh = (y @ L.wv[i]).reshape(b, 1, kv, hd)
-        s_hist = _gqa_scores(qh, cache.k[i], groups)          # (b,h,1,T)
+        kh = _rope((y @ L.wk[i]).reshape(b, 1, kv_h, hd), cos, sin)
+        vh = (y @ L.wv[i]).reshape(b, 1, kv_h, hd)
+        s_hist = _gqa_scores(qh, k_cache[i], groups)          # (b,h,1,T)
         s_hist = s_hist.masked_fill(~strict, float("-inf"))
-        s_self = ((qh.reshape(b, 1, kv, groups, hd) * kh[:, :, :, None, :])
+        s_self = ((qh.reshape(b, 1, kv_h, groups, hd) * kh[:, :, :, None, :])
                   .float().sum(dim=-1).reshape(b, 1, h) * hd ** -0.5)
         s_all = torch.cat([s_hist, s_self.transpose(1, 2)[:, :, :, None]],
                           dim=-1)
         p = torch.softmax(s_all, dim=-1).to(x.dtype)
-        a = (_gqa_mix(p[..., :T], cache.v[i], groups)
-             + (p[..., T:].transpose(1, 2).reshape(b, 1, kv, groups, 1)
+        a = (_gqa_mix(p[..., :T], v_cache[i], groups)
+             + (p[..., T:].transpose(1, 2).reshape(b, 1, kv_h, groups, 1)
                 * vh[:, :, :, None, :]).reshape(b, 1, h, hd))
         x = x + a.reshape(b, 1, h * hd) @ L.wo[i]
         x = _swiglu(x, L, i)
         ks_new.append(kh)
         vs_new.append(vh)
-    cache = write_column(cache, torch.stack(ks_new), torch.stack(vs_new))
+    write_column(kv, torch.stack(ks_new), torch.stack(vs_new))
     hidden = _rms(x[:, 0, :], params.ln_f)
-    logits = hidden @ params.out_proj
-    return logits, hidden, cache
+    return hidden @ params.out_proj, hidden
+
+
+@torch.no_grad()
+def llama_step(params: LlamaParams, tokens: torch.Tensor, cache: KVCache,
+               heads: int, kv_heads: int = 0, theta: float = 10000.0
+               ) -> Tuple[torch.Tensor, torch.Tensor, KVCache]:
+    """One incremental decode step; the same cache discipline as
+    ``decoder_step`` (the cache only read in the layer loop, history and
+    self terms apart, one column written in place after it; the room left
+    checked and ``host_idx`` advanced on the host).  Returns
+    ``(logits (b,V), hidden (b,d), cache)``."""
+    check_room(cache)
+    logits, hidden = graphs.call(cache.graphs, _llama_step, params, tokens,
+                                 state_of(cache), heads, kv_heads, theta)
+    return logits, hidden, cache._replace(host_idx=cache.host_idx + 1)

@@ -11,11 +11,16 @@ scores in f32, everything else in the parameters' dtype, the casts in the
 same places.
 
 The KV cache is written in place at ``idx`` (the port's form of the JAX
-package's donated cache), ``idx`` stays a 0-d int32 tensor on the cache's
-device, and nothing in :func:`decoder_step` reads a device value on the
-host, so the step can be captured in a CUDA graph.  Past ``max_seq_len``
-the JAX package clamps the position gather and the cache write silently;
-here the step raises, from the host-side count ``KVCache.host_idx``.
+package's donated cache), and ``idx`` stays a 0-d int32 tensor on the
+cache's device.  Each step and prefill is a host shell around a device core:
+the shell checks the room left in the cache from the host-side count
+``KVCache.host_idx`` and advances it; the core, which reads no device value
+on the host, computes the step, writes the cache in place and is captured
+in a CUDA graph on the card (``utils/graphs.py``, the counterpart of the
+JAX package's ``jit``), owned by the cache.  ``encoder_forward`` and
+``build_cross_kv`` are captured whole, owned by their parameters.  Past
+``max_seq_len`` the JAX package clamps the position gather and the cache
+write silently; here the step raises.
 """
 
 from __future__ import annotations
@@ -27,18 +32,22 @@ import torch.nn.functional as F
 from torch import nn
 
 from chamjax_torch.config import ModelConfig
+from chamjax_torch.utils import graphs
 from chamjax_torch.utils.device import resolve_device
 
 Key = Union[int, torch.Generator]
 
 
 class KVCache(NamedTuple):
-    """Self-attention cache: one stacked buffer per stack of layers."""
+    """Self-attention cache: one stacked buffer per stack of layers.  ``k``,
+    ``v`` and ``idx`` are graph state (read and written in place); the
+    cache owns the graphs of the steps run on it."""
 
     k: torch.Tensor       # (layers, b, max_len, heads, head_dim)
     v: torch.Tensor       # (layers, b, max_len, heads, head_dim)
     idx: torch.Tensor     # () int32 on the cache's device — cached positions
     host_idx: int = 0     # the same count, kept on the host
+    graphs: Optional[graphs.Graphs] = None
 
 
 # ---------------------------------------------------------------------------
@@ -102,6 +111,8 @@ class TransformerParams(nn.Module):
         self.out_proj = _param((d, n_out), 0.0, **kw)
         self.cross_layers = (CrossStack(cfg, n_layers, **kw)
                              if cross_attention else None)
+        # the graphs of encoder_forward and build_cross_kv on these weights
+        self.graphs = graphs.Graphs()
 
 
 # ---------------------------------------------------------------------------
@@ -192,8 +203,25 @@ def _zero_cache(cfg: ModelConfig, batch: int, max_len: Optional[int],
     dev = resolve_device(device)
     shape = (cfg.layers, batch, max_len or cfg.max_seq_len, heads, hd)
     kw = dict(device=dev, dtype=dtype_of(cfg))
-    return KVCache(k=torch.zeros(shape, **kw), v=torch.zeros(shape, **kw),
-                   idx=torch.zeros((), dtype=torch.int32, device=dev))
+    k, v, idx = graphs.state(
+        torch.zeros(shape, **kw), torch.zeros(shape, **kw),
+        torch.zeros((), dtype=torch.int32, device=dev))
+    return KVCache(k=k, v=v, idx=idx, graphs=graphs.Graphs())
+
+
+def reset_cache(cache: KVCache) -> KVCache:
+    """Empty ``cache`` in place: zero K, V and ``idx`` on the device and the
+    count on the host.  Its storage stays, so the graphs captured on it stay
+    valid (the JAX package builds a fresh zero cache: the same values)."""
+    cache.k.zero_()
+    cache.v.zero_()
+    cache.idx.zero_()
+    return cache._replace(host_idx=0)
+
+
+def state_of(cache: KVCache) -> Tuple[torch.Tensor, ...]:
+    """The cache's device state, as a step's core takes it."""
+    return cache.k, cache.v, cache.idx
 
 
 def check_room(cache: KVCache) -> None:
@@ -204,15 +232,14 @@ def check_room(cache: KVCache) -> None:
                          f"of max_len {cache.k.shape[2]}")
 
 
-def write_column(cache: KVCache, ks_new: torch.Tensor,
-                 vs_new: torch.Tensor) -> KVCache:
+def write_column(kv, ks_new: torch.Tensor, vs_new: torch.Tensor) -> None:
     """Write the step's K/V columns ``(layers, b, 1, h, hd)`` at ``idx`` in
-    place and advance ``idx`` on the device and on the host."""
-    at = cache.idx.long().reshape(1)
-    cache.k.index_copy_(2, at, ks_new)
-    cache.v.index_copy_(2, at, vs_new)
-    cache.idx.add_(1)
-    return cache._replace(host_idx=cache.host_idx + 1)
+    place and advance ``idx`` on the device (``kv``: ``state_of(cache)``)."""
+    k, v, idx = kv
+    at = idx.long().reshape(1)
+    k.index_copy_(2, at, ks_new)
+    v.index_copy_(2, at, vs_new)
+    idx.add_(1)
 
 
 def check_prompt(cache: KVCache, t: int) -> None:
@@ -221,17 +248,11 @@ def check_prompt(cache: KVCache, t: int) -> None:
                          f"{cache.k.shape[2]}")
 
 
-def fill_prefix(cache: KVCache, layer: int, kh: torch.Tensor,
-                vh: torch.Tensor) -> None:
+def fill_prefix(kv, layer: int, kh: torch.Tensor, vh: torch.Tensor) -> None:
     """Prefill: write positions ``[0, t)`` of one layer in place."""
     t = kh.shape[1]
-    cache.k[layer, :, :t] = kh
-    cache.v[layer, :, :t] = vh
-
-
-def prefilled(cache: KVCache, t: int) -> KVCache:
-    cache.idx.fill_(t)
-    return cache._replace(host_idx=t)
+    kv[0][layer, :, :t] = kh
+    kv[1][layer, :, :t] = vh
 
 
 # ---------------------------------------------------------------------------
@@ -287,17 +308,9 @@ def _embed(params, tokens):
 # ---------------------------------------------------------------------------
 
 
-@torch.no_grad()
-def decoder_prefill(
-    params: TransformerParams,
-    tokens: torch.Tensor,         # (b, t) int
-    cache: KVCache,
-    heads: int,
-) -> Tuple[torch.Tensor, torch.Tensor, KVCache]:
-    """Process a whole prompt; fill the cache in place. Returns
-    ``(logits (b,t,V), hidden (b,t,d), cache)``."""
-    b, t = tokens.shape
-    check_prompt(cache, t)
+def _decoder_prefill(params, tokens, kv, heads):
+    """The device core of :func:`decoder_prefill`."""
+    t = tokens.shape[1]
     h = heads
     x = _embed(params, tokens) + params.pos[:t][None]
     L = params.layers
@@ -308,10 +321,69 @@ def decoder_prefill(
         a = _attn_full(qh, kh, vh, causal=True)
         x = x + a.reshape(x.shape) @ L.wo[i]
         x = _ffn(x, L, i)
-        fill_prefix(cache, i, kh, vh)
+        fill_prefix(kv, i, kh, vh)
+    kv[2].fill_(t)
     hidden = _ln(x, params.ln_f["scale"], params.ln_f["bias"])
-    logits = hidden @ params.out_proj
-    return logits, hidden, prefilled(cache, t)
+    return hidden @ params.out_proj, hidden
+
+
+@torch.no_grad()
+def decoder_prefill(
+    params: TransformerParams,
+    tokens: torch.Tensor,         # (b, t) int
+    cache: KVCache,
+    heads: int,
+) -> Tuple[torch.Tensor, torch.Tensor, KVCache]:
+    """Process a whole prompt; fill the cache in place. Returns
+    ``(logits (b,t,V), hidden (b,t,d), cache)``."""
+    t = tokens.shape[1]
+    check_prompt(cache, t)
+    logits, hidden = graphs.call(cache.graphs, _decoder_prefill, params,
+                                 tokens, state_of(cache), heads)
+    return logits, hidden, cache._replace(host_idx=t)
+
+
+def _decoder_step(params, tokens, kv, heads, cross_kv, cross_valid_len):
+    """The device core of :func:`decoder_step`: reads no device value on
+    the host, writes the cache in place and advances ``idx``."""
+    k_cache, v_cache, idx = kv
+    h = heads
+    T = k_cache.shape[2]
+    x = _embed(params, tokens) + params.pos.index_select(0, idx.reshape(1))
+    x = x[:, None, :]                                       # (b, 1, d)
+    strict_mask = torch.arange(T, device=x.device) < idx    # cached pos < idx
+    L, C = params.layers, params.cross_layers
+    ks_new, vs_new = [], []
+    for i in range(L.wqkv.shape[0]):
+        y = _ln(x, L.ln1_scale[i], L.ln1_bias[i])
+        q, k, v = torch.chunk(y @ L.wqkv[i], 3, dim=-1)
+        qh = _split_heads(q, h)                             # (b, 1, h, hd)
+        kh = _split_heads(k, h)
+        vh = _split_heads(v, h)
+        hd = qh.shape[-1]
+        scores = torch.einsum("bqhd,bkhd->bhqk", qh.float(),
+                              k_cache[i].float()) * hd ** -0.5
+        scores = scores.masked_fill(~strict_mask.reshape(1, 1, 1, T),
+                                    float("-inf"))
+        self_score = (qh * kh).float().sum(dim=-1) * hd ** -0.5  # (b, 1, h)
+        self_score = self_score.transpose(1, 2)[:, :, :, None]   # (b,h,1,1)
+        all_scores = torch.cat([scores, self_score], dim=-1)
+        p = torch.softmax(all_scores, dim=-1).to(x.dtype)
+        a = (torch.einsum("bhqk,bkhd->bqhd", p[..., :T], v_cache[i])
+             + p[..., T:].transpose(1, 2) * vh)             # (b, 1, h, hd)
+        x = x + a.reshape(x.shape) @ L.wo[i]
+        if cross_kv is not None:
+            y = _ln(x, C.ln_scale[i], C.ln_bias[i])
+            cq = _split_heads(y @ C.wq[i], h)
+            ca = _attn_full(cq, cross_kv[0][i], cross_kv[1][i], causal=False,
+                            valid_len=cross_valid_len)
+            x = x + ca.reshape(x.shape) @ C.wo[i]
+        x = _ffn(x, L, i)
+        ks_new.append(kh)
+        vs_new.append(vh)
+    write_column(kv, torch.stack(ks_new), torch.stack(vs_new))
+    hidden = _ln(x[:, 0, :], params.ln_f["scale"], params.ln_f["bias"])
+    return hidden @ params.out_proj, hidden
 
 
 @torch.no_grad()
@@ -333,48 +405,14 @@ def decoder_step(
     As in the JAX package, the cache is only read inside the layer loop:
     each layer attends to the cached positions ``< idx`` and, in a separate
     term, to the current token; the new K/V columns are written after the
-    loop.
+    loop.  The host checks the room left (a replay would not) and advances
+    ``host_idx``; the rest is the captured core.
     """
     check_room(cache)
-    h = heads
-    T = cache.k.shape[2]
-    idx = cache.idx
-    x = _embed(params, tokens) + params.pos.index_select(0, idx.reshape(1))
-    x = x[:, None, :]                                       # (b, 1, d)
-    strict_mask = torch.arange(T, device=x.device) < idx    # cached pos < idx
-    L, C = params.layers, params.cross_layers
-    ks_new, vs_new = [], []
-    for i in range(L.wqkv.shape[0]):
-        y = _ln(x, L.ln1_scale[i], L.ln1_bias[i])
-        q, k, v = torch.chunk(y @ L.wqkv[i], 3, dim=-1)
-        qh = _split_heads(q, h)                             # (b, 1, h, hd)
-        kh = _split_heads(k, h)
-        vh = _split_heads(v, h)
-        hd = qh.shape[-1]
-        scores = torch.einsum("bqhd,bkhd->bhqk", qh.float(),
-                              cache.k[i].float()) * hd ** -0.5
-        scores = scores.masked_fill(~strict_mask.reshape(1, 1, 1, T),
-                                    float("-inf"))
-        self_score = (qh * kh).float().sum(dim=-1) * hd ** -0.5  # (b, 1, h)
-        self_score = self_score.transpose(1, 2)[:, :, :, None]   # (b,h,1,1)
-        all_scores = torch.cat([scores, self_score], dim=-1)
-        p = torch.softmax(all_scores, dim=-1).to(x.dtype)
-        a = (torch.einsum("bhqk,bkhd->bqhd", p[..., :T], cache.v[i])
-             + p[..., T:].transpose(1, 2) * vh)             # (b, 1, h, hd)
-        x = x + a.reshape(x.shape) @ L.wo[i]
-        if cross_kv is not None:
-            y = _ln(x, C.ln_scale[i], C.ln_bias[i])
-            cq = _split_heads(y @ C.wq[i], h)
-            ca = _attn_full(cq, cross_kv[0][i], cross_kv[1][i], causal=False,
-                            valid_len=cross_valid_len)
-            x = x + ca.reshape(x.shape) @ C.wo[i]
-        x = _ffn(x, L, i)
-        ks_new.append(kh)
-        vs_new.append(vh)
-    cache = write_column(cache, torch.stack(ks_new), torch.stack(vs_new))
-    hidden = _ln(x[:, 0, :], params.ln_f["scale"], params.ln_f["bias"])
-    logits = hidden @ params.out_proj
-    return logits, hidden, cache
+    logits, hidden = graphs.call(cache.graphs, _decoder_step, params, tokens,
+                                 state_of(cache), heads, cross_kv,
+                                 cross_valid_len)
+    return logits, hidden, cache._replace(host_idx=cache.host_idx + 1)
 
 
 # ---------------------------------------------------------------------------
@@ -383,6 +421,7 @@ def decoder_step(
 
 
 @torch.no_grad()
+@graphs.captured
 def encoder_forward(
     params: TransformerParams,
     tokens: torch.Tensor,         # (b, s) int
@@ -390,7 +429,7 @@ def encoder_forward(
     valid_len: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Bidirectional encoder → hidden states (b, s, d)."""
-    b, s = tokens.shape
+    s = tokens.shape[1]
     h = heads
     x = _embed(params, tokens) + params.pos[:s][None]
     L = params.layers
@@ -405,6 +444,7 @@ def encoder_forward(
 
 
 @torch.no_grad()
+@graphs.captured
 def build_cross_kv(
     dec_params: TransformerParams,
     enc_out: torch.Tensor,        # (b, s, d)

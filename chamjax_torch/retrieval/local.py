@@ -4,7 +4,9 @@
 ``retrieve`` takes and returns numpy arrays; ``retrieve_device`` takes a
 tensor on the index's device and returns tensors there, so the RALM loop
 chains decode → search with no host transfer.  Both run on the card unless
-the caller asks for the CPU (``device="cpu"``).
+the caller asks for the CPU (``device="cpu"``).  On the card each search
+is a replay of ``ivfpq_search``'s captured graph (``utils/graphs.py``),
+owned by the index; the results are fresh tensors.
 """
 
 from __future__ import annotations

@@ -7,6 +7,13 @@ over the seg-tiled twin (``csrc/adc_scan_tiles.cu``) or, without one, over
 the flat layout (``csrc/adc_scan_flat.cu``, ``group > 1`` multi-window,
 ``group == 1`` single-window); ``backend="pallas"``, the padded-window scan
 (``adc_scan_flat.cu`` too); ``backend="xla"``, the plain torch oracle.
+
+``ivfpq_search`` and ``ivfpq_search_preassigned`` are captured in a CUDA
+graph on the card for every backend (``utils/graphs.py``, the counterpart
+of the JAX package's ``jit``), one graph per query shape and static
+arguments, owned by the ``DeviceIVF``.  As under ``jit``, their host logic
+(the window default, the pallas → xla warning, the fp32-matmul switch) runs
+when a graph is captured; the matmuls replay with TF32 off, as captured.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from chamjax_torch.ops.scan_seg import (MAX_SEG, WINDOW_FIXED_ROWS,
 from chamjax_torch.ops.scan_seg_block import scan_lists_seg_block
 from chamjax_torch.ops.scan_seg_multi import scan_lists_seg_multi
 from chamjax_torch.ops.scan_xla import scan_lists_xla
+from chamjax_torch.utils import graphs
 from chamjax_torch.utils.device import as_f32, resolve_device
 from chamjax_torch.utils.precision import fp32_matmul
 
@@ -44,6 +52,8 @@ class DeviceIVF:
     seg-tiled as ``(n_tiles, m, seg)`` with every list starting on a tile
     boundary.  When present, ``ids``/``list_start`` are in the tile-aligned
     coordinate system, shared by the flat twin.
+
+    ``graphs``: the captured searches over this index.
     """
 
     centroids: torch.Tensor     # (nlist, d) f32
@@ -54,6 +64,8 @@ class DeviceIVF:
     list_len: torch.Tensor      # (nlist,) int32
     opq_R: Optional[torch.Tensor] = None        # (d, d) f32 or None
     codes_tiled: Optional[torch.Tensor] = None  # (n_tiles, m, seg) uint8
+    graphs: graphs.Graphs = dataclasses.field(
+        default_factory=graphs.Graphs, repr=False, compare=False)
 
     @staticmethod
     def from_packed(index: PackedIVF, device=None,
@@ -162,6 +174,7 @@ def _rotate(index: DeviceIVF, q: torch.Tensor) -> torch.Tensor:
     return torch.matmul(q, index.opq_R) if index.opq_R is not None else q
 
 
+@graphs.captured
 @fp32_matmul()
 def ivfpq_search(
     index: DeviceIVF,
@@ -213,6 +226,7 @@ def ivfpq_search(
         lane_l1=lane_l1 and group > 1, slot_major=slot_major)
 
 
+@graphs.captured
 @fp32_matmul()
 def ivfpq_search_preassigned(
     index: DeviceIVF,

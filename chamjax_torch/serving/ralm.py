@@ -13,6 +13,13 @@ whole step chain (decode → hidden state → search, and for enc-dec →
 token synthesis → encode → cross K/V) stays on the device: no step reads a
 device value on the host, and the per-step spans time the host's enqueue.
 ``batch_inference`` ends with the one device sync of a batch.
+
+On the card each stage is a replay of a captured CUDA graph
+(``utils/graphs.py``): the decode step (owned by the KV cache), the search
+(owned by the index) and, for enc-dec, the query encoder and the cross K/V
+refresh.  So a loop writes into fixed buffers that the graphs read: the
+token buffer, the KV cache, the cross K/V; ``reset_inference_state``
+empties them in place.  The argmax stays one eager op.
 """
 
 from __future__ import annotations
@@ -33,9 +40,10 @@ from chamjax_torch.models import (
     init_kv_cache,
 )
 from chamjax_torch.models.llama import init_llama_kv_cache, llama_step
-from chamjax_torch.models.transformer import build_cross_kv
+from chamjax_torch.models.transformer import build_cross_kv, reset_cache
 from chamjax_torch.retrieval.interface import BaseRetriever
 from chamjax_torch.serving.profiling import StepProfiler
+from chamjax_torch.utils import graphs
 
 _U32 = 0xFFFFFFFF
 
@@ -87,6 +95,68 @@ def step_fns(cfg: ModelConfig):
             init_kv_cache)
 
 
+def first_tokens(batch: int, device) -> torch.Tensor:
+    """A loop's token buffer, holding the first token (1): graph state."""
+    return graphs.state(torch.ones((batch,), dtype=torch.int32,
+                                   device=device))
+
+
+def _fill_cross_kv(enc, dec, ret_tokens, out, heads) -> None:
+    """Encode the retrieved tokens and write the decoder's cross K/V into
+    the buffers ``out`` in place."""
+    for buf, new in zip(out, build_cross_kv(
+            dec, encoder_forward(enc, ret_tokens, heads), heads)):
+        buf.copy_(new)
+
+
+def _fill_cross_kv_from_ids(enc, dec, ids, out, heads, tokens_per_doc,
+                            vocab, max_len) -> None:
+    _fill_cross_kv(enc, dec, _ids_to_tokens_device(
+        ids, tokens_per_doc, vocab)[:, :max_len], out, heads)
+
+
+class CrossKV:
+    """An encoder-decoder batch's cross-attention K/V: two fixed buffers
+    (graph state) that a retrieval step refills in place and the decode
+    step's graph reads, and the graphs that refill them."""
+
+    def __init__(self, enc: TransformerParams, dec: TransformerParams,
+                 cfg: ModelConfig, tokens_per_doc: int):
+        self.enc, self.dec, self.cfg = enc, dec, cfg
+        self.tokens_per_doc = tokens_per_doc
+        self.kv = None
+        self.graphs = graphs.Graphs()
+
+    def _buffers(self, b: int, s: int):
+        cfg, w = self.cfg, self.dec.cross_layers.wkv
+        h = cfg.attention_heads
+        shape = (cfg.layers, b, s, h, cfg.embed_dim // h)
+        if self.kv is None or self.kv[0].shape != shape:
+            self.kv = graphs.state(
+                *(torch.zeros(shape, dtype=w.dtype, device=w.device)
+                  for _ in range(2)))
+        return self.kv
+
+    def from_ids(self, ids: torch.Tensor):
+        """Refill from retrieved ids on the device (token synthesis,
+        encoder and K/V in one graph); returns the buffers."""
+        cfg = self.cfg
+        s = min(ids.shape[1] * self.tokens_per_doc, cfg.max_seq_len)
+        graphs.call(self.graphs, _fill_cross_kv_from_ids, self.enc,
+                    self.dec, ids, self._buffers(ids.shape[0], s),
+                    cfg.attention_heads, self.tokens_per_doc,
+                    cfg.vocab_size, cfg.max_seq_len)
+        return self.kv
+
+    def from_tokens(self, ret_tokens: torch.Tensor):
+        """Refill from retrieved tokens (the host path); returns the
+        buffers."""
+        graphs.call(self.graphs, _fill_cross_kv, self.enc, self.dec,
+                    ret_tokens, self._buffers(*ret_tokens.shape),
+                    self.cfg.attention_heads)
+        return self.kv
+
+
 def _block(t: torch.Tensor) -> None:
     """Wait for ``t`` (``block_until_ready``): on the host-retriever path
     only."""
@@ -135,14 +205,14 @@ class RalmDecoder:
         self.device = params.embed.device
         self.prof = StepProfiler()
         self._step_fn, new_cache = step_fns(cfg)
-        self._cache_fn = functools.partial(new_cache, cfg, batch_size,
-                                           device=self.device)
+        self.cache: KVCache = new_cache(cfg, batch_size, device=self.device)
+        self.tokens = first_tokens(batch_size, self.device)
         self.reset_inference_state()
 
     def reset_inference_state(self) -> None:
-        self.cache: KVCache = self._cache_fn()
-        self.tokens = torch.ones((self.batch,), dtype=torch.int32,
-                                 device=self.device)
+        """Back to an empty cache and the first token, in place."""
+        self.cache = reset_cache(self.cache)
+        self.tokens.fill_(1)
         self.step_count = 0
         self.last_result = None
         self.prof.reset()
@@ -165,7 +235,7 @@ class RalmDecoder:
             with self.prof.model_span():
                 logits, hidden, self.cache = self._step_fn(
                     self.params, self.tokens, self.cache)
-                self.tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+                self.tokens.copy_(torch.argmax(logits, dim=-1))
                 if not self._device_path:
                     _block(hidden)
             if self.step_count % self.interval == 0:
@@ -232,13 +302,17 @@ class RalmEncoderDecoder:
         self.tok_len = retrieval_token_len or cfg.retrieval_token_len
         self.device = dec_params.embed.device
         self.prof = StepProfiler()
+        self.cache: KVCache = init_kv_cache(cfg, batch_size,
+                                            device=self.device)
+        self.tokens = first_tokens(batch_size, self.device)
+        self._cross = CrossKV(enc_params, dec_params, cfg, self.tok_len)
         self.reset_inference_state()
 
     def reset_inference_state(self) -> None:
-        self.cache: KVCache = init_kv_cache(self.cfg, self.batch,
-                                            device=self.device)
-        self.tokens = torch.ones((self.batch,), dtype=torch.int32,
-                                 device=self.device)
+        """Back to an empty cache, the first token and no cross K/V, in
+        place."""
+        self.cache = reset_cache(self.cache)
+        self.tokens.fill_(1)
         self.step_count = 0
         self.cross_kv = None
         self.last_result = None
@@ -257,9 +331,8 @@ class RalmEncoderDecoder:
             with self.prof.retriever_span():
                 res = self.retriever.retrieve_device(
                     enc_q[:, -1, :].float(), self.nprobe, self.k)
-            ret_tokens = _ids_to_tokens_device(
-                res.ids, self.tok_len, self.cfg.vocab_size
-            )[:, : self.cfg.max_seq_len]
+            with self.prof.model_span():
+                self.cross_kv = self._cross.from_ids(res.ids)
         else:
             query = enc_q[:, -1, :].float().cpu().numpy()
             with self.prof.retriever_span():
@@ -269,14 +342,10 @@ class RalmEncoderDecoder:
             ret_tokens = torch.from_numpy(_ids_to_tokens(
                 ids, self.tok_len, self.cfg.vocab_size
             )[:, : self.cfg.max_seq_len]).to(self.device)
-        self.last_result = res
-        with self.prof.model_span():
-            enc_out = encoder_forward(
-                self.enc, ret_tokens, self.cfg.attention_heads)
-            self.cross_kv = build_cross_kv(self.dec, enc_out,
-                                           self.cfg.attention_heads)
-            if not device_path:
+            with self.prof.model_span():
+                self.cross_kv = self._cross.from_tokens(ret_tokens)
                 _block(self.cross_kv[0])
+        self.last_result = res
 
     def single_step(self) -> None:
         with self.prof.step_span():
@@ -289,7 +358,7 @@ class RalmEncoderDecoder:
                     self.dec, self.tokens, self.cache,
                     self.cfg.attention_heads, cross_kv=self.cross_kv,
                 )
-                self.tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+                self.tokens.copy_(torch.argmax(logits, dim=-1))
                 if not hasattr(self.retriever, "retrieve_device"):
                     _block(hidden)
         self.step_count += 1

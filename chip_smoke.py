@@ -83,9 +83,34 @@ Phases (any failure exits non-zero and prints no result):
    timed beside its bound.  Last, the first 4 decode steps of Dec-S and
    Llama-S at batch 4, bf16 on the card against the same parameters in
    f32 on the CPU (logits within 0.03 of the f32 logits' largest
-   magnitude).
-7. Print the kernels line, the main-path line, the routes line, the
-   kernel-study line, the ralm line, and the result line.
+   magnitude).  Per preset also: the eager leg (8 warmup, 32 timed steps
+   under the sync check, 8 traced) on the same loop; the first 16 steps
+   from one reset both ways (tokens and fused retrievals equal); and a
+   copy of the preset with a 4-position cache, whose fifth step must raise
+   both ways.
+7. Tik-tok (``chamjax_torch.serving.tiktok``) on the fused path:
+   ``TikTokDecoder`` on Dec-S at interval 1 and ``TikTokEncoderDecoder`` on
+   EncDec-S at interval 8, batch 64 a state, the two states seeded with
+   different first tokens; each state's tokens and last retrieval equal to
+   a ``RalmDecoder`` / ``RalmEncoderDecoder`` run from the same tokens; tok/s
+   of both.  Then its host path: a ``RetrievalServer`` serving the RALM
+   index's ``LocalRetriever`` from a thread (its own CUDA stream) on
+   loopback, ``ExternalRetriever`` connected to it, Dec-S at batch 64 and
+   interval 8 through ``TikTokDecoder`` and through ``RalmDecoder``: tok/s
+   and the requests in flight (2 and 1), the last answer equal to the same
+   search in process.
+8. Print the kernels line, the main-path line, the routes line, the
+   kernel-study line, the ralm line, the tiktok line and the result line.
+
+Every search and every model step runs as a replay of a captured CUDA graph
+(``chamjax_torch/utils/graphs.py``), the default; each is also run eagerly
+under ``graphs.disable_capture()``, and the two are held equal: search
+results bit-equal (or, where the card gives otherwise, reported and held to
+rtol 1e-5 and ties), RALM tokens and fused retrievals equal over the first
+16 steps from one reset, and the cache-full check raising at the same step.
+The existing keys of each line are the captured run's; ``_eager`` keys are
+the eager run's (the RALM eager leg times 32 steps).  A capture in a timed
+RALM step fails its sync check (a capture synchronises the card).
 
 Needs the card, the CUDA toolkit (``nvcc``) and the rest of this repository
 beside the script.
@@ -94,11 +119,14 @@ beside the script.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import itertools
 import json
+import socket
 import subprocess
 import sys
+import threading
 import time
 
 FLAGSHIP = dict(nb=1_000_000, nq=128 * 65 + 256, nt=100_000, d=128, seed=42,
@@ -137,6 +165,30 @@ def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def eager_unless(captured: bool):
+    """A context: captured graphs (the default), or eager under
+    ``graphs.disable_capture()``."""
+    from chamjax_torch.utils import graphs
+    return contextlib.nullcontext() if captured else graphs.disable_capture()
+
+
+def suffixed(d: dict, suffix: str) -> dict:
+    return {f"{k}{suffix}": v for k, v in d.items()}
+
+
+def captured_vs_eager(name, got, want) -> bool:
+    """Search results ``(dists, ids)`` captured against eager: bit-equal,
+    or else (reported) within rtol 1e-5 with ids equal up to ties.
+    Returns whether they were bit-equal."""
+    import numpy as np
+    bit = all(np.array_equal(a, b) for a, b in zip(got, want))
+    if not bit:
+        log(f"{name}: captured and eager results are not bit-equal")
+        check_same_up_to_ties(f"{name}: captured vs eager", *got, *want,
+                              rtol=1e-5)
+    return bit
 
 
 def device_ms(fn, plain: bool = False) -> float:
@@ -458,7 +510,7 @@ def main_path(dev):
     from chamjax_torch.ops.scan_seg_block import adc_scan_tiles
     from chamjax_torch.ops.topk import select_topk
     from chamjax_torch.searcher import IVFSearcher, _rotate
-    from chamjax_torch.utils import cuda_lib
+    from chamjax_torch.utils import cuda_lib, graphs
 
     t0 = time.perf_counter()
     ds = synthetic_dataset(**FLAGSHIP)
@@ -487,11 +539,22 @@ def main_path(dev):
                         coarse_approx=True)
     s = IVFSearcher(idx, scfg, device=dev)
     xq = ds.xq[:N_GT]
-    cuda_lib.launch_counts.clear()
-    outs = [s.search(xq[i:i + BATCH]) for i in range(0, N_GT, BATCH)]
-    launches = dict(cuda_lib.launch_counts)
-    d_s = np.concatenate([o[0] for o in outs])
-    i_s = np.concatenate([o[1] for o in outs])
+    runs = []
+    for captured in (True, False):
+        with eager_unless(captured):
+            cuda_lib.launch_counts.clear()
+            outs = [s.search(xq[i:i + BATCH]) for i in range(0, N_GT, BATCH)]
+            launches = dict(cuda_lib.launch_counts)
+            singles = [s.search(xq[i:i + 1]) for i in range(8)]
+        runs.append((tuple(np.concatenate([o[j] for o in outs])
+                           for j in (0, 1)),
+                     tuple(np.concatenate([o[j] for o in singles])
+                           for j in (0, 1)), launches))
+    (d_s, i_s), b1, launches = runs[0]
+    launches_eager = runs[1][2]
+    equal = dict(b128=captured_vs_eager("main path b=128", runs[0][0],
+                                        runs[1][0]),
+                 b1=captured_vs_eager("main path b=1", b1, runs[1][1]))
     if launches.get("adc_scan_tiles", 0) < 1:
         raise AssertionError(f"main path did not launch adc_scan_tiles: "
                              f"{launches}")
@@ -552,6 +615,8 @@ def main_path(dev):
     ts = time_search(s.dev, kw, xq_dev)
     ms_b128, ms_b1 = ts["ms_b128"], ts["ms_b1"]
     host_b128, host_b1 = ts["host_b128"], ts["host_b1"]
+    with graphs.disable_capture():
+        te = time_search(s.dev, kw, xq_dev)
     ctx = dict(idx=idx, ds=ds, gt=gt, scfg=scfg, r10_xla=r10_xla,
                tiled_bf16=(d_s, i_s), tiled_f32=res_f, xq_dev=xq_dev,
                main_search=(s.dev, kw))
@@ -568,6 +633,13 @@ def main_path(dev):
             # host time to enqueue one search; near the device time above
             # means the card waits on the host
             host_enqueue_ms_b128=host_b128, host_enqueue_ms_b1=host_b1,
+            qps_b128_eager=BATCH * 1e3 / te["ms_b128"],
+            ms_per_batch_b128_eager=te["ms_b128"],
+            ms_per_query_b1_eager=te["ms_b1"],
+            host_enqueue_ms_b128_eager=te["host_b128"],
+            host_enqueue_ms_b1_eager=te["host_b1"],
+            launches=launches, launches_eager=launches_eager,
+            captured_bit_equal_eager=equal, graphs=len(s.dev.graphs),
             dataset_s=t_data, build_s=t_build, ground_truth_s=t_gt,
             max_list_len=int(idx.list_len.max())))
 
@@ -613,6 +685,7 @@ def routes_phase(dev, ctx):
     from chamjax_torch.ops.scan_seg_multi import (
         adc_scan_segments_multi, adc_scan_segments_multi_reference)
     from chamjax_torch.searcher import IVFSearcher, _rotate
+    from chamjax_torch.utils import graphs
     idx, gt, scfg = ctx["idx"], ctx["gt"], ctx["scfg"]
     xq = ctx["ds"].xq[:N_GT]
     r10_xla = ctx["r10_xla"]
@@ -634,6 +707,9 @@ def routes_phase(dev, ctx):
         if sr.dev.codes_tiled is not None:
             raise AssertionError(f"{name}: a tiled twin was built")
         d, i, launches = run_path(name, kernel, sr.search, xq)
+        with graphs.disable_capture():
+            d_e, i_e, launches_e = run_path(name, kernel, sr.search, xq)
+        bit_equal = captured_vs_eager(f"route {name}", (d, i), (d_e, i_e))
         results[name] = (d, i)
         r10 = recall_at_k(i, gt, 10)
         if abs(r10 - r10_xla) > bar:
@@ -642,13 +718,19 @@ def routes_phase(dev, ctx):
         check_same_up_to_ties(f"{name} vs the {ref} route", d, i, *ctx[ref],
                               rtol=1e-5)
         entry = dict(recall_at_10=r10, launches=launches,
+                     launches_eager=launches_e,
+                     captured_bit_equal_eager=bit_equal,
                      scan_len=sr.scan_len, windows=sr.windows)
         kw = dict(nprobe=NPROBE, k=K, windows=sr.windows, seg=SEG,
                   group=sr.group, lut_bf16=sr.scfg.lut_bf16,
                   backend=sr.backend, scan_len=sr.scan_len, tile=sr.tile)
         if name != "flat_g1_f32":
             entry.update(time_search(sr.dev, kw, ctx["xq_dev"]))
+            with graphs.disable_capture():
+                entry.update(suffixed(time_search(sr.dev, kw, ctx["xq_dev"]),
+                                      "_eager"))
             entry["qps_b128"] = BATCH * 1e3 / entry["ms_b128"]
+            entry["qps_b128_eager"] = BATCH * 1e3 / entry["ms_b128_eager"]
         line[name] = entry
         log(f"route {name}: {entry}")
         if kernel in kernels:
@@ -702,6 +784,9 @@ def routes_phase(dev, ctx):
     # timings does not decide the comparison between layouts
     line["tiled_bf16_repeat"] = time_search(*ctx["main_search"],
                                             ctx["xq_dev"])
+    with graphs.disable_capture():
+        line["tiled_bf16_repeat"].update(suffixed(
+            time_search(*ctx["main_search"], ctx["xq_dev"]), "_eager"))
     return dict(line=line, kernels=kernels, results=results)
 
 
@@ -908,9 +993,23 @@ def trace_phase(dev, ctx):
     res.update(busy_share=kernel_ms / window_ms, kernel_ms=kernel_ms,
                copy_ms=busy_us(copies) / 1e3,
                kernel_launches=len(kernels),
+               host_launch_calls=host_launch_calls(prof),
                top_kernels=[dict(name=n[:160], ms=v[0], launches=v[1])
                             for n, v in top])
     return res
+
+
+# the runtime calls by which the host launches work on the card
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                "cudaMemsetAsync")
+
+
+def host_launch_calls(prof) -> dict:
+    """How often the host called each launching runtime function in a
+    traced window (a graph replay is one ``cudaGraphLaunch``)."""
+    return {e.key: e.count for e in prof.key_averages()
+            if e.key in LAUNCH_CALLS}
 
 
 def study_phase(dev, card):
@@ -972,6 +1071,9 @@ RALM_TRACED = 8          # steps traced after the timed ones (8 cache slots)
 # the CPU, bf16 against f32)
 PRECISION_PRESETS, PRECISION_BATCH, PRECISION_STEPS = ("Dec-S", "Llama-S"), 4, 4
 BF16_REL = 0.03
+RALM_EAGER_STEPS = 32    # the eager leg's timed steps (each ~40 ms)
+RALM_SAME_STEPS = 16     # steps from one reset held equal both ways
+CACHE_FULL_LEN = 4       # the cache-full check's cache
 
 
 class QueryRecorder:
@@ -990,42 +1092,114 @@ class QueryRecorder:
         return self.result
 
 
-def ralm_inspect(rec, args, preset, interval, loop):
-    """After a preset's timed steps: trace ``RALM_TRACED`` more steps
-    (kernel launches and device time a step; the busy share against the
-    timed ms/step), search the last step's hidden states again with
-    ``retrieve_device`` and ``IVFSearcher.search`` (both equal to the fused
-    result up to ties), and hold ``adc_scan_tiles`` on that step's windows
-    against its plain version."""
+def trace_steps(loop, annotation: str, ms_per_step: float) -> dict:
+    """Trace ``RALM_TRACED`` more steps of ``loop``: kernel launches and
+    device time a step, the busy share against ``ms_per_step``, the
+    copies, the host's launching calls and its top ops a step."""
     import os
-    import numpy as np
     import torch
     from chamjax_torch.utils import tracing
     torch.cuda.synchronize()
     log_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "chamjax_torch", "build", "traces")
-    annotation = f"ralm_{preset}_{RALM_TRACED}_steps"
     with tracing.trace(log_dir) as prof:
         with tracing.annotate(annotation):
             loop.multi_steps(RALM_TRACED)
             torch.cuda.synchronize()
     kernels, copies = device_events(prof, annotation)
-    ms_per_step = loop.total_wall_s / args.steps * 1e3
     kernel_ms = busy_us(kernels) / 1e3 / RALM_TRACED
     host_ops = sorted((e for e in prof.key_averages()
                        if e.self_cpu_time_total > 0),
                       key=lambda e: -e.self_cpu_time_total)[:8]
-    traced = dict(
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        by_name[e.name][0] += e.time_range.elapsed_us() / 1e3 / RALM_TRACED
+        by_name[e.name][1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return dict(
         traced_steps=RALM_TRACED,
         launches_per_step=len(kernels) / RALM_TRACED,
+        top_kernels_per_step=[dict(name=n[:120], ms=v[0],
+                                   launches=v[1] / RALM_TRACED)
+                              for n, v in top],
         copies_per_step={n: c / RALM_TRACED for n, c in
                          collections.Counter(e.name for e in copies).items()},
         kernel_ms_per_step=kernel_ms,
         busy_share=kernel_ms / ms_per_step if kernels else None,
+        host_launch_calls_per_step={
+            n: c / RALM_TRACED for n, c in host_launch_calls(prof).items()},
         # host time under the profiler, which adds its own per op
         top_host_ops=[dict(name=e.key, calls_per_step=e.count / RALM_TRACED,
                            self_cpu_ms_per_step=e.self_cpu_time_total / 1e3
                            / RALM_TRACED) for e in host_ops])
+
+
+def ralm_eager(loop, args, preset: str) -> dict:
+    """The eager leg on the same loop, under ``disable_capture()``: warmup,
+    ``RALM_EAGER_STEPS`` timed steps under the sync check, then
+    ``RALM_TRACED`` traced ones.  Its keys end in ``_eager``."""
+    import torch
+    from chamjax_torch.benchmarks.ralm_device_bench import no_host_sync
+    from chamjax_torch.utils import graphs
+    with graphs.disable_capture():
+        loop.reset_inference_state()
+        loop.batch_inference(args.warmup)
+        loop.reset_inference_state()
+        with no_host_sync(torch.device("cuda", torch.cuda.current_device())):
+            loop.batch_inference(RALM_EAGER_STEPS)
+        ms = loop.total_wall_s / RALM_EAGER_STEPS * 1e3
+        stats = loop.prof.stats(args.batch)
+        traced = trace_steps(loop, f"ralm_{preset}_eager", ms)
+    traced.pop("top_host_ops")
+    traced.pop("top_kernels_per_step")
+    return suffixed(dict(
+        traced, steps=RALM_EAGER_STEPS, ms_per_step=ms,
+        tok_per_s=loop.throughput_tokens_per_sec(RALM_EAGER_STEPS),
+        p50_step_ms=stats["p50_step_ms"], p50_model_ms=stats["p50_model_ms"],
+        p50_retriever_ms=stats["p50_retriever_ms"]), "_eager")
+
+
+def ralm_same_steps(loop, preset: str) -> dict:
+    """The first ``RALM_SAME_STEPS`` steps from one reset, captured and
+    eager: the tokens of every step and every fused retrieval equal."""
+    import torch
+    runs = []
+    for captured in (True, False):
+        loop.reset_inference_state()
+        toks, rets = [], []
+        with eager_unless(captured):
+            for i in range(RALM_SAME_STEPS):
+                loop.single_step()
+                toks.append(loop.tokens.clone())
+                if i % loop.interval == 0:
+                    rets.append((loop.last_result.ids.clone(),
+                                 loop.last_result.dists.clone()))
+        runs.append((toks, rets))
+    (tc, rc), (te, re_) = runs
+    tokens_equal = all(torch.equal(a, b) for a, b in zip(tc, te))
+    retrievals_equal = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                           for a, b in zip(rc, re_))
+    if not (tokens_equal and retrievals_equal):
+        raise AssertionError(
+            f"ralm {preset}: captured and eager steps differ from one reset "
+            f"(tokens equal {tokens_equal}, retrievals equal "
+            f"{retrievals_equal})")
+    return dict(same_steps=RALM_SAME_STEPS, retrievals_compared=len(rc),
+                captured_tokens_equal_eager=True,
+                captured_retrievals_equal_eager=True)
+
+
+def ralm_inspect(rec, args, preset, interval, loop):
+    """After a preset's timed steps: trace ``RALM_TRACED`` more steps
+    (``trace_steps``), search the last step's hidden states again with
+    ``retrieve_device`` and ``IVFSearcher.search`` (both equal to the fused
+    result up to ties), hold ``adc_scan_tiles`` on that step's windows
+    against its plain version, then the eager leg (``ralm_eager``) and the
+    first steps both ways (``ralm_same_steps``)."""
+    import numpy as np
+    ms_per_step = loop.total_wall_s / args.steps * 1e3
+    traced = trace_steps(loop, f"ralm_{preset}_{RALM_TRACED}_steps",
+                         ms_per_step)
     q, fused = rec.queries, rec.result
     s = rec.inner.searcher
     again = rec.inner.retrieve_device(q, args.nprobe, args.k)
@@ -1038,10 +1212,52 @@ def ralm_inspect(rec, args, preset, interval, loop):
             d_s, i_s, rtol=1e-5)
     scan = tiles_on_queries(f"adc_scan_tiles[ralm {preset}]", s, q,
                             args.nprobe)
-    log(f"ralm {preset} interval {interval}: {traced}; fused retrieval "
-        f"equals IVFSearcher.search up to ties")
-    return dict(traced, fused_equals_searcher=True,
-                queries=list(q.shape), scan=scan["measured"])
+    eager = ralm_eager(loop, args, preset)
+    same = ralm_same_steps(loop, preset)
+    # a CUDA graph's kernels, as the profiler sees a replay, against the
+    # same step's kernels run eagerly
+    traced["profiler_sees_graph_kernels"] = (
+        traced["launches_per_step"]
+        >= 0.5 * eager["launches_per_step_eager"])
+    log(f"ralm {preset} interval {interval}: {traced}; {eager}; {same}; "
+        f"fused retrieval equals IVFSearcher.search up to ties")
+    return dict(traced, **eager, **same, fused_equals_searcher=True,
+                queries=list(q.shape), scan=scan["measured"],
+                graphs=len(loop.cache.graphs))
+
+
+def ralm_cache_full(dev, rec, argv) -> dict:
+    """Each preset with a ``CACHE_FULL_LEN``-position cache (batch 64, full
+    width): the step after the cache is full raises ``IndexError``, at the
+    same step captured and eager."""
+    from chamjax_torch.benchmarks import ralm_device_bench as bench
+    out = {}
+    for presets, interval in RALM_RUNS:
+        args = bench.parse_args(argv + ["--presets", presets, "--interval",
+                                        str(interval)])
+        for name, cfg in bench.model_configs(args).items():
+            cfg = dataclasses.replace(cfg, max_seq_len=CACHE_FULL_LEN)
+            params = bench.init_params(cfg, 0, dev)
+            raised_at = {}
+            for captured in (True, False):
+                loop = bench.make_loop(cfg, params, rec, args, interval)
+                with eager_unless(captured):
+                    for step in range(CACHE_FULL_LEN + 1):
+                        try:
+                            loop.single_step()
+                        except IndexError:
+                            raised_at[captured] = step
+                            break
+            if raised_at != {True: CACHE_FULL_LEN, False: CACHE_FULL_LEN}:
+                raise AssertionError(f"{name}: a {CACHE_FULL_LEN}-position "
+                                     f"cache raised at steps {raised_at}")
+            out[name] = dict(max_seq_len=CACHE_FULL_LEN,
+                             raised_at_captured=raised_at[True],
+                             raised_at_eager=raised_at[False])
+            log(f"ralm {name}: the cache-full check raised at step "
+                f"{CACHE_FULL_LEN} captured and eager")
+            del params
+    return out
 
 
 def ralm_precision(dev, argv):
@@ -1118,8 +1334,201 @@ def ralm_phase(dev, argv=RALM_ARGV, runs=RALM_RUNS):
             log(f"ralm row: {row}")
             rows.append(row)
     return dict(rows=rows, precision=ralm_precision(dev, argv),
+                cache_full=ralm_cache_full(dev, rec, argv), rec=rec,
                 index=dict(build_s=build_s, seg=s.seg, windows=s.windows,
                            nlist=s.cfg.nlist, m=s.cfg.m, dim=s.cfg.dim))
+
+
+# Tik-tok: Dec-S at interval 1 and EncDec-S at 8 on the fused path, Dec-S at
+# interval 8 on the host path, batch 64 a state, over the RALM index
+TIKTOK_FUSED = (("Dec-S", 1), ("EncDec-S", 8))
+TIKTOK_HOST = ("Dec-S", 8)
+TIKTOK_STEPS = 32
+HOST = "127.0.0.1"
+
+
+def tiktok_loops(preset, interval, argv, dev):
+    """The preset's config (the RALM phase's clamp), its random weights
+    (seed 0) and the (tik-tok, sequential) loop classes of its family."""
+    from chamjax_torch.benchmarks import ralm_device_bench as bench
+    from chamjax_torch.serving import (RalmDecoder, RalmEncoderDecoder,
+                                       TikTokDecoder, TikTokEncoderDecoder)
+    args = bench.parse_args(argv + ["--presets", preset, "--interval",
+                                    str(interval)])
+    cfg = bench.model_configs(args)[preset]
+    params = bench.init_params(cfg, 0, dev)
+    if cfg.model_type == "encoder-decoder":
+        return args, cfg, params, TikTokEncoderDecoder, RalmEncoderDecoder
+    return args, cfg, (params,), TikTokDecoder, RalmDecoder
+
+
+def tiktok_fused(dev, retriever, argv=RALM_ARGV) -> dict:
+    """Tik-tok on the fused path, captured: warmup, reset, the two states
+    seeded with different first tokens, ``TIKTOK_STEPS`` timed steps; then
+    a sequential loop from each state's tokens (warmup, reset, the same
+    timed steps), whose tokens and last retrieval must equal the state's."""
+    import numpy as np
+    import torch
+    from chamjax_torch.utils import cuda_lib
+    out = {}
+    for preset, interval in TIKTOK_FUSED:
+        args, cfg, ps, tiktok, sequential = tiktok_loops(preset, interval,
+                                                         argv, dev)
+        kw = dict(retrieval_interval=interval, nprobe=args.nprobe, k=args.k)
+        rng = np.random.default_rng(interval)
+        seeds = {name: torch.from_numpy(rng.integers(
+            1, cfg.vocab_size, args.batch).astype(np.int32)).to(dev)
+            for name in ("tik", "tok")}
+        tt = tiktok(*ps, cfg, retriever, args.batch, **kw)
+        tt.batch_inference(args.warmup)
+        tt.reset_inference_state()
+        for name, seed in seeds.items():
+            tt.states[name].tokens.copy_(seed)
+        cuda_lib.launch_counts.clear()
+        tt.batch_inference(TIKTOK_STEPS)
+        launches = cuda_lib.launch_counts["adc_scan_tiles"]
+        row = dict(interval=interval, batch_per_state=args.batch,
+                   steps=TIKTOK_STEPS, launches_adc_scan_tiles=launches,
+                   tok_per_s=tt.throughput_tokens_per_sec(TIKTOK_STEPS),
+                   wall_s=tt.prof.time_step[-1])
+        if launches < 1:
+            raise AssertionError(f"tik-tok {preset} did not launch "
+                                 "adc_scan_tiles")
+        for name, seed in seeds.items():
+            seq = sequential(*ps, cfg, retriever, args.batch, **kw)
+            seq.batch_inference(args.warmup)
+            seq.reset_inference_state()
+            seq.tokens.copy_(seed)
+            seq.batch_inference(TIKTOK_STEPS)
+            st = tt.states[name]
+            same = (torch.equal(st.tokens, seq.tokens)
+                    and torch.equal(st.last_result.ids, seq.last_result.ids)
+                    and torch.equal(st.last_result.dists,
+                                    seq.last_result.dists))
+            if not same:
+                raise AssertionError(f"tik-tok {preset}: state {name} "
+                                     "differs from its sequential twin")
+            row[f"tok_per_s_sequential_{name}"] = \
+                seq.throughput_tokens_per_sec(TIKTOK_STEPS)
+        row["states_equal_sequential"] = True
+        log(f"tiktok fused {preset}: {row}")
+        out[preset] = row
+        del tt, seq, ps
+    return out
+
+
+class FlightRecorder:
+    """A host retriever passed through, counting the requests in flight
+    (the deepest count kept) and keeping the last query and its answer."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.sent = collections.deque()
+        self.depth = self.max_depth = 0
+        self.last = None
+
+    def retrieve(self, queries, nprobe, k):
+        self.retrieve_send(queries, nprobe, k)
+        return self.retrieve_recv(len(queries), k)
+
+    def retrieve_send(self, queries, nprobe, k):
+        self.inner.retrieve_send(queries, nprobe, k)
+        self.sent.append(queries)
+        self.depth += 1
+        self.max_depth = max(self.max_depth, self.depth)
+
+    def poll(self):
+        return self.inner.poll()
+
+    def retrieve_recv(self, batch, k):
+        res = self.inner.retrieve_recv(batch, k)
+        self.depth -= 1
+        self.last = (self.sent.popleft(), res)
+        return res
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind((HOST, 0))
+        return s.getsockname()[1]
+
+
+def tiktok_host(dev, retriever, argv=RALM_ARGV) -> dict:
+    """Tik-tok's host path against a real engine: a ``RetrievalServer``
+    hosting ``retriever`` from a thread (on its own CUDA stream) on
+    loopback, an ``ExternalRetriever`` connected to it; Dec-S through
+    ``TikTokDecoder`` and through ``RalmDecoder`` (warmup, reset,
+    ``TIKTOK_STEPS`` timed steps): tok/s, the requests in flight, and the
+    last answer against the same search in process."""
+    import torch
+    from chamjax_torch.retrieval.external import ExternalRetriever
+    from chamjax_torch.retrieval.server import RetrievalServer
+    from chamjax_torch.utils import cuda_lib
+    preset, interval = TIKTOK_HOST
+    args, cfg, ps, tiktok, sequential = tiktok_loops(preset, interval, argv,
+                                                     dev)
+    port = free_port()
+    server = RetrievalServer(retriever, HOST, port, batch_size=args.batch,
+                             dim=cfg.embed_dim, nprobe=args.nprobe)
+    stream = torch.cuda.Stream(dev)
+    failures = []
+
+    def serve():
+        try:
+            with torch.cuda.stream(stream):
+                server.start()
+        except Exception as e:      # reported by the main thread
+            failures.append(e)
+
+    thread = threading.Thread(target=serve, daemon=True)
+    thread.start()
+    client = None
+    for _ in range(200):
+        try:
+            client = ExternalRetriever(HOST, port, args.batch, cfg.embed_dim,
+                                       k=args.k, nprobe=args.nprobe)
+            break
+        except OSError:
+            time.sleep(0.05)
+    if client is None:
+        raise AssertionError("the retrieval server never came up")
+    out = dict(preset=preset, interval=interval, batch=args.batch,
+               steps=TIKTOK_STEPS, engine="RetrievalServer on loopback, "
+               "one thread, its own CUDA stream")
+    try:
+        for name, cls in (("tiktok", tiktok), ("sequential", sequential)):
+            rec = FlightRecorder(client)
+            loop = cls(*ps, cfg, rec, args.batch,
+                       retrieval_interval=interval, nprobe=args.nprobe,
+                       k=args.k)
+            loop.batch_inference(args.warmup)
+            loop.reset_inference_state()
+            rec.max_depth = 0
+            cuda_lib.launch_counts.clear()
+            loop.batch_inference(TIKTOK_STEPS)
+            launches = cuda_lib.launch_counts["adc_scan_tiles"]
+            q, res = rec.last
+            want = retriever.retrieve(q, args.nprobe, args.k)
+            check_same_up_to_ties(f"tik-tok host path ({name}): the last "
+                                  "answer vs the search in process",
+                                  res.dists, res.ids, want.dists, want.ids,
+                                  rtol=1e-5)
+            out[name] = dict(
+                tok_per_s=loop.throughput_tokens_per_sec(TIKTOK_STEPS),
+                max_in_flight=rec.max_depth,
+                launches_adc_scan_tiles=launches)
+    finally:
+        client.close()
+        thread.join(timeout=60)
+    if thread.is_alive():
+        raise AssertionError("the retrieval server's thread did not stop")
+    if failures:
+        raise AssertionError(f"the retrieval server failed: {failures[0]!r}")
+    if (out["tiktok"]["max_in_flight"], out["sequential"]["max_in_flight"]) \
+            != (2, 1):
+        raise AssertionError(f"tik-tok host path: requests in flight {out}")
+    log(f"tiktok host path: {out}")
+    return out
 
 
 def main() -> int:
@@ -1130,7 +1539,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         return fail("no CUDA device is available")
     try:
-        from chamjax_torch.utils import cuda_lib
+        from chamjax_torch.utils import cuda_lib, graphs
     except ImportError as e:
         return fail(f"chamjax_torch is not importable beside this script: "
                     f"{e}")
@@ -1158,14 +1567,19 @@ def main() -> int:
         variant_options = variants_phase(dev)
         main = main_path(dev)
         traced = trace_phase(dev, main["ctx"])
+        with graphs.disable_capture():
+            traced_eager = trace_phase(dev, main["ctx"])
         routes = routes_phase(dev, main["ctx"])
         streamed = streamed_phase(dev, main["ctx"],
                                   routes["results"]["flat_g8_bf16"])
         study = study_phase(dev, card)
         ralm = ralm_phase(dev)
+        tiktok = dict(fused=tiktok_fused(dev, ralm["rec"].inner),
+                      host=tiktok_host(dev, ralm["rec"].inner))
     except AssertionError as e:
         return fail(str(e))
     log(f"trace: {traced}")
+    log(f"trace, eager: {traced_eager}")
     mk = main["main_kernel"]
     kernels = [dict(
         name="adc_scan_tiles", route="cuda",
@@ -1178,7 +1592,13 @@ def main() -> int:
         launches_streamed_tiled=streamed["launches"]["adc_scan_tiles"],
         launches_kernel_study=study["launches"]["adc_scan_tiles"],
         launches_ralm={r["preset"]: r["launches_adc_scan_tiles"]
-                       for r in ralm["rows"]})]
+                       for r in ralm["rows"]},
+        launches_tiktok=dict(
+            {f"fused {p}": r["launches_adc_scan_tiles"]
+             for p, r in tiktok["fused"].items()},
+            **{f"host {tiktok['host']['preset']} {n}":
+               tiktok["host"][n]["launches_adc_scan_tiles"]
+               for n in ("tiktok", "sequential")}))]
     for name, replaces in (
             ("adc_scan_segments_multi", "chamjax/ops/scan_seg_multi.py:134"),
             ("adc_scan_segments", "chamjax/ops/scan_seg.py:162"),
@@ -1216,19 +1636,26 @@ def main() -> int:
     # busy_share divides by the profiled window, which the profiler
     # stretches; busy_share_unprofiled divides the same kernel time a
     # search by this run's unprofiled b=128 batch time
-    unprofiled = (traced["kernel_ms"] / traced["searches"]
-                  / main["line"]["ms_per_batch_b128"]
-                  if traced["busy_share"] is not None else None)
+    unprofiled = {
+        suffix: (t["kernel_ms"] / t["searches"]
+                 / main["line"][f"ms_per_batch_b128{suffix}"]
+                 if t["busy_share"] is not None else None)
+        for suffix, t in (("", traced), ("_eager", traced_eager))}
     print(json.dumps(dict(main["line"], busy_share=traced["busy_share"],
-                          busy_share_unprofiled=unprofiled,
-                          trace=traced, card=card, nvcc_s=t_nvcc)),
+                          busy_share_unprofiled=unprofiled[""],
+                          busy_share_eager=traced_eager["busy_share"],
+                          busy_share_unprofiled_eager=unprofiled["_eager"],
+                          trace=traced, trace_eager=traced_eager, card=card,
+                          nvcc_s=t_nvcc)),
           flush=True)
     print(json.dumps(dict(routes=routes["line"], **streamed["line"],
                           card=card)), flush=True)
     print(json.dumps(dict(kernel_study=study, card=card)), flush=True)
     print(json.dumps(dict(ralm={r["preset"]: r for r in ralm["rows"]},
-                          precision=ralm["precision"], index=ralm["index"],
+                          precision=ralm["precision"],
+                          cache_full=ralm["cache_full"], index=ralm["index"],
                           card=card)), flush=True)
+    print(json.dumps(dict(tiktok=tiktok, card=card)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

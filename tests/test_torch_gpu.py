@@ -1,13 +1,16 @@
 """chamjax_torch on an NVIDIA card: the CUDA kernels (the scans, their
 ``debug_ablate`` bodies and the measurement variants) against their plain
 versions, the query routes (tiled, flat, padded-window, host-streamed) on
-the card against the same routes on the CPU, and profiler tracing of the
-card.  Every test is marked ``gpu`` and skips where there
+the card against the same routes on the CPU, profiler tracing of the
+card, the RALM path, and the captured graphs (``utils/graphs.py``) against
+their eager runs.  Every test is marked ``gpu`` and skips where there
 is no card.  This file imports neither jax nor chamjax, so it runs on a
 machine that has only PyTorch:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -694,3 +697,201 @@ def test_fused_ralm_on_card_makes_no_host_sync(ralm_retriever, family):
     assert not tie_mismatches(res.dists.cpu().numpy(),
                               res.ids.cpu().numpy().astype(np.int64), d_s,
                               i_s, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the captured step: each graph against its eager run (disable_capture)
+# ---------------------------------------------------------------------------
+
+
+def assert_close(got, want, rtol=1e-5):
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   w.float().cpu().numpy(), rtol=rtol,
+                                   atol=rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", sorted(RALM_FAMILIES))
+def test_captured_steps_equal_eager_on_card(cuda_device, family):
+    """Four decode steps (with cross K/V over an encoded context for the
+    encoder-decoder: encoder_forward and build_cross_kv captured too),
+    captured and replayed, against the same steps under disable_capture,
+    f32 (rtol = atol = 1e-5); one graph for the steps."""
+    from chamjax_torch.benchmarks.ralm_device_bench import init_params
+    from chamjax_torch.models.transformer import build_cross_kv
+    from chamjax_torch.models import encoder_forward
+    from chamjax_torch.serving.ralm import step_fns
+    from chamjax_torch.utils import graphs
+    cfg = ralm_config(family)
+    params = init_params(cfg, 0, cuda_device)
+    *enc, dec = params if family == "encoder-decoder" else (params,)
+    step, cache_fn = step_fns(cfg)
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 2)).astype(
+        np.int32)).to(cuda_device)
+    src = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 6)).astype(
+        np.int32)).to(cuda_device)
+    runs = []
+    for captured in (True, False):
+        with (graphs.disable_capture() if not captured
+              else contextlib.nullcontext()):
+            cross = {}
+            if enc:
+                out = encoder_forward(enc[0], src, 4)
+                cross = dict(cross_kv=build_cross_kv(dec, out, 4))
+            cache = cache_fn(cfg, 2, device=cuda_device)
+            outs = [out] if enc else []
+            for t in toks:
+                lg, hid, cache = step(dec, t, cache, **cross)
+                outs += [lg, hid]
+            outs += [cache.k, cache.v]
+            runs.append(outs)
+        assert len(cache.graphs) == int(captured)
+        if enc:
+            assert len(enc[0].graphs) == len(dec.graphs) == 1
+    assert_close(runs[0], runs[1])
+    assert int(cache.idx) == 4 and cache.host_idx == 4
+
+
+SEARCH_ROUTES = {
+    "tiled": dict(),
+    "flat_g8": dict(tiled=False, seg_group=8),
+    "flat_g1": dict(tiled=False, seg_group=1),
+    "pallas": dict(backend="pallas"),
+    "xla": dict(backend="xla"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", sorted(SEARCH_ROUTES))
+def test_captured_search_equals_eager_on_card(card_index, route):
+    """ivfpq_search on each backend and ivfpq_search_preassigned, captured
+    and replayed (one graph each, owned by the DeviceIVF) against eager:
+    distances rtol 1e-5, ids equal up to ties; each replay adds its
+    kernel's launch, as an eager call does."""
+    from chamjax_torch.searcher import ivfpq_search_preassigned
+    from chamjax_torch.utils import graphs
+    ds, idx = card_index
+    scfg = SearchConfig(nprobe=8, k=10, seg=256, lut_bf16=False,
+                        **SEARCH_ROUTES[route])
+    s = IVFSearcher(idx, scfg, device="cuda")
+    lists = np.random.default_rng(1).integers(0, 64, (len(ds.xq), 8))
+    before = dict(cuda_lib.launch_counts)
+    got = [s.search(ds.xq) for _ in range(3)]
+    got_l = s.search_preassigned(ds.xq, lists)
+    assert len(s.dev.graphs) == 2
+    captured_launches = {k: v - before.get(k, 0)
+                         for k, v in cuda_lib.launch_counts.items()}
+    before = dict(cuda_lib.launch_counts)
+    with graphs.disable_capture():
+        want = [s.search(ds.xq) for _ in range(3)]
+        want_l = s.search_preassigned(ds.xq, lists)
+    eager_launches = {k: v - before.get(k, 0)
+                      for k, v in cuda_lib.launch_counts.items()}
+    assert captured_launches == eager_launches
+    assert len(s.dev.graphs) == 2
+    for (d_g, i_g), (d_e, i_e) in zip(got + [got_l], want + [want_l]):
+        np.testing.assert_allclose(d_g, d_e, rtol=1e-5, atol=1e-5)
+        assert not tie_mismatches(d_g, i_g, d_e, i_e, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_captured_search_keeps_tf32_off_on_card(card_index):
+    """The search's matmuls replay as captured, with TF32 off, even when the
+    caller turns TF32 on: the card still equals the CPU at rtol 1e-5."""
+    ds, idx = card_index
+    scfg = SearchConfig(nprobe=8, k=10, seg=256, lut_bf16=False,
+                        backend="xla")
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("medium")
+    try:
+        s = IVFSearcher(idx, scfg, device="cuda")
+        d_g, i_g = s.search(ds.xq)
+        d_g, i_g = s.search(ds.xq)               # a replay
+        assert len(s.dev.graphs) == 1
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    d_c, i_c = IVFSearcher(idx, scfg, device="cpu").search(ds.xq)
+    np.testing.assert_allclose(d_g, d_c, rtol=1e-5, atol=1e-5)
+    assert not tie_mismatches(d_g, i_g, d_c, i_c, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", sorted(RALM_FAMILIES))
+def test_reset_does_not_capture_again_on_card(ralm_retriever, family):
+    """A reset empties the loop's buffers in place: the run after it
+    replays the graphs captured before it and repeats the first run."""
+    from chamjax_torch.benchmarks.ralm_device_bench import init_params
+    from chamjax_torch.serving.ralm import RalmDecoder, RalmEncoderDecoder
+    cfg = ralm_config(family, dtype="bfloat16")
+    params = init_params(cfg, 0, "cuda")
+    cls = RalmEncoderDecoder if family == "encoder-decoder" else RalmDecoder
+    loop = cls(*(params if family == "encoder-decoder" else (params,)), cfg,
+               ralm_retriever, 4, retrieval_interval=2, nprobe=8, k=10)
+
+    def n_graphs():
+        owners = [loop.cache.graphs, ralm_retriever.searcher.dev.graphs]
+        if family == "encoder-decoder":
+            owners += [loop._cross.graphs, loop.enc.graphs]
+        return [len(o) for o in owners]
+
+    runs = []
+    for _ in range(2):
+        loop.multi_steps(4)
+        runs.append((loop.tokens.clone(), loop.last_result.ids.clone(),
+                     n_graphs()))
+        loop.reset_inference_state()
+        assert loop.cache.host_idx == 0 and int(loop.cache.idx) == 0
+    assert runs[0][2] == runs[1][2]
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["decoder", "encoder-decoder"])
+def test_tiktok_states_do_not_alias_on_card(ralm_retriever, family):
+    """Two tik-tok states seeded with different first tokens, each on its
+    own graphs, equal to a sequential loop from the same tokens."""
+    from chamjax_torch.benchmarks.ralm_device_bench import init_params
+    from chamjax_torch.serving.ralm import RalmDecoder, RalmEncoderDecoder
+    from chamjax_torch.serving.tiktok import (TikTokDecoder,
+                                              TikTokEncoderDecoder)
+    cfg = ralm_config(family, dtype="bfloat16")
+    params = init_params(cfg, 0, "cuda")
+    ps = params if family == "encoder-decoder" else (params,)
+    kw = dict(retrieval_interval=2, nprobe=8, k=10)
+    tik_cls, seq_cls = ((TikTokEncoderDecoder, RalmEncoderDecoder)
+                        if family == "encoder-decoder"
+                        else (TikTokDecoder, RalmDecoder))
+    seeds = {"tik": torch.tensor([5, 9, 11, 3], dtype=torch.int32),
+             "tok": torch.tensor([17, 2, 40, 8], dtype=torch.int32)}
+    tt = tik_cls(*ps, cfg, ralm_retriever, 4, **kw)
+    for name, seed in seeds.items():
+        tt.states[name].tokens.copy_(seed)
+    tt.batch_inference(5)
+    for name, seed in seeds.items():
+        seq = seq_cls(*ps, cfg, ralm_retriever, 4, **kw)
+        seq.tokens.copy_(seed)
+        seq.multi_steps(5)
+        st = tt.states[name]
+        assert torch.equal(st.tokens, seq.tokens), name
+        assert torch.equal(st.last_result.ids, seq.last_result.ids), name
+
+
+@pytest.mark.gpu
+def test_failed_capture_raises_on_card(cuda_device):
+    """A function that reads a device value on the host cannot be captured:
+    the call raises, the owner keeps no graph, and the card still works."""
+    from chamjax_torch.utils import graphs
+
+    def reads_the_host(x):
+        return x * float(x.sum())
+
+    owner = graphs.Graphs()
+    x = torch.ones(4, device=cuda_device)
+    with pytest.raises(RuntimeError):
+        graphs.call(owner, reads_the_host, x)
+    assert len(owner) == 0
+    torch.cuda.synchronize()
+    assert float(torch.ones(3, device=cuda_device).sum()) == 3.0
