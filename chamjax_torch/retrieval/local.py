@@ -1,5 +1,6 @@
 """In-process retrievers over the port's IVF-PQ search (the port of
-``chamjax/retrieval/local.py``: ``LocalRetriever`` and ``DeviceRetriever``).
+``chamjax/retrieval/local.py``: ``LocalRetriever``, ``DeviceRetriever`` and
+``NativeCPURetriever``).
 
 ``retrieve`` takes and returns numpy arrays; ``retrieve_device`` takes a
 tensor on the index's device and returns tensors there, so the RALM loop
@@ -17,6 +18,7 @@ from typing import Optional
 
 import numpy as np
 
+from chamjax_torch import native
 from chamjax_torch.config import SearchConfig
 from chamjax_torch.index.ivf import PackedIVF
 from chamjax_torch.retrieval.interface import BaseRetriever, RetrievalResult
@@ -143,3 +145,33 @@ class DeviceRetriever(BaseRetriever):
                         ) -> RetrievalResult:
         d, i = self._search(queries, nprobe, k)
         return RetrievalResult(ids=i, dists=d)
+
+
+class NativeCPURetriever(BaseRetriever):
+    """The host (C++) engine behind the retriever contract: the reference's
+    ``FaissServer`` CPU mode.  The same packed index as ``LocalRetriever``,
+    with f32 LUTs: the same distances to float tolerance; no card
+    needed."""
+
+    def __init__(self, index: PackedIVF,
+                 search_cfg: Optional[SearchConfig] = None):
+        self.engine = native.NativeIVFPQ(index)
+        self.scfg = search_cfg or SearchConfig()
+
+    def set_nprobe(self, nprobe: int) -> None:
+        self.scfg = dataclasses.replace(self.scfg, nprobe=nprobe)
+
+    def retrieve(self, queries: np.ndarray, nprobe: int, k: int
+                 ) -> RetrievalResult:
+        dists, ids = self.engine.search(queries, nprobe or self.scfg.nprobe,
+                                        k or self.scfg.k)
+        return RetrievalResult(ids=ids, dists=dists)
+
+    def retrieve_with_lists(self, queries: np.ndarray, list_ids: np.ndarray,
+                            k: int) -> RetrievalResult:
+        dists, ids = self.engine.search_preassigned(queries, list_ids,
+                                                    k or self.scfg.k)
+        return RetrievalResult(ids=ids, dists=dists)
+
+    def close(self) -> None:
+        self.engine.close()

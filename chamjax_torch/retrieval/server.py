@@ -20,7 +20,7 @@ import socket
 import struct
 import threading
 import time
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 
@@ -50,6 +50,7 @@ class BaseServer:
         self.batch = batch_size
         self.dim = dim
         self.nprobe = nprobe
+        self.served: List[int] = []      # batches answered, a connection
         self._stop = threading.Event()
 
     # subclass hook ------------------------------------------------------
@@ -89,7 +90,8 @@ class BaseServer:
         try:
             for _ in range(n_connections):
                 conn, _ = listener.accept()
-                self.serve_connection(conn, with_lists=with_lists)
+                self.served.append(self.serve_connection(
+                    conn, with_lists=with_lists))
                 conn.close()
         finally:
             listener.close()

@@ -15,6 +15,12 @@ Ids never cross to the card: the scan returns top-k *positions* in the
 staged slab, and the host maps ``position → window → global row → id``
 against its own id array, in its own dtype (int32 or int64), with no copy.
 
+The host gather is ``chamjax_torch.native.gather_codes`` (one memcpy a
+window, straight into the pinned staging buffer), as in the reference; where
+the native library cannot build, a numpy gather takes its place, as the
+reference falls back to its Python loop.  ``gather_path`` records which
+one the searcher runs.
+
 The staged scan runs ``adc_scan_tiles`` by default (``SearchConfig.tiled``:
 each staged window is one ``(m, seg)`` tile, ``tile_idx = arange(bW)``),
 or ``adc_scan_segments_multi`` over the slab viewed as a flat layout with
@@ -29,6 +35,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from chamjax_torch import native
 from chamjax_torch.config import SearchConfig
 from chamjax_torch.index.ivf import PackedIVF
 from chamjax_torch.ops.coarse import select_probes
@@ -133,11 +140,24 @@ class HostStreamedSearcher:
     Staging uses two pinned host buffers in turn.  The copy of a buffer to
     the card is asynchronous, so before the host gathers into a buffer
     again it waits on the CUDA event recorded after the copy that last
-    read it."""
+    read it.
+
+    ``gather``: ``"auto"`` takes the native gather where the library
+    builds and the numpy gather where it does not; ``"native"`` raises
+    ``NativeUnavailable`` instead of falling back; ``"numpy"`` always
+    takes numpy.  ``gather_path`` says which one runs.  The two fill the
+    rows past a window's length differently (zeros / the rows that follow
+    it); nothing reads them, so the results are bit-equal."""
 
     def __init__(self, packed: PackedIVF, scfg: SearchConfig,
-                 seg: int = 0, device=None):
+                 seg: int = 0, device=None, gather: str = "auto"):
         self.device = resolve_device(device)
+        if gather not in ("auto", "native", "numpy"):
+            raise ValueError(f"gather={gather!r}: auto, native or numpy")
+        if gather == "native":
+            native.load()
+        self.gather_path = ("native" if gather == "native" or (
+            gather == "auto" and native.available()) else "numpy")
         self.scfg = scfg
         self.cfg = packed.cfg
         if packed.cfg.nbits != 8:
@@ -201,12 +221,19 @@ class HostStreamedSearcher:
             self._copied[slot].synchronize()
         return buf[:n].view(shape)
 
-    def _gather(self, starts: np.ndarray, slot: int) -> torch.Tensor:
+    def _gather(self, starts: np.ndarray, lens: np.ndarray,
+                slot: int) -> torch.Tensor:
         """Host gather of the probed code windows into staging buffer
-        ``slot``: ``(bW, seg, m)`` u8.  Every window takes ``seg`` rows
-        from its start (cut at the array's end); rows past a window's
-        length are copied and never read."""
+        ``slot``: ``(bW, seg, m)`` u8.  A window takes ``seg`` rows from
+        its start (cut at the array's end); nothing reads the rows past its
+        length.  The native gather zero-fills them and the windows of
+        length 0; the numpy gather copies every window's ``seg`` rows, the
+        last row repeated past the array's end."""
         host = self._buffer(slot, (starts.size, self.seg, self.cfg.m))
+        if self.gather_path == "native":
+            native.gather_codes(self.codes, starts, lens, self.seg,
+                                out=host.numpy())
+            return host
         rows = (starts.reshape(-1).astype(np.int64)[:, None]
                 + np.arange(self.seg, dtype=np.int64))
         np.take(self.codes, rows, axis=0, out=host.numpy(), mode="clip")
@@ -222,10 +249,17 @@ class HostStreamedSearcher:
         self._copied[slot] = ev
         return slab
 
-    def _stage(self, starts: np.ndarray, slot: int = 0) -> torch.Tensor:
+    def _stage(self, starts: np.ndarray, lens: np.ndarray,
+               slot: int = 0) -> torch.Tensor:
         """Gather a batch's windows on the host and start their copy:
         returns the device slab ``(bW, seg, m)`` u8."""
-        return self._upload(self._gather(starts, slot), slot)
+        return self._upload(self._gather(starts, lens, slot), slot)
+
+    @staticmethod
+    def _pull_windows(plan) -> Tuple[np.ndarray, np.ndarray]:
+        """A plan's ``(starts, lens)`` on the host, in one copy."""
+        both = torch.stack((plan[0], plan[1])).cpu().numpy()
+        return both[0], both[1]
 
     def _plan(self, queries: np.ndarray):
         q = as_f32(queries, self.device)
@@ -262,9 +296,10 @@ class HostStreamedSearcher:
                ) -> Tuple[np.ndarray, np.ndarray]:
         """Returns ``(dists (b, k) f32, ids (b, k) int64)``."""
         k = k or self.scfg.k
-        starts, lens, probe, list_ids, q_rot = self._plan(queries)
-        starts_h = starts.cpu().numpy()
-        slab = self._stage(starts_h)
+        plan = self._plan(queries)
+        starts_h, lens_h = self._pull_windows(plan)
+        slab = self._stage(starts_h, lens_h)
+        _starts, lens, probe, list_ids, q_rot = plan
         d, pos = self._scan(slab, lens, probe, list_ids, q_rot, k)
         d = d.cpu().numpy()
         return d, self._map_ids(d, pos.cpu().numpy(), starts_h)
@@ -282,20 +317,20 @@ class HostStreamedSearcher:
             return []
         outs = []
         plan = self._plan(batches[0])
-        starts_h = plan[0].cpu().numpy()
-        slab = self._stage(starts_h, slot=0)
+        starts_h, lens_h = self._pull_windows(plan)
+        slab = self._stage(starts_h, lens_h, slot=0)
         for i in range(len(batches)):
-            next_plan = next_starts = None
+            next_plan = next_windows = None
             if i + 1 < len(batches):
                 next_plan = self._plan(batches[i + 1])
-                next_starts = next_plan[0].cpu().numpy()
+                next_windows = self._pull_windows(next_plan)
             _starts, lens, probe, list_ids, q_rot = plan
             outs.append((self._scan(slab, lens, probe, list_ids, q_rot, k),
                          starts_h))
             if next_plan is not None:
                 # gathers into the other buffer while the card scans batch i
-                slab = self._stage(next_starts, slot=(i + 1) % 2)
-                plan, starts_h = next_plan, next_starts
+                slab = self._stage(*next_windows, slot=(i + 1) % 2)
+                plan, starts_h = next_plan, next_windows[0]
         res = []
         for (d, pos), st_h in outs:
             d = d.cpu().numpy()

@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
 """Smoke test of chamjax_torch on one NVIDIA card: builds the CUDA kernels
-from ``chamjax_torch/csrc``, holds each against its plain PyTorch version,
-then drives every scan route of the IVF-PQ query path at the 1M flagship
-size, the kernel study, and the RALM serving path (decode fused with the
-on-card retrieval) at the full width of the Dec-S, Llama-S and EncDec-S
-presets.
+from ``chamjax_torch/csrc`` and the host library from
+``chamjax_torch/native/src``, holds each kernel against its plain PyTorch
+version, then drives every scan route of the IVF-PQ query path at the 1M
+flagship size, the kernel study, the RALM serving path (decode fused with
+the on-card retrieval) at the full width of the Dec-S, Llama-S and EncDec-S
+presets, and disaggregated serving (engine processes behind an index
+server and behind the coordinators).
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result):
 
-1. Build the kernels (one ``nvcc`` per source, started together); print the
-   card's name and power limit.
+1. Build the kernels (one ``nvcc`` per source, started together) and
+   ``libchamnet`` (``g++``, in a thread meanwhile); print the card's name
+   and power limit.
 2. Kernels vs plain versions, each timed on the device (``device_ms``:
    CUDA events around back-to-back calls queued behind a spin kernel)
    beside its plain version and its bound:
@@ -53,7 +56,9 @@ Phases (any failure exits non-zero and prints no result):
    except in the order of distance ties (``tie_mismatches``); flat group 8
    with packed-bf16 LUTs within 0.01 of the oracle; ``HostStreamedSearcher``
    with ``tiled`` True and False, each equal to the resident search up to
-   the order of ties, at the same R@10.  Each route's kernel is held
+   the order of ties, at the same R@10, gathering with the native gather
+   (``gather_path`` must be "native") and again with the numpy gather
+   (bit-equal results).  Each route's kernel is held
    against its plain version on one real batch; b=128 and b=1 searches are timed on
    the flat and pallas routes; ``search_pipelined`` over the 65 remaining
    b=128 batches and one batch's host gather, copy and device scan on the
@@ -99,8 +104,27 @@ Phases (any failure exits non-zero and prints no result):
    interval 8 through ``TikTokDecoder`` and through ``RalmDecoder``: tok/s
    and the requests in flight (2 and 1), the last answer equal to the same
    search in process.
-8. Print the kernels line, the main-path line, the routes line, the
-   kernel-study line, the ralm line, the tiktok line and the result line.
+8. Disaggregated serving (``disagg_phase``): both indexes saved to npz
+   files in a temporary directory and four engine processes started at
+   once (spawn; each loads its index and captures its graphs before it
+   listens).  The flagship as a vector-search service: an
+   ``IndexScanner`` on the card here feeding an ``IndexServer`` whose PQ
+   scans run in an engine process — the card engine (the flagship's
+   search config) and the native CPU engine (f32 LUTs) — in latency and
+   tik-tok mode at b=128 (65 batches) and b=1 (200); every answer held
+   to the in-process ``IVFSearcher.search`` (card: rtol 1e-5, R@10 equal;
+   CPU: the f32-LUT searcher at rtol 1e-4, R@10 within 0.005).  The RALM
+   topology: two Dec-S workers (threads, each on its own CUDA stream),
+   batch 64, interval 1, behind ``NativeCoordinator`` and then
+   ``RetrieveCoordinator`` in front of two engine processes on the card;
+   ``RalmDecoder`` and ``TikTokDecoder``, 32 timed steps each; tok/s, the
+   requests in flight (1 and 2), every engine serving under each
+   coordinator, each worker's last answer equal to the search in process
+   up to ties.  Last, the relay's cost a round trip of a RALM frame,
+   direct and through each coordinator.
+9. Print the kernels line, the main-path line, the routes line, the
+   kernel-study line, the ralm line, the tiktok line, the disagg line and
+   the result line.
 
 Every search and every model step runs as a replay of a captured CUDA graph
 (``chamjax_torch/utils/graphs.py``), the default; each is also run eagerly
@@ -619,7 +643,7 @@ def main_path(dev):
         te = time_search(s.dev, kw, xq_dev)
     ctx = dict(idx=idx, ds=ds, gt=gt, scfg=scfg, r10_xla=r10_xla,
                tiled_bf16=(d_s, i_s), tiled_f32=res_f, xq_dev=xq_dev,
-               main_search=(s.dev, kw))
+               main_search=(s.dev, kw), searcher=s, searcher_f32=s_f)
     return dict(
         launches=launches, main_kernel=main_kernel, ctx=ctx,
         line=dict(
@@ -809,9 +833,20 @@ def streamed_phase(dev, ctx, flat_bf16):
             (False, "adc_scan_segments_multi", flat_bf16)):
         name = f"streamed_{'tiled' if tiled else 'flat'}"
         st = HostStreamedSearcher(idx, dc.replace(scfg, tiled=tiled),
-                                  device=dev)
+                                  device=dev, gather="native")
+        if st.gather_path != "native":
+            raise AssertionError(f"{name}: gather {st.gather_path}")
         d, i, launches = run_path(name, kernel, st.search, xq[:N_GT])
         launches_by_kernel[kernel] = launches.get(kernel, 0)
+        # the numpy gather (the fallback where the library cannot build):
+        # the same results, bit for bit
+        st_np = HostStreamedSearcher(idx, dc.replace(scfg, tiled=tiled),
+                                     device=dev, gather="numpy")
+        d_np, i_np, _ = run_path(f"{name} (numpy gather)", kernel,
+                                 st_np.search, xq[:N_GT])
+        if not (np.array_equal(d, d_np) and np.array_equal(i, i_np)):
+            raise AssertionError(f"{name}: the native and numpy gathers "
+                                 "give different results")
         check_same_up_to_ties(f"{name} vs the resident search", d, i,
                               *resident, rtol=1e-4)
         r10 = recall_at_k(i, gt, 10)
@@ -835,17 +870,20 @@ def streamed_phase(dev, ctx, flat_bf16):
             st.search(b_)
         t_seq = (time.perf_counter() - t_seq0) / 16
         # one batch, part by part
-        plan_ms, gather_ms = [], []
+        plan_ms, gather_ms, gather_np_ms = [], [], []
         for _ in range(5):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             plan = st._plan(batches[0])
-            starts_h = plan[0].cpu().numpy()
+            starts_h, lens_h = st._pull_windows(plan)
             t1 = time.perf_counter()
-            host = st._gather(starts_h, 0)
+            host = st._gather(starts_h, lens_h, 0)
             t2 = time.perf_counter()
+            st_np._gather(starts_h, lens_h, 0)
+            t3 = time.perf_counter()
             plan_ms.append((t1 - t0) * 1e3)
             gather_ms.append((t2 - t1) * 1e3)
+            gather_np_ms.append((t3 - t2) * 1e3)
         slab = st._upload(host, 0)
         _s, lens, probe, list_ids, q_rot = plan
         h2d = time_ms(lambda: st._upload(host, 0), reps=10)
@@ -858,6 +896,10 @@ def streamed_phase(dev, ctx, flat_bf16):
         map_ms = (time.perf_counter() - t0) * 1e3
         entry = dict(
             recall_at_10=r10, launches=launches, windows=st.windows,
+            gather_path=st.gather_path,
+            gather_ms=dict(native=float(np.median(gather_ms)),
+                           numpy=float(np.median(gather_np_ms))),
+            numpy_gather_bit_equal=True,
             slab_mb=host.numel() / 2 ** 20,
             pipelined_qps_b128=len(batches) * BATCH / t_pipe,
             pipelined_ms_per_batch=t_pipe * 1e3 / len(batches),
@@ -868,7 +910,8 @@ def streamed_phase(dev, ctx, flat_bf16):
                           map_ids=map_ms))
         line[name] = entry
         log(f"{name}: {entry}")
-    return dict(line=line, launches=launches_by_kernel)
+    return dict(line=line, launches=launches_by_kernel,
+                gather_path={n: e["gather_path"] for n, e in line.items()})
 
 
 ROOFLINE_VARIANTS = ("seg_f32", "seg_bf16", "block_f32", "block_bf16",
@@ -1531,6 +1574,441 @@ def tiktok_host(dev, retriever, argv=RALM_ARGV) -> dict:
     return out
 
 
+# Disaggregated serving: the flagship's PQ scans in a spawned engine process
+# fed by an IndexScanner here (the reference's vector-search service mode;
+# the card engine and the native CPU engine), then the RALM topology (two
+# engine processes on the card behind a coordinator, two Dec-S workers on
+# threads of this process, each on its own CUDA stream)
+SERVICE_RUNS = (("b128", BATCH, 65), ("b1", 1, 200))
+DISAGG_PRESET = "Dec-S"
+DISAGG_WORKERS = 2
+DISAGG_ENGINES = 2
+DISAGG_STEPS = 32
+RELAY_FRAME = dict(batch=64, dim=512, k=10)     # a RALM request
+RELAY_TRIPS = 200
+WAIT_S = 300     # any socket wait or join: a hang fails the smoke
+
+
+@dataclasses.dataclass
+class Engine:
+    name: str
+    proc: object
+    report: object
+    port: int
+
+
+def spawn_engine(name: str, path: str, **kw) -> Engine:
+    """``run_engine`` on ``path`` in a process of its own (spawn: this
+    process has touched the card), on a free port."""
+    import multiprocessing
+    from chamjax_torch.retrieval.engine import run_engine
+    ctx = multiprocessing.get_context("spawn")
+    report = ctx.Queue()
+    port = free_port()
+    proc = ctx.Process(target=run_engine, args=(path, port),
+                       kwargs=dict(kw, host=HOST, report=report), name=name,
+                       daemon=True)
+    proc.start()
+    return Engine(name, proc, report, port)
+
+
+def engine_failure(e: Engine) -> str:
+    import queue
+    try:
+        kind, out = e.report.get(timeout=5)
+    except queue.Empty:
+        return f"exit code {e.proc.exitcode}, no report"
+    return f"{kind}: {out}"
+
+
+def connect(make, engines, what: str):
+    """``make()`` retried until ``what`` listens; fails at once when an
+    engine process has died, else after ``WAIT_S``."""
+    t0 = time.perf_counter()
+    while True:
+        try:
+            return make()
+        except OSError:
+            for e in engines:
+                if not e.proc.is_alive():
+                    raise AssertionError(f"engine {e.name} died: "
+                                         f"{engine_failure(e)}") from None
+            if time.perf_counter() - t0 > WAIT_S:
+                raise AssertionError(f"{what} never listened") from None
+            time.sleep(0.1)
+
+
+def finish_engine(e: Engine) -> dict:
+    """The engine's report once it has served its connections."""
+    import queue
+    try:
+        kind, out = e.report.get(timeout=WAIT_S)
+    except queue.Empty:
+        raise AssertionError(f"engine {e.name} reported nothing") from None
+    e.proc.join(timeout=WAIT_S)
+    if kind != "done" or e.proc.exitcode != 0:
+        raise AssertionError(f"engine {e.name} failed (exit code "
+                             f"{e.proc.exitcode}): {out}")
+    return out
+
+
+def joined(threads, what: str) -> None:
+    for t in threads:
+        t.join(timeout=WAIT_S)
+        if t.is_alive():
+            raise AssertionError(f"{what}: a thread did not stop")
+
+
+def hold_answers(name, got, want, rtol: float) -> int:
+    """Every answer against its reference, both lists of ``(dists, ids)``
+    batches: distances close rank by rank (rtol = atol), ids equal except
+    in the order of ties (a row of equal ids needs no tie check).  Returns
+    the rows that are bit-equal."""
+    import numpy as np
+    d, i = (np.concatenate([g[j] for g in got]) for j in (0, 1))
+    d_r, i_r = (np.concatenate([w[j] for w in want]) for j in (0, 1))
+    if d.shape != d_r.shape or i.shape != i_r.shape:
+        raise AssertionError(f"{name}: shapes {d.shape} vs {d_r.shape}")
+    far = np.argwhere(~np.isclose(d, d_r, rtol=rtol, atol=rtol))
+    if len(far):
+        r, c = far[0]
+        raise AssertionError(f"{name}: {len(far)} distances apart, first "
+                             f"row {r} rank {c}: {d[r, c]} vs {d_r[r, c]}")
+    rows = np.flatnonzero((i != i_r).any(axis=1))
+    check_same_up_to_ties(name, d[rows], i[rows], d_r[rows], i_r[rows],
+                          rtol=rtol)
+    return int(((d == d_r) & (i == i_r)).all(axis=1).sum())
+
+
+def service_phase(dev, ctx, engines) -> dict:
+    """The vector-search service mode at the flagship: an ``IndexScanner``
+    on the card here (the index's OPQ rotation, then the coarse scan)
+    feeds an ``IndexServer`` whose PQ scans run in an engine process, over
+    one ``ExternalRetriever`` connection each: the card engine
+    (``LocalRetriever``, the flagship's search config, the tiled kernel)
+    and the native CPU engine (f32 LUTs).  Latency and tik-tok mode at
+    b=128 (65 batches) and b=1 (200): QPS, p50 and p95; the two modes'
+    answers bit-equal; every answer held against the in-process
+    ``IVFSearcher.search`` of the same queries (the card engine: the
+    flagship searcher at rtol 1e-5 and R@10 equal; the CPU engine: the
+    searcher with f32 LUTs at rtol 1e-4 and R@10 within 0.005)."""
+    import numpy as np
+    from chamjax_torch.eval import recall_at_k
+    from chamjax_torch.retrieval import (ExternalRetriever, IndexScanner,
+                                         IndexServer)
+    idx, gt, xq = ctx["idx"], ctx["gt"], ctx["ds"].xq
+    runs = {name: [xq[j * b:(j + 1) * b] for j in range(n)]
+            for name, b, n in SERVICE_RUNS}
+    refs = {engine: {name: [s.search(q) for q in batches]
+                     for name, batches in runs.items()}
+            for engine, s in (("card", ctx["searcher"]),
+                              ("native", ctx["searcher_f32"]))}
+    n_gt = N_GT // BATCH       # the b=128 batches with ground truth
+
+    def r10(batches):
+        return recall_at_k(np.concatenate([b[1] for b in batches[:n_gt]]),
+                           gt, 10)
+
+    scanner = IndexScanner(idx.centroids, nprobe=NPROBE,
+                           coarse_cand=ctx["scfg"].coarse_cand,
+                           opq_R=idx.opq_R, device=dev)
+    out = {}
+    for name, rtol, r10_bar in (("card", 1e-5, 0.0), ("native", 1e-4,
+                                                      0.005)):
+        engine = engines[name]
+        client = connect(lambda: ExternalRetriever(
+            HOST, engine.port, BATCH, idx.cfg.dim, K, nprobe=NPROBE,
+            timeout=WAIT_S), [engine], f"the {name} engine")
+        server = IndexServer(scanner, client, k=K)
+        row = dict(engine=engine.name)
+        try:
+            for q in (runs["b128"][0], runs["b1"][0]):
+                server.search(q)     # the scanner's graphs, the connection
+            for run, b, n in SERVICE_RUNS:
+                batches = runs[run]
+                t0 = time.perf_counter()
+                lat = server.search_multi_batch(batches)
+                wall = time.perf_counter() - t0
+                stats = server.latency_stats_ms()
+                tik = server.search_multi_batch_tiktok(batches)
+                qps_tik = server.throughput_qps(batches)
+                lat = [(r.dists, r.ids) for r in lat]
+                tik = [(r.dists, r.ids) for r in tik]
+                if not all(np.array_equal(a[0], c[0])
+                           and np.array_equal(a[1], c[1])
+                           for a, c in zip(lat, tik)):
+                    raise AssertionError(f"service {name} {run}: tik-tok "
+                                         "answers differ from latency mode")
+                bit_equal = hold_answers(
+                    f"service {name} {run} vs the search in process", lat,
+                    refs[name][run], rtol)
+                row[run] = dict(batch=b, batches=n,
+                                qps_latency=n * b / wall,
+                                p50_ms=stats["p50"], p95_ms=stats["p95"],
+                                qps_tiktok=qps_tik,
+                                rows_bit_equal_in_process=bit_equal,
+                                rows=n * b)
+                if run == "b128":
+                    row["recall_at_10"] = r10(lat)
+                    row["recall_at_10_in_process"] = r10(refs[name][run])
+        finally:
+            client.close()
+        if abs(row["recall_at_10"] - row["recall_at_10_in_process"]) \
+                > r10_bar:
+            raise AssertionError(f"service {name}: R@10 {row}")
+        report = finish_engine(engine)
+        row.update(served=report["served"], launches=report["launches"])
+        if name == "card" and dev.type == "cuda" and report[
+                "launches"].get("adc_scan_tiles", 0) < 1:
+            raise AssertionError(f"the card engine did not launch "
+                                 f"adc_scan_tiles: {report}")
+        log(f"service {name}: {row}")
+        out[name] = row
+    out["native"]["recall_at_10_minus_card"] = (
+        out["native"]["recall_at_10"] - out["card"]["recall_at_10"])
+    return out
+
+
+def ralm_disagg_phase(dev, retriever, engines) -> dict:
+    """``benchmarks/launch_ralm.py``'s topology on one card: two Dec-S
+    workers (full width, batch 64, interval 1), each a thread of this
+    process on its own CUDA stream with its own ``ExternalRetriever``,
+    behind a coordinator (``NativeCoordinator``, then
+    ``RetrieveCoordinator``, each in a thread) in front of two engine
+    processes on the card serving the RALM index.  Per coordinator and per
+    worker: ``RalmDecoder``, then ``TikTokDecoder``, each ``DISAGG_STEPS``
+    timed steps after the warm-up (the workers' captures one at a time,
+    their timed steps together); tok/s, the requests in flight, and the
+    last answer against the same search in process (``retriever``).  The
+    loops are built once and keep their graphs across coordinators.  The
+    coordinators stop when the workers disconnect."""
+    import torch
+    from chamjax_torch.benchmarks import ralm_device_bench as bench
+    from chamjax_torch.retrieval import (ExternalRetriever, NativeCoordinator,
+                                         RetrieveCoordinator)
+    args, cfg, ps, tiktok, sequential = tiktok_loops(DISAGG_PRESET, 1,
+                                                     RALM_ARGV, dev)
+    params = [ps[0]] + [bench.init_params(cfg, w, dev)
+                        for w in range(1, DISAGG_WORKERS)]
+    streams = [torch.cuda.Stream(dev) if dev.type == "cuda" else None
+               for _ in range(DISAGG_WORKERS)]
+    loops = [dict() for _ in range(DISAGG_WORKERS)]
+    addrs = [(HOST, e.port) for e in engines]
+    out = {}
+    for coord_name, cls in (("native", NativeCoordinator),
+                            ("python", RetrieveCoordinator)):
+        port = free_port()
+        coord = cls(HOST, port, DISAGG_WORKERS, args.batch, cfg.embed_dim,
+                    args.k, engine_addrs=addrs, queries_per_client=None)
+        failures = []
+        capture = threading.Lock()
+        together = threading.Barrier(DISAGG_WORKERS, timeout=WAIT_S)
+        rows = [dict() for _ in range(DISAGG_WORKERS)]
+
+        def run_coordinator():
+            try:
+                coord.start()
+            except Exception as e:      # reported by the main thread
+                failures.append(("the coordinator", e))
+
+        def run_worker(w, client):
+            for name, loop_cls in (("sequential", sequential),
+                                   ("tiktok", tiktok)):
+                rec = FlightRecorder(client)
+                with capture:           # one capture at a time
+                    loop = loops[w].get(name)
+                    if loop is None:
+                        loop = loops[w][name] = loop_cls(
+                            params[w], cfg, rec, args.batch,
+                            retrieval_interval=1, nprobe=args.nprobe,
+                            k=args.k)
+                    loop.retriever = rec
+                    loop.reset_inference_state()
+                    loop.batch_inference(args.warmup)
+                    loop.reset_inference_state()
+                rec.max_depth = 0
+                together.wait()
+                loop.batch_inference(DISAGG_STEPS)
+                together.wait()
+                rows[w][name] = dict(
+                    tok_per_s=loop.throughput_tokens_per_sec(DISAGG_STEPS),
+                    max_in_flight=rec.max_depth, last=rec.last)
+
+        def worker(w):
+            try:
+                with torch.cuda.stream(streams[w]):
+                    client = connect(lambda: ExternalRetriever(
+                        HOST, port, args.batch, cfg.embed_dim, k=args.k,
+                        nprobe=args.nprobe, timeout=WAIT_S), engines,
+                        f"the {coord_name} coordinator")
+                    try:
+                        client.sync_with_coordinator()
+                        run_worker(w, client)
+                    finally:
+                        client.close()
+            except Exception as e:      # reported by the main thread
+                failures.append((f"worker {w}", e))
+                together.abort()
+
+        ct = threading.Thread(target=run_coordinator, daemon=True)
+        ct.start()
+        workers = [threading.Thread(target=worker, args=(w,), daemon=True)
+                   for w in range(DISAGG_WORKERS)]
+        for t in workers:
+            t.start()
+        joined(workers, f"ralm {coord_name} coordinator: the workers")
+        if not failures:        # a worker that failed leaves it waiting
+            joined([ct], f"ralm {coord_name} coordinator")
+        if failures:
+            who, e = failures[0]
+            raise AssertionError(f"ralm {coord_name} coordinator: {who} "
+                                 f"failed: {e!r}")
+        entry = dict(answered=coord.answered_query_cnt)
+        for name in ("sequential", "tiktok"):
+            per = []
+            for w in range(DISAGG_WORKERS):
+                r = rows[w][name]
+                q, res = r.pop("last")
+                want = retriever.retrieve(q, args.nprobe, args.k)
+                check_same_up_to_ties(
+                    f"ralm {coord_name} {name} worker {w}: the last answer "
+                    "vs the search in process", res.dists, res.ids,
+                    want.dists, want.ids, rtol=1e-5)
+                per.append(r)
+            depth = {r["max_in_flight"] for r in per}
+            if depth != {2 if name == "tiktok" else 1}:
+                raise AssertionError(f"ralm {coord_name} {name}: requests "
+                                     f"in flight {per}")
+            entry[name] = dict(
+                tok_per_s_total=sum(r["tok_per_s"] for r in per),
+                workers=per)
+        log(f"ralm disagg {coord_name}: {entry}")
+        out[coord_name] = entry
+    reports = [finish_engine(e) for e in engines]
+    for e, rep in zip(engines, reports):
+        if len(rep["served"]) != 2 or min(rep["served"]) < 1:
+            raise AssertionError(f"engine {e.name} served {rep['served']} "
+                                 "batches a coordinator: round robin failed")
+        if dev.type == "cuda" and rep["launches"].get("adc_scan_tiles",
+                                                      0) < 1:
+            raise AssertionError(f"engine {e.name} did not launch "
+                                 f"adc_scan_tiles: {rep}")
+    out["engines"] = [dict(name=e.name, served=dict(zip(
+        ("native_coordinator", "python_coordinator"), r["served"])),
+        launches=r["launches"]) for e, r in zip(engines, reports)]
+    out.update(preset=DISAGG_PRESET, batch=args.batch, interval=1,
+               workers=DISAGG_WORKERS, steps=DISAGG_STEPS,
+               warmup=args.warmup)
+    return out
+
+
+def relay_phase() -> dict:
+    """The relay's cost a batch: ``RELAY_TRIPS`` sequential round trips of a
+    RALM frame from one client to a ``RandomAnswerServer`` (a thread of
+    this process), directly and through each coordinator in front of two
+    of them."""
+    import numpy as np
+    from chamjax_torch.retrieval import (ExternalRetriever, NativeCoordinator,
+                                         RandomAnswerServer,
+                                         RetrieveCoordinator)
+    b, d, k = RELAY_FRAME["batch"], RELAY_FRAME["dim"], RELAY_FRAME["k"]
+    q = np.random.default_rng(0).standard_normal((b, d)).astype(np.float32)
+
+    def servers(n):
+        srv = [RandomAnswerServer(HOST, free_port(), batch_size=b, dim=d,
+                                  seed=i) for i in range(n)]
+        threads = [threading.Thread(target=s.start, daemon=True)
+                   for s in srv]
+        for t in threads:
+            t.start()
+        return srv, threads
+
+    def trips(port, barrier: bool) -> float:
+        c = connect(lambda: ExternalRetriever(HOST, port, b, d, k,
+                                              timeout=WAIT_S), [],
+                    "the relay")
+        try:
+            if barrier:
+                c.sync_with_coordinator()
+            for _ in range(10):
+                c.retrieve(q, 32, k)
+            t0 = time.perf_counter()
+            for _ in range(RELAY_TRIPS):
+                c.retrieve(q, 32, k)
+            return (time.perf_counter() - t0) * 1e3 / RELAY_TRIPS
+        finally:
+            c.close()
+
+    ms = {}
+    srv, threads = servers(1)
+    ms["direct"] = trips(srv[0].port, False)
+    joined(threads, "relay: the engine")
+    for name, cls in (("native", NativeCoordinator),
+                      ("python", RetrieveCoordinator)):
+        srv, threads = servers(2)
+        port = free_port()
+        coord = cls(HOST, port, 1, b, d, k,
+                    engine_addrs=[(HOST, s.port) for s in srv],
+                    queries_per_client=None)
+        ct = threading.Thread(target=coord.start, daemon=True)
+        ct.start()
+        ms[name] = trips(port, True)
+        joined([ct] + threads, f"relay: the {name} coordinator")
+    return dict(frame=RELAY_FRAME, trips=RELAY_TRIPS, ms_per_batch=ms,
+                relay_overhead_ms={n: ms[n] - ms["direct"]
+                                   for n in ("native", "python")})
+
+
+def disagg_phase(dev, ctx, retriever, gather_path) -> dict:
+    """Phase 9: save both indexes to npz files in a temporary directory,
+    start every engine process at once (each loads its index and captures
+    its graphs before it listens), then the service mode, the RALM
+    topology and the relay's cost.  Engines and files are cleaned up
+    whatever happens."""
+    import shutil
+    import tempfile
+    from chamjax_torch.benchmarks import ralm_device_bench as bench
+    ralm_batch = bench.parse_args(RALM_ARGV).batch
+    tmp = tempfile.mkdtemp(prefix="chamjax_disagg_")
+    engines = []
+    try:
+        flagship = f"{tmp}/flagship.npz"
+        ctx["idx"].save(flagship)
+        ralm_index = f"{tmp}/ralm.npz"
+        retriever.searcher.packed.save(ralm_index)
+        service = dict(
+            card=spawn_engine("service card", flagship, backend="local",
+                              device=str(dev), search_cfg=ctx["scfg"],
+                              batch=BATCH, with_lists=True,
+                              warm=(BATCH, 1)),
+            native=spawn_engine(
+                "service native", flagship, backend="native",
+                search_cfg=dataclasses.replace(ctx["scfg"], lut_bf16=False),
+                batch=BATCH, with_lists=True))
+        ralm_engines = [spawn_engine(
+            f"ralm {j}", ralm_index, backend="local", device=str(dev),
+            search_cfg=retriever.searcher.scfg, batch=ralm_batch,
+            connections=2, warm=(ralm_batch,))
+            for j in range(DISAGG_ENGINES)]
+        engines = [*service.values(), *ralm_engines]
+        t0 = time.perf_counter()
+        out = dict(service=service_phase(dev, ctx, service))
+        t1 = time.perf_counter()
+        out["ralm"] = ralm_disagg_phase(dev, retriever, ralm_engines)
+        t2 = time.perf_counter()
+        out["relay"] = relay_phase()
+        out.update(streamed_gather_path=gather_path,
+                   wall_s=dict(service=t1 - t0, ralm=t2 - t1,
+                               relay=time.perf_counter() - t2))
+        return out
+    finally:
+        for e in engines:
+            if e.proc.is_alive():
+                e.proc.kill()
+            e.proc.join(timeout=30)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -1543,12 +2021,22 @@ def main() -> int:
     except ImportError as e:
         return fail(f"chamjax_torch is not importable beside this script: "
                     f"{e}")
+    from chamjax_torch import native
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
+    # libchamnet (g++) builds beside the CUDA libraries (nvcc)
     t0 = time.perf_counter()
+    gxx = {}
+    gxx_thread = threading.Thread(target=lambda: gxx.update(
+        path=native.build(), s=time.perf_counter() - t0), daemon=True)
+    gxx_thread.start()
     build_logs = cuda_lib.build()
     t_nvcc = time.perf_counter() - t0
+    gxx_thread.join()
+    if "path" not in gxx:
+        native.build()          # raises with the compiler's output
+    log(f"libchamnet built in {gxx['s']:.1f} s: {gxx['path'].name}")
     for name, text in build_logs.items():
         for line in text.strip().splitlines():
             log(f"nvcc {name}: {line}")
@@ -1576,6 +2064,8 @@ def main() -> int:
         ralm = ralm_phase(dev)
         tiktok = dict(fused=tiktok_fused(dev, ralm["rec"].inner),
                       host=tiktok_host(dev, ralm["rec"].inner))
+        disagg = disagg_phase(dev, main["ctx"], ralm["rec"].inner,
+                              streamed["gather_path"])
     except AssertionError as e:
         return fail(str(e))
     log(f"trace: {traced}")
@@ -1598,7 +2088,13 @@ def main() -> int:
              for p, r in tiktok["fused"].items()},
             **{f"host {tiktok['host']['preset']} {n}":
                tiktok["host"][n]["launches_adc_scan_tiles"]
-               for n in ("tiktok", "sequential")}))]
+               for n in ("tiktok", "sequential")}),
+        # counted by the engine processes over everything they served
+        launches_disagg=dict(
+            {"service card engine": disagg["service"]["card"]["launches"].get(
+                "adc_scan_tiles", 0)},
+            **{f"{e['name']} engine": e["launches"].get("adc_scan_tiles", 0)
+               for e in disagg["ralm"]["engines"]}))]
     for name, replaces in (
             ("adc_scan_segments_multi", "chamjax/ops/scan_seg_multi.py:134"),
             ("adc_scan_segments", "chamjax/ops/scan_seg.py:162"),
@@ -1656,6 +2152,8 @@ def main() -> int:
                           cache_full=ralm["cache_full"], index=ralm["index"],
                           card=card)), flush=True)
     print(json.dumps(dict(tiktok=tiktok, card=card)), flush=True)
+    print(json.dumps(dict(disagg=disagg, card=card,
+                          gxx_s=gxx["s"])), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

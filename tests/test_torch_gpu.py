@@ -895,3 +895,103 @@ def test_failed_capture_raises_on_card(cuda_device):
     assert len(owner) == 0
     torch.cuda.synchronize()
     assert float(torch.ones(3, device=cuda_device).sum()) == 3.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("coarse_cand", [0, 16])
+def test_index_scanner_captured_equals_eager_on_card(card_index,
+                                                     coarse_cand):
+    """The scanner's graph replays the eager coarse scan bit for bit, and
+    agrees with the scan on the CPU up to the order of ties."""
+    from chamjax_torch.retrieval import IndexScanner
+    from chamjax_torch.utils import graphs
+    ds, idx = card_index
+    sc = IndexScanner(idx.centroids, nprobe=8, coarse_cand=coarse_cand,
+                      opq_R=idx.opq_R, device="cuda")
+    sc.search(ds.xq)                        # captures
+    lids, dists = sc.search(ds.xq)          # replays
+    assert len(sc.graphs) == 1
+    with graphs.disable_capture():
+        lids_e, dists_e = sc.search(ds.xq)
+    np.testing.assert_array_equal(lids, lids_e)
+    np.testing.assert_array_equal(dists, dists_e)
+    lids_c, dists_c = IndexScanner(idx.centroids, nprobe=8,
+                                   coarse_cand=coarse_cand, opq_R=idx.opq_R,
+                                   device="cpu").search(ds.xq)
+    np.testing.assert_allclose(dists, dists_c, rtol=1e-5, atol=1e-4)
+    assert not tie_mismatches(dists, lids, dists_c, lids_c, rtol=1e-5,
+                              atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tiled", [True, False])
+def test_streamed_native_and_numpy_gathers_on_card(card_index, tiled):
+    """The native gather writes the pinned staging buffer; the results
+    equal the numpy gather's bit for bit, sequential and pipelined."""
+    ds, idx = card_index
+    scfg = SearchConfig(nprobe=8, k=10, seg=256, tiled=tiled)
+    st_n = HostStreamedSearcher(idx, scfg, device="cuda", gather="native")
+    st_p = HostStreamedSearcher(idx, scfg, device="cuda", gather="numpy")
+    assert st_n.gather_path == "native"
+    for a, b in zip(st_n.search(ds.xq), st_p.search(ds.xq)):
+        np.testing.assert_array_equal(a, b)
+    batches = [ds.xq[i:i + 16] for i in range(0, 64, 16)]
+    for (d_n, i_n), (d_p, i_p) in zip(st_n.search_pipelined(batches),
+                                      st_p.search_pipelined(batches)):
+        np.testing.assert_array_equal(d_n, d_p)
+        np.testing.assert_array_equal(i_n, i_p)
+    assert st_n._bufs[0].is_pinned()
+
+
+@pytest.mark.gpu
+def test_spawned_engine_answers_preassigned_on_card(card_index, tmp_path):
+    """An engine process (spawn) serving the index on the card answers a
+    preassigned request as the in-process search does; its launch counts
+    show the tiled kernel."""
+    import multiprocessing
+    import socket
+    import time
+    from chamjax_torch.retrieval import ExternalRetriever, IndexScanner
+    from chamjax_torch.retrieval.engine import run_engine
+    ds, idx = card_index
+    path = str(tmp_path / "index.npz")
+    idx.save(path)
+    scfg = SearchConfig(nprobe=8, k=10, seg=256)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    report = ctx.Queue()
+    proc = ctx.Process(target=run_engine, args=(path, port), kwargs=dict(
+        backend="local", device="cuda", search_cfg=scfg, with_lists=True,
+        warm=(16,), report=report), daemon=True)
+    proc.start()
+    try:
+        client = None
+        for _ in range(1200):
+            try:
+                client = ExternalRetriever("127.0.0.1", port, 16, 32, 10,
+                                           timeout=120)
+                break
+            except OSError:
+                assert proc.is_alive(), proc.exitcode
+                time.sleep(0.1)
+        assert client is not None
+        q = ds.xq[:16]
+        lids, _ = IndexScanner(idx.centroids, nprobe=8, opq_R=idx.opq_R,
+                               device="cuda").search(q)
+        res = client.retrieve_with_lists(q, lids, 10)
+        client.close()
+        d_r, i_r = IVFSearcher(idx, scfg, device="cuda").search(q)
+        np.testing.assert_allclose(res.dists, d_r, rtol=1e-5, atol=1e-5)
+        assert not tie_mismatches(res.dists, res.ids, d_r, i_r, rtol=1e-5,
+                                  atol=1e-5)
+        kind, out = report.get(timeout=120)
+        assert kind == "done", out
+        assert out["served"] == [1]
+        assert out["launches"].get("adc_scan_tiles", 0) >= 1
+    finally:
+        proc.join(timeout=120)
+        if proc.is_alive():
+            proc.kill()
+    assert proc.exitcode == 0

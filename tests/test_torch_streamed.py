@@ -139,7 +139,7 @@ def test_stage_cuts_windows_at_the_tail(index):
                                         device="cpu")
     n_pad, seg = st.n_pad, st.seg
     starts = np.array([[0, n_pad - seg // 3, 64, n_pad - 1]], np.int32)
-    slab = st._stage(starts).numpy()
+    slab = st._stage(starts, np.ones_like(starts)).numpy()
     assert slab.shape == (4, seg, tidx.cfg.m)
     for w, s in enumerate(starts[0]):
         e = min(int(s) + seg, n_pad)
