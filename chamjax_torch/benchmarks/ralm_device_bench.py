@@ -1,14 +1,20 @@
 """Fused RALM benchmark on one card: decode and IVF-PQ retrieval with no
-host transfer between them (the port of the non-streamed path of
-``benchmarks/ralm_device_bench.py``).
+host transfer between them (the port of ``benchmarks/ralm_device_bench.py``).
 
 Builds a synthetic corpus and an IVF-PQ index at the model's hidden width
-on the card, wires a ``LocalRetriever`` (whose ``retrieve_device`` keeps
-queries and results on the card), and times ``batch_inference`` over the
-whole fused chain: one JSON line per (preset, interval).
+on the card, wires a retriever whose ``retrieve_device`` keeps queries and
+results on the card, and times ``batch_inference`` over the whole fused
+chain: one JSON line per (preset, interval).  By default the corpus is a
+numpy ``synthetic_dataset`` built by ``build_ivfpq`` behind a
+``LocalRetriever``; ``--streamed`` draws it on the card instead (a
+clustered stream, or the hard-mode corpus with ``--hard``) through the
+streamed device builder (``--balance`` caps its lists) into a tile-only
+index behind a ``DeviceRetriever``.
 
     python -m chamjax_torch.benchmarks.ralm_device_bench \\
         --presets Dec-S,Llama-S,EncDec-S --batch 64
+    python -m chamjax_torch.benchmarks.ralm_device_bench --streamed \\
+        --hard --balance 1.3
 
 ``run`` does the work and is what ``chip_smoke.py`` calls.  On the card
 every stage of a step is a replay of a captured CUDA graph
@@ -37,22 +43,19 @@ import torch
 from chamjax_torch.config import (MODEL_PRESETS, IndexConfig, ModelConfig,
                                   SearchConfig)
 from chamjax_torch.data import synthetic_dataset
-from chamjax_torch.index import build_ivfpq
+from chamjax_torch.data.hard import GEN as HARD_GEN
+from chamjax_torch.data.hard import make_hard_corpus
+from chamjax_torch.index import build_ivfpq, build_ivfpq_device
 from chamjax_torch.models import init_decoder, init_encoder_decoder
 from chamjax_torch.models.llama import init_llama
-from chamjax_torch.retrieval.local import LocalRetriever
+from chamjax_torch.retrieval.interface import BaseRetriever
+from chamjax_torch.retrieval.local import DeviceRetriever, LocalRetriever
+from chamjax_torch.searcher import auto_seg
 from chamjax_torch.serving.ralm import RalmDecoder, RalmEncoderDecoder
 from chamjax_torch.utils import cuda_lib
-from chamjax_torch.utils.device import card_description, resolve_device
-
-NOT_PORTED = {
-    "streamed": "the streamed device build (ROADMAP.md queue 1 item 8, "
-                "index/device_build.py)",
-    "hard": "the hard corpus (ROADMAP.md queue 1 item 7, data/hard.py)",
-    "balance": "the streamed builder's hard cap (ROADMAP.md queue 1 "
-               "item 8)",
-}
-
+from chamjax_torch.utils.device import (card_description, resolve_device,
+                                        seeded_generator)
+from chamjax_torch.utils.precision import fp32_matmul
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -72,11 +75,21 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--m", type=int, default=16)
     ap.add_argument("--nprobe", type=int, default=32)
     ap.add_argument("--k", type=int, default=10)
-    for flag in ("streamed", "hard"):
-        ap.add_argument(f"--{flag}", action="store_true",
-                        help=f"not ported: needs {NOT_PORTED[flag]}")
+    ap.add_argument("--streamed", action="store_true",
+                    help="build the corpus via the streamed device builder "
+                         "(100M-scale; never materializes the corpus)")
+    ap.add_argument("--hard", action="store_true",
+                    help="streamed: hard-mode corpus family "
+                         "(chamjax_torch/data/hard.py) at the model's "
+                         "hidden dim — the retrieval leg does real work "
+                         "instead of saturating on an easy clustered draw")
+    ap.add_argument("--n-clusters", type=int, default=0,
+                    help="corpus cluster count (0: nlist for the easy "
+                         "draw, 4*nlist for --hard)")
     ap.add_argument("--balance", type=float, default=0.0,
-                    help=f"not ported: needs {NOT_PORTED['balance']}")
+                    help="> 0: hard-capped balanced assignment at cap = "
+                         "ceil(nb/nlist * BALANCE) in the streamed builder "
+                         "(collapses auto_windows to ~nprobe)")
     return ap.parse_args(argv)
 
 
@@ -107,6 +120,76 @@ def build_retriever(args, d: int, device) -> LocalRetriever:
                       xt=ds.xt, kmeans_iters=8, pq_iters=8, device=device)
     return LocalRetriever(idx, SearchConfig(nprobe=args.nprobe, k=args.k),
                           device=device)
+
+
+def clustered_stream(d: int, n_clusters: int, seed: int, device):
+    """The easy streamed corpus: ``n_clusters`` Gaussian centres (scale 4)
+    plus a rank-d/4 projection of a unit normal and 0.05 noise, drawn on
+    ``device`` in ``gen``-row chunks (~256 MB) from torch generators seeded
+    by the chunk start, so a draw does not depend on the caller's
+    chunking.  Returns ``(draw_base, draw_train, gen)``."""
+    rank = max(4, d // 4)
+    gen = max(8192, (1 << 26) // d)
+    centers = torch.randn((n_clusters, d), device=device,
+                          generator=seeded_generator(device, seed, 0)) * 4.0
+    proj = torch.randn((rank, d), device=device, generator=seeded_generator(
+        device, seed, 1)) / np.sqrt(rank)
+
+    @fp32_matmul()
+    def chunk(g: torch.Generator) -> torch.Tensor:
+        asg = torch.randint(0, n_clusters, (gen,), generator=g,
+                            device=device)
+        z = torch.randn((gen, rank), generator=g, device=device)
+        noise = torch.randn((gen, d), generator=g, device=device) * 0.05
+        return centers[asg] + torch.matmul(z, proj) + noise
+
+    def stream(salt: int):
+        def draw(s: int, c: int) -> torch.Tensor:
+            if s % gen or c % gen or c <= 0:
+                raise ValueError(f"draws align to {gen} rows; got ({s}, {c})")
+            parts = [chunk(seeded_generator(device, seed, salt, s + i))
+                     for i in range(0, c, gen)]
+            return parts[0] if len(parts) == 1 else torch.cat(parts)
+        return draw
+
+    return stream(2), stream(3), gen
+
+
+def build_streamed_retriever(args, d: int, device) -> DeviceRetriever:
+    """``--streamed``: the corpus drawn on the card (seed 11), built by
+    ``build_ivfpq_device`` straight into the tiled layout at the seg that
+    ``auto_seg`` picks for evenly filled lists, behind a
+    ``DeviceRetriever``.  ``args.nb`` rounds down to whole draw chunks."""
+    if args.hard:
+        hc = make_hard_corpus(d=d, n_clusters=args.n_clusters
+                              or 4 * args.nlist, seed=11, device=device)
+        draw, draw_train, gen = hc.draw_base, hc.draw_train, HARD_GEN
+        chunk = gen                 # at d=512 one chunk is already 2 GB
+    else:
+        draw, draw_train, gen = clustered_stream(
+            d, args.n_clusters or args.nlist, 11, device)
+        chunk = 8 * gen
+    nb = args.nb = (args.nb // gen) * gen
+    if nb == 0:
+        raise ValueError(f"--streamed needs --nb of at least one draw "
+                         f"chunk ({gen} rows at d={d})")
+    nt = min(2_000_000, nb)
+
+    def draw_xt():   # lazy: freed inside the builder after training
+        return draw_train(0, -(-nt // gen) * gen)[:nt]
+
+    seg = auto_seg(np.full(args.nlist, max(nb // args.nlist, 1)))
+    index, info = build_ivfpq_device(
+        draw, nb, IndexConfig(dim=d, nlist=args.nlist, m=args.m,
+                              list_pad=128, balanced=args.balance > 0,
+                              balance_hard=True,
+                              balance_factor=args.balance or 1.3),
+        draw_xt, kmeans_iters=8, pq_iters=8, chunk=chunk, verbose=True,
+        tile_seg=seg, tile_only=True, device=device)
+    return DeviceRetriever(index, info["list_len"],
+                           SearchConfig(nprobe=args.nprobe, k=args.k,
+                                        seg=seg, approx_recall_target=0.99),
+                           device=device)
 
 
 def make_loop(mcfg: ModelConfig, params, retriever, args, interval: int):
@@ -142,7 +225,7 @@ def no_host_sync(device: torch.device):
 
 
 def run(args, device=None, *, inspect: Optional[Callable] = None,
-        retriever: Optional[LocalRetriever] = None) -> Iterator[dict]:
+        retriever: Optional[BaseRetriever] = None) -> Iterator[dict]:
     """Yields one row per (preset, interval): the reference's keys
     (``tok_per_s``, ``ms_per_step`` over the timed steps, final device sync
     included), the p50 host spans of a timed step (``p50_step_ms`` is the
@@ -154,16 +237,14 @@ def run(args, device=None, *, inspect: Optional[Callable] = None,
     power limit.  ``inspect(preset, interval, loop)``, if given, runs after
     the timed steps and its dict joins the row.  ``retriever`` reuses an
     index built before."""
-    for flag, needs in NOT_PORTED.items():
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag} is not ported: it needs "
-                                      f"{needs}")
     dev = resolve_device(device)
     card = card_description() if dev.type == "cuda" else "cpu"
     cfgs = model_configs(args)
     d = next(iter(cfgs.values())).embed_dim
     t0 = time.perf_counter()
-    retriever = retriever or build_retriever(args, d, dev)
+    if retriever is None:
+        retriever = (build_streamed_retriever(args, d, dev) if args.streamed
+                     else build_retriever(args, d, dev))
     print(f"index ready in {time.perf_counter() - t0:.1f}s", file=sys.stderr,
           flush=True)
     intervals = ([int(s) for s in args.intervals.split(",") if s]

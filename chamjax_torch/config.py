@@ -35,13 +35,14 @@ class IndexConfig:
     balanced: bool = False
     balance_factor: float = 1.3
     balance_hard: bool = False
-    # Balanced-Lloyd knobs of the JAX package's device-side build (not yet
-    # ported); kept so configs round-trip between the packages.
+    # Balanced-Lloyd knobs of the device-side build
+    # (index/device_build.py): training iterations, the split deadband, and
+    # the corpus parts rebalanced under the remaining capacity (0 = auto).
     balance_train_iters: int = 12
     balance_deadband: float = 1.25
     balance_parts: int = 0
-    # Inverted multi-index: nlist = 4^imi.  0 = plain IVF.  Not yet ported
-    # (build_ivfpq raises).
+    # Inverted multi-index: nlist = 4^imi.  0 = plain IVF (index/imi.py,
+    # built through index/factory.py).
     imi: int = 0
 
     @property

@@ -139,6 +139,11 @@ def _pack_lists(
     return packed_codes, packed_ids, list_start, list_len
 
 
+def _host(x) -> np.ndarray:
+    return (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+            else np.asarray(x))
+
+
 def _opq_subsample_idx(n: int, seed: int, cap: int = 1 << 17) -> np.ndarray:
     """Uniform OPQ-training row subsample (sorted); identity when the
     training set already fits the cap."""
@@ -168,10 +173,15 @@ def build_ivfpq(
     """
     dev = resolve_device(device)
     if cfg.imi:
-        raise NotImplementedError(
-            "build_ivfpq: IMI coarse quantizers are not ported yet "
-            "(ROADMAP.md, modules queue: index build — index/imi.py and "
-            "index/factory.py)")
+        # IMI needs product-structured training (train_imi + the factored
+        # assignment): the factory owns it, as in the JAX package
+        from chamjax_torch.index import factory
+        xt_np = xb if xt is None else xt
+        trained = factory.train_quantizers(
+            _host(xt_np), cfg, seed=seed, kmeans_iters=kmeans_iters,
+            pq_iters=pq_iters, device=dev)
+        return factory.populate(_host(xb), trained, tail_pad=tail_pad,
+                                device=dev)
 
     def log(msg):
         if verbose:

@@ -127,6 +127,64 @@ class DeviceIVF:
         )
 
 
+def _retile_core(codes_t, ids, list_start, list_len, *, seg: int,
+                 cap_new: int):
+    """Device-side repack of a flat CSR layout onto ``seg`` boundaries.
+
+    The boundary marks run at tile granularity (every new tile belongs to
+    one list), so the tables are ``cap_new/seg`` long; the per-row work is
+    two small-table gathers.  Padding rows get id -1; their codes are
+    whatever the clipped gather reads (a scan masks them by length)."""
+    dev = codes_t.device
+    nlist = list_len.shape[0]
+    eff = list_len.long()
+    tiles_per = torch.clamp((eff + seg - 1) // seg, min=1)
+    tile_start = torch.zeros_like(tiles_per)
+    tile_start[1:] = torch.cumsum(tiles_per, 0)[:-1]
+    new_start = tile_start * seg
+    n_tiles = cap_new // seg
+    mark = torch.zeros((n_tiles,), dtype=torch.int64, device=dev)
+    mark.index_add_(0, tile_start, torch.ones_like(tile_start))
+    list_of_tile = torch.clamp(torch.cumsum(mark, 0) - 1, max=nlist - 1)
+    base = (torch.arange(n_tiles, device=dev) * seg
+            - new_start[list_of_tile])
+    off2d = base[:, None] + torch.arange(seg, device=dev)[None, :]
+    valid2d = (off2d >= 0) & (off2d < eff[list_of_tile][:, None])
+    src2d = torch.clamp(list_start.long()[list_of_tile][:, None] + off2d,
+                        0, codes_t.shape[1] - 1).reshape(-1)
+    ids_new = torch.where(valid2d.reshape(-1), ids[src2d], -1).to(
+        torch.int32)
+    m = codes_t.shape[0]
+    codes_new = codes_t[:, src2d]
+    codes_tiled = (codes_new.reshape(m, n_tiles, seg).permute(1, 0, 2)
+                   .contiguous())
+    return codes_new, ids_new, new_start.to(torch.int32), codes_tiled
+
+
+def retile_device_ivf(dev: DeviceIVF, seg: int,
+                      list_len_host: Optional[np.ndarray] = None
+                      ) -> DeviceIVF:
+    """Re-pack a device-resident index onto ``seg`` tile boundaries and
+    attach the ``codes_tiled`` twin, on its device: the post-build path for
+    ``build_ivfpq_device`` indexes whose ``seg`` is sized from the built
+    list lengths.  Reads only the (nlist,) length table on the host.
+
+    The result is a new ``DeviceIVF`` with a fresh ``graphs``: a search
+    captured over the old layout replays against the old tensors and must
+    not be reused for the new one."""
+    ll = (dev.list_len.cpu().numpy() if list_len_host is None
+          else np.asarray(list_len_host))
+    padded = (np.maximum(np.ceil(ll / seg), 1) * seg).astype(np.int64)
+    cap_new = int(padded.sum()) + max(MAX_SEG, seg)
+    cap_new = -(-cap_new // seg) * seg
+    codes_new, ids_new, new_start, codes_tiled = _retile_core(
+        dev.codes_t, dev.ids, dev.list_start, dev.list_len, seg=seg,
+        cap_new=cap_new)
+    return dataclasses.replace(dev, codes_t=codes_new, ids=ids_new,
+                               list_start=new_start, codes_tiled=codes_tiled,
+                               graphs=graphs.Graphs())
+
+
 def _dispatch_scan(index: DeviceIVF, luts, list_ids, *, k, scan_len,
                    windows, seg, group, probe_chunk, use_approx,
                    recall_target, backend, tile, lut_bf16=False, select_l1=0,

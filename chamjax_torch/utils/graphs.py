@@ -49,6 +49,7 @@ import collections
 import contextlib
 import dataclasses
 import functools
+import gc
 import numbers
 import threading
 from typing import Any, Callable, Dict, Iterator, List, Optional
@@ -111,9 +112,19 @@ class CudaGraph:
         current.wait_stream(side)
 
     def capture(self, run: Callable[[], Any]) -> Any:
-        with torch.cuda.device(self.device), torch.cuda.graph(
-                self.graph, capture_error_mode="thread_local"):
-            return run()
+        # no garbage collection while capturing: a dead cycle collected
+        # here can free CUDA objects (another graph and its memory pool)
+        # with calls a capture forbids, which invalidates the capture
+        # ("operation failed due to a previous error during capture")
+        gc_was_on = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.device(self.device), torch.cuda.graph(
+                    self.graph, capture_error_mode="thread_local"):
+                return run()
+        finally:
+            if gc_was_on:
+                gc.enable()
 
     def replay(self) -> None:
         self.graph.replay()

@@ -5,8 +5,8 @@ from ``chamjax_torch/csrc`` and the host library from
 version, then drives every scan route of the IVF-PQ query path at the 1M
 flagship size, the kernel study, the RALM serving path (decode fused with
 the on-card retrieval) at the full width of the Dec-S, Llama-S and EncDec-S
-presets, and disaggregated serving (engine processes behind an index
-server and behind the coordinators).
+presets, disaggregated serving (engine processes behind an index server
+and behind the coordinators), and the streamed index build on the card.
 
     python3 chip_smoke.py
 
@@ -122,9 +122,34 @@ Phases (any failure exits non-zero and prints no result):
    coordinator, each worker's last answer equal to the search in process
    up to ties.  Last, the relay's cost a round trip of a RALM frame,
    direct and through each coordinator.
-9. Print the kernels line, the main-path line, the routes line, the
-   kernel-study line, the ralm line, the tiktok line, the disagg line and
-   the result line.
+9. The index build on the card (``build_phase``): ``benchmarks/
+   bench_large.py``'s configuration with ``--hard --n-clusters 262144
+   --opq --balance 1.30 --balance-deadband 1.25 --balance-iters 12``, cut
+   in depth to 16·2^20 rows: the hard-mode corpus (d 128, seed 42) drawn
+   on the card → ``build_ivfpq_device`` (OPQ16, IVF65536, PQ16, 2M
+   training rows, 8 k-means and 10 PQ iterations, 12 balanced ones, chunks
+   of 4·2^20, blocks of 4096; tiled at the seg ``auto_seg`` picks for the
+   expected lengths, both twins; stage seconds, peak memory, stragglers;
+   every list within the cap or counted as stragglers) →
+   ``compute_ground_truth_streamed`` (256 independent queries, k 100) →
+   the captured ``ivfpq_search`` at nprobe 1/16/32/64 with every window of
+   the probed lists and f32 LUTs, the launch counts set to 0 just before
+   and read just after: equal to the ``backend="xla"`` oracle up to ties
+   and within 0.002 R@10, R@10 not falling with nprobe and rising by more
+   than 0.1 from nprobe 1 to 16; at ``auto_windows``' budget, R@10, b=128
+   QPS and b=1 ms with f32 and packed-bf16 LUTs; ``adc_scan_tiles`` held
+   against its plain version at the build's tile width; the flat twin
+   retiled to the other tile width (answers equal up to ties, a fresh
+   ``graphs``); the quantizers exported as ``TrainedQuantizers``,
+   ``populate_on_disk_device`` over 4·2^20 rows → ``load_ondisk`` →
+   ``HostStreamedSearcher``, against ``build_ivfpq_device(quantizers=)``
+   over the same rows (list lengths and ids per list equal, a b=128 batch
+   equal up to ties); ``ralm_device_bench.run --streamed --hard --balance
+   1.3`` (Dec-S over 2^20 rows, IVF4096) with the fused retrievals equal
+   to an eager ``DeviceRetriever`` search up to ties.
+10. Print the kernels line, the main-path line, the routes line, the
+   kernel-study line, the ralm line, the tiktok line, the disagg line,
+   the build line and the result line.
 
 Every search and every model step runs as a replay of a captured CUDA graph
 (``chamjax_torch/utils/graphs.py``), the default; each is also run eagerly
@@ -2009,7 +2034,439 @@ def disagg_phase(dev, ctx, retriever, gather_path) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# The build phase: benchmarks/bench_large.py's configuration (:54-83,
+# :102-112) with --hard --n-clusters 262144 --opq --balance 1.30
+# --balance-deadband 1.25 --balance-iters 12; only the depth is cut, from
+# 96·2^20 to 16·2^20 rows
+BUILD_CORPUS = dict(d=128, n_clusters=262_144, seed=42, zipf_a=1.05,
+                    center_scale=1.25)
+BUILD_NB = 16 << 20
+BUILD_CFG = dict(nlist=65536, m=16, list_pad=128, opq=True, balanced=True,
+                 balance_hard=True, balance_factor=1.30,
+                 balance_train_iters=12, balance_deadband=1.25)
+BUILD_KW = dict(kmeans_iters=8, pq_iters=10, seed=42, chunk=4 << 20,
+                block=4096)
+BUILD_NT = 2_000_000
+BUILD_NPROBES = (1, 16, 32, 64)   # bench_large's --nprobes, plus 1
+BUILD_BATCHES = 40                # b=128 query batches timed
+ORACLE_R10 = 0.002                # f32-LUT kernel vs the xla oracle
+MIN_R10_GAIN = 0.1                # R@10(16) - R@10(1): not saturated
+ONDISK_NB = 4 << 20               # rows of the on-disk / preset leg
+# the RALM streamed leg: the bench's defaults (Dec-S, IVF4096, PQ16,
+# nprobe 32, batch 64, 128 timed steps) over 2^20 hard-mode rows
+BUILD_RALM_ARGV = ["--streamed", "--hard", "--balance", "1.3", "--nb",
+                   str(1 << 20)]
+# context only (never gated): the Faiss SIFT100M IVF4096,PQ16 R@10 points
+# that chamjax/data/hard.py cites
+FAISS_SIFT100M_R10 = {"1": 0.41, "4": 0.66, "16": 0.79, "32": 0.80}
+
+
+def synchronize(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def search_all(index, xq, kw):
+    """``ivfpq_search`` over ``xq`` in b=128 batches → (dists, ids) numpy,
+    ids int64."""
+    import numpy as np
+    from chamjax_torch.searcher import ivfpq_search
+    outs = [ivfpq_search(index, xq[i:i + BATCH], **kw)
+            for i in range(0, xq.shape[0], BATCH)]
+    return (np.concatenate([o[0].cpu().numpy() for o in outs]),
+            np.concatenate([o[1].cpu().numpy() for o in outs]).astype(
+                np.int64))
+
+
+def build_index(dev, hc):
+    """Step 1: train and build on the card from the hard stream, both
+    twins at the tile width ``auto_seg`` picks for evenly filled lists,
+    with the stage profile on.  Returns (index, info, record)."""
+    import os
+    import numpy as np
+    import torch
+    from chamjax_torch.config import IndexConfig
+    from chamjax_torch.data.hard import GEN
+    from chamjax_torch.index import build_ivfpq_device
+    from chamjax_torch.searcher import auto_seg
+    nlist = BUILD_CFG["nlist"]
+    nt = (BUILD_NT // BUILD_KW["block"]) * BUILD_KW["block"]
+
+    def xt():         # the training sample, freed after training
+        return hc.draw_train(0, -(-nt // GEN) * GEN)[:nt]
+
+    seg = auto_seg(np.full(nlist, max(BUILD_NB // nlist, 1)))
+    cfg = IndexConfig(dim=BUILD_CORPUS["d"], **BUILD_CFG)
+    prev = os.environ.get("CHAMJAX_BUILD_PROFILE")
+    os.environ["CHAMJAX_BUILD_PROFILE"] = "1"
+    synchronize(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    mem0 = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    t0 = time.perf_counter()
+    try:
+        index, info = build_ivfpq_device(hc.draw_base, BUILD_NB, cfg, xt,
+                                         tile_seg=seg, device=dev,
+                                         **BUILD_KW)
+    finally:
+        if prev is None:
+            del os.environ["CHAMJAX_BUILD_PROFILE"]
+        else:
+            os.environ["CHAMJAX_BUILD_PROFILE"] = prev
+    synchronize(dev)
+    build_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated(dev) - mem0
+            if dev.type == "cuda" else None)
+    lens = info["list_len"]
+    if int(lens.sum()) != BUILD_NB:
+        raise AssertionError(f"device build lost rows: {int(lens.sum())}")
+    if index.codes_tiled is None or index.codes_tiled.shape[2] != seg:
+        raise AssertionError("device build did not attach the tiled twin")
+    cap, strag = info["cap"], info["stragglers"]
+    over = np.maximum(lens.astype(np.int64) - cap, 0)
+    if int(over.sum()) > strag:
+        raise AssertionError(f"{int(over.sum())} rows past the cap {cap} "
+                             f"but {strag} stragglers")
+    rec = dict(build_s=build_s, stage_s=info["stage_s"],
+               peak_mem_gib=None if peak is None else peak / 2 ** 30,
+               stragglers=strag, cap=cap, max_list=int(lens.max()),
+               lists_over_cap=int((over > 0).sum()),
+               rows_over_cap=int(over.sum()),
+               list_len_p50_p90_p99=np.percentile(
+                   lens, [50, 90, 99]).tolist(),
+               seg=seg, list_pad=build_config(seg).list_pad,
+               n_pad=info["n_pad"])
+    log(f"device build {build_s:.1f} s: {rec}")
+    return index, info, rec
+
+
+def build_search(dev, index, info, xq, gt):
+    """Step 3: the captured ``ivfpq_search`` on the tiled layout at each
+    nprobe, launch counts set to 0 just before and read just after.  With
+    f32 LUTs and every window of the probed lists it is held to the
+    ``backend="xla"`` oracle on the same DeviceIVF (the kernel alone
+    differs); at ``auto_windows``' budget (bench_large's operating point)
+    its recall and times are recorded, with f32 and packed-bf16 LUTs."""
+    import numpy as np
+    from chamjax_torch.eval import recall_at_k
+    from chamjax_torch.searcher import auto_windows, resolve_coarse_cand
+    from chamjax_torch.utils import cuda_lib
+    lens, seg = info["list_len"], int(index.codes_tiled.shape[2])
+    nlist = BUILD_CFG["nlist"]
+    pad = build_config(seg).list_pad
+    scan_len = -(-int(lens.max()) // pad) * pad
+    q_gt, q_time = xq[:N_GT], xq[N_GT:]
+    out, launches = {}, 0
+    for nprobe in BUILD_NPROBES:
+        ccand = resolve_coarse_cand(-1, nlist, nprobe)
+        kw = dict(nprobe=nprobe, k=K, seg=seg, group=GROUP,
+                  recall_target=0.9, backend="seg", coarse_approx=ccand == 0,
+                  coarse_cand=ccand, lut_bf16=False,
+                  windows=int(nprobe * np.ceil(lens.max() / seg)))
+        cuda_lib.launch_counts.clear()
+        d_s, i_s = search_all(index, q_gt, kw)
+        n_l = cuda_lib.launch_counts["adc_scan_tiles"]
+        if n_l < 1:
+            raise AssertionError(f"build search nprobe {nprobe} did not "
+                                 f"launch adc_scan_tiles")
+        launches += n_l
+        fin = np.isfinite(d_s)
+        if not fin[:, :10].all() or (np.diff(d_s, axis=1) < 0).any():
+            raise AssertionError("build search: distances not finite/sorted")
+        if ((i_s[fin] < 0) | (i_s[fin] >= BUILD_NB)).any():
+            raise AssertionError("build search: ids out of range")
+        rec = {f"recall_at_{r}": recall_at_k(i_s, gt, r)
+               for r in (1, 10, 100)}
+        d_x, i_x = search_all(index, q_gt, dict(kw, backend="xla",
+                                                scan_len=scan_len))
+        check_same_up_to_ties(f"build nprobe {nprobe}: tiled vs xla",
+                              d_s, i_s, d_x, i_x, rtol=1e-5)
+        r10_x = recall_at_k(i_x, gt, 10)
+        if abs(rec["recall_at_10"] - r10_x) > ORACLE_R10:
+            raise AssertionError(f"build nprobe {nprobe}: R@10 "
+                                 f"{rec['recall_at_10']} vs xla oracle "
+                                 f"{r10_x}")
+        kw_a = dict(kw, windows=auto_windows(lens, seg, nprobe))
+        kw_bf = dict(kw_a, lut_bf16=True)
+        r10_a = recall_at_k(search_all(index, q_gt, kw_a)[1], gt, 10)
+        r10_bf = recall_at_k(search_all(index, q_gt, kw_bf)[1], gt, 10)
+        t32, tbf = time_search(index, kw_a, q_time), time_search(index, kw_bf,
+                                                                 q_time)
+        out[str(nprobe)] = dict(
+            rec, recall_at_10_xla_oracle=r10_x, windows_all=kw["windows"],
+            launches=n_l, coarse_cand=ccand, windows=kw_a["windows"],
+            recall_at_10_auto_windows=r10_a,
+            recall_at_10_auto_windows_lut_bf16=r10_bf,
+            qps_b128=BATCH * 1e3 / t32["ms_b128"],
+            ms_per_batch_b128=t32["ms_b128"], ms_per_query_b1=t32["ms_b1"],
+            qps_b128_lut_bf16=BATCH * 1e3 / tbf["ms_b128"],
+            ms_per_query_b1_lut_bf16=tbf["ms_b1"])
+        log(f"build search nprobe {nprobe}: {out[str(nprobe)]}")
+    r10 = [out[str(p)]["recall_at_10"] for p in BUILD_NPROBES]
+    if any(b < a for a, b in zip(r10, r10[1:])):
+        raise AssertionError(f"build R@10 falls with nprobe: {r10}")
+    gain = out["16"]["recall_at_10"] - out["1"]["recall_at_10"]
+    if gain <= MIN_R10_GAIN:
+        raise AssertionError(f"build R@10 saturates: nprobe 16 - nprobe 1 "
+                             f"= {gain}")
+    return out, launches
+
+
+def build_breakdown(dev, hc, index, built):
+    """Where the build's time goes: the device time (``device_ms``) of each
+    primitive of one 4096-row block at the build's shapes (the bf16
+    stage-1 GEMM, the fp32 epilogue, top-k over the (4096, 65536) scores,
+    the exact re-rank; a whole k-means, balanced-training and candidates
+    block), the host's time to enqueue a candidates block, and one stable
+    sort of 16·2^20 keys (two a rebalance round), beside the stage
+    seconds they imply (blocks × ms)."""
+    import torch
+    from chamjax_torch.data.hard import GEN
+    from chamjax_torch.index import device_build as db
+    from chamjax_torch.utils.precision import fp32_matmul
+    blk, cent = BUILD_KW["block"], index.centroids
+    with fp32_matmul():
+        x = (hc.draw_base(0, GEN)[:blk] @ index.opq_R).contiguous()
+    x16, c16 = x.to(torch.bfloat16), cent.to(torch.bfloat16)
+    scores = db._stage1_scores(x, cent)
+    top16 = torch.topk(scores, 16, dim=1).indices
+    keys = torch.rand(BUILD_NB, device=dev)
+    with fp32_matmul():
+        ms = dict(
+            gemm_bf16=device_ms(lambda: torch.mm(x16, c16.T,
+                                                 out_dtype=torch.float32)),
+            stage1_scores=device_ms(lambda: db._stage1_scores(x, cent)),
+            topk_16=device_ms(lambda: torch.topk(scores, 16, dim=1)),
+            topk_32=device_ms(lambda: torch.topk(scores, 32, dim=1)),
+            rerank_16=device_ms(lambda: db._exact_partial(x, cent, top16)),
+            block_assign_cand8=device_ms(
+                lambda: db._assign_exact_2stage(x, cent, 8)),
+            block_topc_c8=device_ms(
+                lambda: db._topc_exact_2stage(x, cent, 8)),
+            block_topc_c16=device_ms(
+                lambda: db._topc_exact_2stage(x, cent, 16)),
+            stable_sort_16m=device_ms(
+                lambda: torch.argsort(keys, stable=True)))
+        synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            db._topc_exact_2stage(x, cent, 8)
+        ms["host_enqueue_block_topc_c8"] = (time.perf_counter() - t0) * 50
+        synchronize(dev)
+    nt_blocks = -(-BUILD_NT // blk)
+    implied = dict(
+        kmeans_s=BUILD_KW["kmeans_iters"] * nt_blocks
+        * ms["block_assign_cand8"] / 1e3,
+        balanced_training_s=BUILD_CFG["balance_train_iters"] * nt_blocks
+        * ms["block_topc_c16"] / 1e3,
+        candidates_s=BUILD_NB // blk * ms["block_topc_c8"] / 1e3)
+    out = dict(block_ms=ms, implied=implied, stage_s=built["stage_s"])
+    log(f"build breakdown: {out}")
+    del keys, scores
+    return out
+
+
+def build_retile(dev, index, info, xq):
+    """Step 5: ``retile_device_ivf`` of the flat twin to the other
+    power-of-two tile width: the searches (f32 LUTs, every window of the
+    probed lists) equal up to ties, and the retiled index owns a fresh
+    ``graphs`` (a search captured on the old layout is never replayed on
+    it)."""
+    import numpy as np
+    from chamjax_torch.ops.scan_seg import MAX_SEG
+    from chamjax_torch.searcher import retile_device_ivf
+    lens, seg = info["list_len"], int(index.codes_tiled.shape[2])
+    other = seg * 2 if seg * 2 <= MAX_SEG else seg // 2
+    q = xq[:N_GT]
+
+    def kw(s):
+        return dict(nprobe=NPROBE, k=K, seg=s, group=GROUP, backend="seg",
+                    lut_bf16=False,
+                    windows=int(NPROBE * np.ceil(lens.max() / s)))
+    d_a, i_a = search_all(index, q, kw(seg))
+    old_graphs = len(index.graphs)
+    t0 = time.perf_counter()
+    r = retile_device_ivf(index, other, lens)
+    synchronize(dev)
+    retile_s = time.perf_counter() - t0
+    if r.graphs is index.graphs or len(r.graphs):
+        raise AssertionError("the retiled index kept the old graphs")
+    d_b, i_b = search_all(r, q, kw(other))
+    if len(index.graphs) != old_graphs or (dev.type == "cuda"
+                                           and not len(r.graphs)):
+        raise AssertionError("a search of the retiled index went to the "
+                             "old index's graphs")
+    check_same_up_to_ties(f"retile {seg} -> {other}", d_b, i_b, d_a, i_a,
+                          rtol=1e-5)
+    out = dict(seg=seg, other=other, retile_s=retile_s,
+               graphs_old=old_graphs, graphs_new=len(r.graphs))
+    del r
+    log(f"retile: {out}; answers equal up to ties")
+    return out
+
+
+def build_ondisk(dev, hc, index, info):
+    """Step 6: the trained quantizers exported as ``TrainedQuantizers``;
+    ``populate_on_disk_device`` over the first ``ONDISK_NB`` rows into a
+    temporary directory, ``load_ondisk``, ``HostStreamedSearcher``; and
+    ``build_ivfpq_device(quantizers=..., balanced=False)`` over the same
+    rows: equal list lengths, ids equal per list, b=128 answers equal up
+    to ties."""
+    import tempfile
+    import numpy as np
+    import torch
+    from chamjax_torch.config import SearchConfig
+    from chamjax_torch.index import build_ivfpq_device
+    from chamjax_torch.index.factory import TrainedQuantizers
+    from chamjax_torch.index.ondisk import load_ondisk, populate_on_disk_device
+    from chamjax_torch.searcher import auto_seg, auto_windows, ivfpq_search
+    from chamjax_torch.streamed import HostStreamedSearcher
+    cfg = dataclasses.replace(build_config(int(index.codes_tiled.shape[2])),
+                              balanced=False)
+    tq = TrainedQuantizers(
+        cfg=cfg, centroids=index.centroids.cpu().numpy(),
+        codebooks=index.codebooks.cpu().numpy(),
+        opq_R=index.opq_R.cpu().numpy())
+    q = torch.as_tensor(hc.queries(BATCH, salt=4)).to(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        populate_on_disk_device(hc.draw_base, ONDISK_NB, tq, tmp,
+                                chunk=1 << 20, device=dev)
+        ondisk_s = time.perf_counter() - t0
+        disk = load_ondisk(tmp)
+        t0 = time.perf_counter()
+        sub, sub_info = build_ivfpq_device(
+            hc.draw_base, ONDISK_NB, cfg, None, device=dev,
+            quantizers=(tq.centroids, tq.codebooks, tq.opq_R),
+            chunk=BUILD_KW["chunk"], block=BUILD_KW["block"])
+        synchronize(dev)
+        preset_s = time.perf_counter() - t0
+        if not np.array_equal(disk.list_len, sub_info["list_len"]):
+            raise AssertionError("on-disk and resident list lengths differ")
+        ids_d = np.asarray(disk.ids)
+        ids_r = sub.ids.cpu().numpy()[:ids_d.shape[0]]
+        if not np.array_equal(ids_d, ids_r):
+            raise AssertionError("on-disk and resident ids differ per list")
+        seg = auto_seg(disk.list_len)
+        W = auto_windows(disk.list_len, seg, NPROBE)
+        scfg = SearchConfig(nprobe=NPROBE, k=K, seg=seg, seg_group=GROUP,
+                            lut_bf16=False, scan_windows=W, coarse_cand=0)
+        hs = HostStreamedSearcher(disk, scfg, device=dev)
+        t0 = time.perf_counter()
+        d_h, i_h = hs.search(q.cpu().numpy())
+        host_ms = (time.perf_counter() - t0) * 1e3
+        d_r, i_r = ivfpq_search(sub, q, nprobe=NPROBE, k=K, windows=W,
+                                seg=seg, group=GROUP, lut_bf16=False,
+                                backend="seg")
+        check_same_up_to_ties("on-disk vs resident b=128", d_h, i_h,
+                              d_r.cpu().numpy(),
+                              i_r.cpu().numpy().astype(np.int64), rtol=1e-5)
+        out = dict(rows=ONDISK_NB, populate_on_disk_device_s=ondisk_s,
+                   preset_build_s=preset_s, seg=seg, windows=W,
+                   streamed_search_ms_b128=host_ms,
+                   gather_path=hs.gather_path,
+                   codes_mib=disk.codes.nbytes / 2 ** 20)
+        del disk, hs, sub
+    log(f"on-disk leg: {out}; layouts and answers equal")
+    return out
+
+
+def build_config(seg: int):
+    """The build's IndexConfig, with the list padding its tile width gives
+    it (``lcm(list_pad, seg)``, as ``build_ivfpq_device`` pads)."""
+    import math
+    from chamjax_torch.config import IndexConfig
+    return IndexConfig(dim=BUILD_CORPUS["d"], **dict(
+        BUILD_CFG, list_pad=math.lcm(BUILD_CFG["list_pad"], seg)))
+
+
+def build_ralm(dev):
+    """Step 7: ``ralm_device_bench.run`` on its streamed leg (``--streamed
+    --hard --balance 1.3``) at the bench's defaults: the timed steps under
+    the sync check with the launch counts set to 0 just before and read
+    just after; the fused retrievals of the last step equal an eager
+    ``DeviceRetriever`` search of the same hidden states up to ties."""
+    import numpy as np
+    from chamjax_torch.benchmarks import ralm_device_bench as bench
+    from chamjax_torch.utils import graphs
+    args = bench.parse_args(BUILD_RALM_ARGV)
+    d = next(iter(bench.model_configs(args).values())).embed_dim
+    t0 = time.perf_counter()
+    rec = QueryRecorder(bench.build_streamed_retriever(args, d, dev))
+    build_s = time.perf_counter() - t0
+
+    def inspect(preset, interval, loop):
+        with graphs.disable_capture():
+            again = rec.inner.retrieve_device(rec.queries, args.nprobe,
+                                              args.k)
+        check_same_up_to_ties(
+            f"streamed ralm {preset}: fused vs DeviceRetriever",
+            rec.result.dists.cpu().numpy(),
+            rec.result.ids.cpu().numpy().astype(np.int64),
+            again.dists.cpu().numpy(),
+            again.ids.cpu().numpy().astype(np.int64), rtol=1e-5)
+        return dict(fused_equals_device_retriever=True)
+
+    rows = list(bench.run(args, dev, retriever=rec, inspect=inspect))
+    row = rows[0]
+    if row["launches_adc_scan_tiles"] < 1 or not row["no_host_sync_checked"]:
+        raise AssertionError(f"streamed ralm: {row}")
+    r = rec.inner
+    out = dict(row, build_s=build_s, seg=r.seg, windows=r.windows,
+               nb=args.nb, max_list=int(r.list_len.max()),
+               cap=int(np.ceil(args.nb / args.nlist * args.balance)))
+    log(f"streamed ralm: {out}")
+    return out
+
+
+def build_phase(dev):
+    """Phase 9: the index build on the card (``BUILD_*``): build, streamed
+    ground truth, the search curve against the xla oracle, the tiled
+    kernel at the build's tile width, retile, the on-disk leg, the RALM
+    streamed leg.  Returns the build line and the kernel measurement."""
+    import torch
+    from chamjax_torch.data.hard import GEN, make_hard_corpus
+    from chamjax_torch.index import compute_ground_truth_streamed
+    from chamjax_torch.searcher import auto_windows
+    t_phase = time.perf_counter()
+    hc = make_hard_corpus(device=dev, **BUILD_CORPUS)
+    xq = hc.queries(BATCH * BUILD_BATCHES + N_GT)    # independent draws
+    index, info, built = build_index(dev, hc)
+    t0 = time.perf_counter()
+    gt, _ = compute_ground_truth_streamed(hc.draw_base, BUILD_NB, xq[:N_GT],
+                                          k=K, chunk=BUILD_KW["chunk"],
+                                          block=GEN, device=dev)
+    synchronize(dev)
+    gt_s = time.perf_counter() - t0
+    search, launches = build_search(dev, index, info, xq, gt)
+    seg = int(index.codes_tiled.shape[2])
+    s = dataclasses.make_dataclass("S", ["dev", "seg", "scfg", "windows"])(
+        index, seg, dataclasses.make_dataclass("C", ["lut_bf16"])(False),
+        auto_windows(info["list_len"], seg, NPROBE))
+    scan = tiles_on_queries(f"adc_scan_tiles[device build seg {seg}]", s,
+                            torch.as_tensor(xq[:BATCH]).to(dev), NPROBE)
+    breakdown = build_breakdown(dev, hc, index, built)
+    retile = build_retile(dev, index, info, xq)
+    ondisk = build_ondisk(dev, hc, index, info)
+    del index
+    ralm = build_ralm(dev)
+    line = dict(
+        config="bench_large.py --hard --n-clusters 262144 --opq --balance "
+               "1.30 --balance-deadband 1.25 --balance-iters 12, nb cut to "
+               "16*2^20",
+        nb=BUILD_NB, nlist=BUILD_CFG["nlist"], m=BUILD_CFG["m"],
+        **built, ground_truth_s=gt_s, nq_recall=N_GT, k=K,
+        search=search, faiss_sift100m_r10_context=FAISS_SIFT100M_R10,
+        kernel=scan["measured"], breakdown=breakdown, retile=retile,
+        ondisk=ondisk,
+        ralm_streamed=ralm, phase_s=time.perf_counter() - t_phase)
+    return dict(line=line, launches=launches, kernel=scan["measured"],
+                seg=seg)
+
+
 def main() -> int:
+    t_smoke = time.perf_counter()
     try:
         import torch
     except ImportError as e:
@@ -2066,6 +2523,7 @@ def main() -> int:
                       host=tiktok_host(dev, ralm["rec"].inner))
         disagg = disagg_phase(dev, main["ctx"], ralm["rec"].inner,
                               streamed["gather_path"])
+        build = build_phase(dev)
     except AssertionError as e:
         return fail(str(e))
     log(f"trace: {traced}")
@@ -2090,6 +2548,10 @@ def main() -> int:
                tiktok["host"][n]["launches_adc_scan_tiles"]
                for n in ("tiktok", "sequential")}),
         # counted by the engine processes over everything they served
+        # the device-built index's searches (every nprobe) and the kernel
+        # held at that index's tile width and windows
+        launches_device_build=build["launches"],
+        seg_device_build=build["seg"], device_build=build["kernel"],
         launches_disagg=dict(
             {"service card engine": disagg["service"]["card"]["launches"].get(
                 "adc_scan_tiles", 0)},
@@ -2154,6 +2616,9 @@ def main() -> int:
     print(json.dumps(dict(tiktok=tiktok, card=card)), flush=True)
     print(json.dumps(dict(disagg=disagg, card=card,
                           gxx_s=gxx["s"])), flush=True)
+    print(json.dumps(dict(build=build["line"], card=card,
+                          smoke_s=time.perf_counter() - t_smoke)),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

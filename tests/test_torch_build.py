@@ -179,8 +179,19 @@ def test_build_ivfpq_recall_close_to_chamjax(recall_ds, opq):
 
 
 def test_build_ivfpq_imi_not_ported(ds):
-    with pytest.raises(NotImplementedError, match="IMI"):
+    """IMI is ported now: ``build_ivfpq`` routes ``cfg.imi`` through the
+    factory, as the JAX package does (the name is kept from when it raised
+    NotImplementedError).  A config whose nlist is not 4^imi is refused; a
+    consistent one builds the product grid (row i·4+j = [a_i ‖ b_j])."""
+    with pytest.raises(ValueError, match="IMI2x2"):
         t_build(ds.xb, TIndexConfig(dim=32, m=8, imi=2), device="cpu")
+    idx = t_build(ds.xb, TIndexConfig(dim=32, nlist=16, m=8, imi=2),
+                  xt=ds.xt, kmeans_iters=2, pq_iters=2, device="cpu")
+    assert idx.cfg.imi == 2 and idx.centroids.shape == (16, 32)
+    np.testing.assert_array_equal(idx.centroids[:4, :16],
+                                  np.broadcast_to(idx.centroids[0, :16],
+                                                  (4, 16)))
+    assert int(idx.list_len.sum()) == ds.nb
 
 
 @pytest.mark.parametrize("chunk", [1_000_000, 3000])

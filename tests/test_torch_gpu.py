@@ -2,8 +2,9 @@
 ``debug_ablate`` bodies and the measurement variants) against their plain
 versions, the query routes (tiled, flat, padded-window, host-streamed) on
 the card against the same routes on the CPU, profiler tracing of the
-card, the RALM path, and the captured graphs (``utils/graphs.py``) against
-their eager runs.  Every test is marked ``gpu`` and skips where there
+card, the RALM path, the captured graphs (``utils/graphs.py``) against
+their eager runs, and the index build (the hard stream, the bf16
+shortlist, a preset-quantizer build against ``factory.populate``).  Every test is marked ``gpu`` and skips where there
 is no card.  This file imports neither jax nor chamjax, so it runs on a
 machine that has only PyTorch:
 
@@ -995,3 +996,94 @@ def test_spawned_engine_answers_preassigned_on_card(card_index, tmp_path):
         if proc.is_alive():
             proc.kill()
     assert proc.exitcode == 0
+
+
+@pytest.mark.gpu
+def test_hard_draw_chunk_invariant_on_card(cuda_device):
+    """The hard-mode stream on the card: a two-chunk draw equals its two
+    one-chunk draws, a second corpus from the seed draws the same rows, and
+    (Philox, not MT19937) the card's rows differ from the CPU's."""
+    from chamjax_torch.data.hard import GEN, make_hard_corpus
+    hc = make_hard_corpus(d=32, n_clusters=4096, seed=7, device=cuda_device)
+    a = hc.draw_base(0, 2 * GEN)
+    assert a.device.type == "cuda" and a.dtype == torch.float32
+    b = torch.cat([hc.draw_base(0, GEN), hc.draw_base(GEN, GEN)])
+    assert torch.equal(a, b)
+    again = make_hard_corpus(d=32, n_clusters=4096, seed=7,
+                             device=cuda_device)
+    assert torch.equal(again.draw_base(GEN, GEN), b[GEN:])
+    cpu = make_hard_corpus(d=32, n_clusters=4096, seed=7, device="cpu")
+    assert not torch.equal(cpu.draw_base(0, GEN), a[:GEN].cpu())
+    q = hc.queries(64, jitter=0.3)
+    assert q.shape == (64, 32) and bool(torch.isfinite(q).all())
+
+
+@pytest.mark.gpu
+def test_bf16_shortlist_assignment_on_card(cuda_device):
+    """The build's two-stage assignment on the card (bf16 stage-1 GEMM with
+    fp32 output, shortlist 8, fp32 re-rank) against the exact fp32 argmin
+    (TF32 off): the same cell for ≥ 99.9% of 2^20 hard-mode rows over
+    16384 cells; stage 1 really rounds (its scores differ from fp32)."""
+    from chamjax_torch.data.hard import GEN, make_hard_corpus
+    from chamjax_torch.index import device_build as db
+    from chamjax_torch.utils.precision import fp32_matmul
+    hc = make_hard_corpus(d=128, n_clusters=65536, seed=3,
+                          device=cuda_device)
+    x = hc.draw_base(0, GEN)
+    cent = hc.draw_train(0, GEN)[:16384].contiguous()
+    a = db._assign_blocked(x, cent, block=4096, cand=8).long()
+    with fp32_matmul():
+        exact = torch.cat([
+            torch.argmax(2.0 * x[s:s + 4096] @ cent.T
+                         - torch.sum(cent * cent, 1)[None], dim=1)
+            for s in range(0, GEN, 4096)])
+        s1 = db._stage1_scores(x[:4096], cent)
+        s32 = 2.0 * x[:4096] @ cent.T - torch.sum(cent * cent, 1)[None]
+    assert s1.dtype == torch.float32
+    assert float((s1 - s32).abs().max()) > 0          # bf16 operands
+    agree = float((a == exact).float().mean())
+    assert agree >= 0.999, agree
+
+
+@pytest.mark.gpu
+def test_device_build_layout_equals_populate_on_card(cuda_device):
+    """A device build with preset quantizers against ``factory.populate``
+    (exact fp32 assignment) on the card: every row whose cell agrees has
+    the same code, the lists agree except for the rows whose bf16
+    shortlist flipped (counted, ≤ 0.1%)."""
+    from chamjax_torch.data import synthetic_dataset
+    from chamjax_torch.index import build_ivfpq_device
+    from chamjax_torch.index import factory
+    ds = synthetic_dataset(nb=200_000, nq=8, nt=50_000, d=64, seed=9,
+                           n_clusters=1024)
+    cfg = IndexConfig(dim=64, nlist=1024, m=16, list_pad=64)
+    tq = factory.train_quantizers(ds.xt, cfg, kmeans_iters=4, pq_iters=4,
+                                  device=cuda_device)
+    packed = factory.populate(ds.xb, tq, device=cuda_device)
+    dev, info = build_ivfpq_device(
+        lambda s, c: torch.from_numpy(ds.xb[s:s + c]).to(cuda_device),
+        ds.nb, cfg, None, quantizers=(tq.centroids, tq.codebooks, None),
+        chunk=1 << 16, device=cuda_device)
+
+    def rows(ids, codes, list_start, list_len):
+        cell = np.full(ds.nb, -1, np.int64)
+        code = np.zeros((ds.nb, cfg.m), np.uint8)
+        for li in range(cfg.nlist):
+            s, n = int(list_start[li]), int(list_len[li])
+            cell[ids[s:s + n]] = li
+            code[ids[s:s + n]] = codes[s:s + n]
+        return cell, code
+
+    c_p, k_p = rows(packed.ids, packed.codes, packed.list_start,
+                    packed.list_len)
+    c_d, k_d = rows(dev.ids.cpu().numpy(), dev.codes_t.cpu().numpy().T,
+                    info["list_start"], info["list_len"])
+    assert (c_p >= 0).all() and (c_d >= 0).all()
+    flipped = c_p != c_d
+    assert flipped.sum() <= 0.001 * ds.nb, int(flipped.sum())
+    np.testing.assert_array_equal(k_d[~flipped], k_p[~flipped])
+    moved = np.bincount(c_p[flipped], minlength=cfg.nlist) + np.bincount(
+        c_d[flipped], minlength=cfg.nlist)
+    same = moved == 0
+    np.testing.assert_array_equal(info["list_len"][same],
+                                  packed.list_len[same])

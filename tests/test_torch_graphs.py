@@ -261,6 +261,36 @@ def test_a_failed_capture_raises_and_keeps_nothing(monkeypatch):
     assert len(owner) == 0
 
 
+@pytest.mark.parametrize("fails", [False, True])
+def test_cuda_capture_runs_without_garbage_collection(monkeypatch, fails):
+    """``CudaGraph.capture`` turns the garbage collector off while the
+    function runs under ``torch.cuda.graph`` (a dead cycle collected there
+    can free CUDA objects with calls a capture forbids) and on again after,
+    also when the capture fails; the CUDA contexts are stood in here."""
+    import gc
+    seen = []
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "graph",
+                        lambda g, **kw: contextlib.nullcontext())
+    g = graphs.CudaGraph.__new__(graphs.CudaGraph)
+    g.device, g.graph = torch.device("cuda", 0), None
+
+    def run():
+        seen.append(gc.isenabled())
+        if fails:
+            raise RuntimeError("capture failed")
+        return "out"
+
+    assert gc.isenabled()
+    if fails:
+        with pytest.raises(RuntimeError, match="capture failed"):
+            g.capture(run)
+    else:
+        assert g.capture(run) == "out"
+    assert seen == [False] and gc.isenabled()
+
+
 def test_nested_calls_join_the_outer_graph(stand_in):
     """A captured function called inside another's warm-up or capture runs
     inline (its kernels join the outer graph) and captures nothing."""

@@ -160,7 +160,11 @@ def test_import_leaves_jax_out():
             "chamjax_torch.index, chamjax_torch.data, chamjax_torch.eval, "
             "chamjax_torch.ops.scan_seg_block, chamjax_torch.ops.scan_pallas, "
             "chamjax_torch.ops.scan_seg_multi, chamjax_torch.streamed, "
-            "chamjax_torch.utils.cuda_lib; "
+            "chamjax_torch.utils.cuda_lib, chamjax_torch.index.factory, "
+            "chamjax_torch.index.ondisk, chamjax_torch.index.imi, "
+            "chamjax_torch.index.sizing, chamjax_torch.index.device_build, "
+            "chamjax_torch.data.hard, "
+            "chamjax_torch.benchmarks.ralm_device_bench; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'chamjax' "
             "or m.startswith('chamjax.')); print(bad); sys.exit(bool(bad))")

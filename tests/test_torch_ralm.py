@@ -403,8 +403,7 @@ def test_ralm_host_path_with_dummy_retriever():
 
 def test_bench_runs_on_cpu_at_a_tiny_size():
     """The bench end to end on the CPU: the full-width presets over a tiny
-    index, two timed steps each, ``inspect`` seeing each loop; the legs
-    that need unported modules raise, naming them."""
+    index, two timed steps each, ``inspect`` seeing each loop."""
     from chamjax_torch.benchmarks import ralm_device_bench as bench
     args = bench.parse_args(["--presets", "Dec-S,Llama-S", "--nb", "2048",
                              "--nlist", "16", "--nprobe", "4", "--batch",
@@ -417,8 +416,89 @@ def test_bench_runs_on_cpu_at_a_tiny_size():
         assert r["cached"] == 2 and r["tok_per_s"] > 0 and r["card"] == "cpu"
         assert r["launches_adc_scan_tiles"] == 0     # CPU: the plain path
         assert not r["no_host_sync_checked"]
-    for flag in (["--streamed"], ["--hard"], ["--balance", "1.3"]):
-        with pytest.raises(NotImplementedError, match="queue 1 item"):
-            next(bench.run(bench.parse_args(flag), device="cpu"))
     with pytest.raises(ValueError, match="embed_dim"):
         bench.model_configs(bench.parse_args(["--presets", "Dec-S,Dec-L"]))
+
+
+STREAMED_LEGS = {
+    # Dec-S at full width: one easy draw chunk is 131072 rows of 512
+    "streamed": ("Dec-S", ["--nb", "131072"]),
+    "streamed_balance": ("Dec-S", ["--nb", "131072", "--balance", "1.3"]),
+    # the hard stream draws 2^20-row chunks: a narrow decoder keeps a
+    # chunk at 128 MB
+    "streamed_hard_balance": ("Dec-T", ["--nb", "1048576", "--hard",
+                                        "--balance", "1.3"]),
+}
+
+
+@pytest.mark.parametrize("leg", sorted(STREAMED_LEGS))
+def test_bench_streamed_legs_run_on_cpu(leg, monkeypatch):
+    """``--streamed`` (the clustered stream), with ``--balance`` and with
+    ``--hard``: the corpus drawn and built by the streamed device builder
+    into a tile-only index behind a ``DeviceRetriever`` at the seg
+    ``auto_seg`` picks, then two timed steps; the fused retrievals equal
+    the retriever's own search of the same hidden states."""
+    from chamjax_torch.benchmarks import ralm_device_bench as bench
+    from chamjax_torch.config import MODEL_PRESETS, ModelConfig
+    monkeypatch.setitem(MODEL_PRESETS, "Dec-T", ModelConfig(
+        model_type="decoder", embed_dim=32, ffn_embed_dim=64, layers=2,
+        attention_heads=2, vocab_size=512))
+    preset, flags = STREAMED_LEGS[leg]
+    args = bench.parse_args(["--streamed", "--preset", preset, "--nlist",
+                             "16", "--nprobe", "4", "--batch", "2",
+                             "--warmup", "1", "--steps", "2"] + flags)
+
+    class Recorder:            # the built retriever, keeping its queries
+        def __init__(self, inner):
+            self.inner, self.queries = inner, None
+
+        def retrieve_device(self, queries, nprobe, k):
+            self.queries = queries.clone()
+            return self.inner.retrieve_device(queries, nprobe, k)
+
+    build = bench.build_streamed_retriever
+    monkeypatch.setattr(bench, "build_streamed_retriever",
+                        lambda *a: Recorder(build(*a)))
+    # two k-means, PQ and balanced-Lloyd iterations (the bench runs 8, 8
+    # and 12): CPU time, not what the leg exercises
+    builder = bench.build_ivfpq_device
+    monkeypatch.setattr(bench, "build_ivfpq_device", lambda draw, n, cfg, *a,
+                        **kw: builder(draw, n, dataclasses.replace(
+                            cfg, balance_train_iters=2), *a,
+                            **dict(kw, kmeans_iters=2, pq_iters=2)))
+
+    def inspect(preset, interval, loop):
+        r = loop.retriever.inner
+        res = r.retrieve_device(loop.retriever.queries, args.nprobe, args.k)
+        return dict(retriever=type(r).__name__, seg=r.seg,
+                    tiled=r.dev.codes_t is None,
+                    lens=r.list_len.copy(),
+                    same=bool(np.array_equal(np.asarray(res.ids),
+                                             np.asarray(
+                                                 loop.last_result.ids))))
+    rows = list(bench.run(args, device="cpu", inspect=inspect))
+    assert len(rows) == 1
+    r = rows[0]
+    assert r["retriever"] == "DeviceRetriever" and r["tiled"]
+    nb = args.nb
+    assert r["seg"] == bench.auto_seg(np.full(16, nb // 16))
+    assert r["tok_per_s"] > 0
+    assert r["same"]
+    lens = r["lens"]
+    assert lens.sum() == nb
+    if "--balance" in flags:
+        assert lens.max() <= int(np.ceil(nb / 16 * 1.3))
+
+
+@pytest.mark.parametrize("flags,gen", [(["--hard"], 1 << 20),
+                                       ([], (1 << 26) // 32)])
+def test_bench_streamed_refuses_a_corpus_under_one_chunk(flags, gen,
+                                                         monkeypatch):
+    """``--nb`` rounds down to whole draw chunks; below one chunk the
+    reference's bench goes on with 0 rows (its default ``--nb 1000000``
+    with ``--hard``), the port's raises before it draws."""
+    from chamjax_torch.benchmarks import ralm_device_bench as bench
+    args = bench.parse_args(["--streamed", "--nb", str(gen - 1),
+                             "--nlist", "16"] + flags)
+    with pytest.raises(ValueError, match="at least one draw chunk"):
+        bench.build_streamed_retriever(args, 32, torch.device("cpu"))
