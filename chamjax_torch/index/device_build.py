@@ -849,6 +849,119 @@ def build_ivfpq_device(
     return index, info
 
 
+@fp32_matmul()
+def build_ivfpq_device_sharded(
+    draw: DrawFn,
+    n: int,
+    cfg: IndexConfig,
+    xt,
+    n_shards: int,
+    *,
+    kmeans_iters: int = 10,
+    pq_iters: int = 10,
+    seed: int = 0,
+    chunk: int = 1 << 22,
+    block: int = 4096,
+    cand: int = 8,
+    tail_pad: int = 8192,
+    verbose: bool = False,
+    tile_seg: int = 0,
+    device=None,
+):
+    """The streamed build straight into the mesh-sharded layout: a
+    :class:`~chamjax_torch.parallel.sharded_search.ShardedIVF` of
+    ``n_shards`` row-balanced shards, ready for ``place_sharded``, without
+    the corpus ever visiting the host.
+
+    Lists go to shards by ``shard_index``'s longest-first greedy row
+    balance, computed on the host from the ``(nlist,)`` length table (the
+    build's one host round trip besides OPQ's sample), which also sizes the
+    static shard capacity ``cap``.  Every shard is packed on ``device``, the
+    build's device, so the peak holds every shard there at once, beside the
+    corpus's codes; ``place_sharded`` then moves them.
+
+    ``tile_seg`` > 0 packs every list on ``tile_seg`` boundaries
+    (``list_pad`` becomes ``lcm(list_pad, tile_seg)``) and emits the
+    seg-tiled layout only: one reshape of the flat pack's first ``cap``
+    columns, so a shard's ``codes_tiled`` holds ``cap`` rows while its
+    ``ids`` keep the ``MAX_SEG`` overread tail (``cap + MAX_SEG``).
+
+    Returns ``(ShardedIVF, info)``: ``info`` has the host ``list_len``,
+    ``owner`` (each list's shard), ``shard_rows`` (padded rows a shard),
+    ``ntotal`` and ``n_pad`` (= ``cap``)."""
+    from chamjax_torch.ops.scan_seg import MAX_SEG
+    from chamjax_torch.parallel.sharded_search import ShardedIVF
+
+    dev = resolve_device(device)
+    if tile_seg:
+        cfg = dataclasses.replace(
+            cfg, list_pad=math.lcm(max(cfg.list_pad, 1), tile_seg))
+    cent, cbooks, opq_R, assignment, codes, _binfo = _train_encode_stream(
+        draw, n, cfg, xt, kmeans_iters=kmeans_iters, pq_iters=pq_iters,
+        seed=seed, chunk=chunk, block=block, cand=cand, verbose=verbose,
+        dev=dev, stages=_Stages(dev))
+
+    nlist, pad = cfg.nlist, cfg.list_pad
+    order = torch.argsort(assignment, stable=True).to(torch.int32)
+    list_len = torch.bincount(assignment.long(), minlength=nlist).to(
+        torch.int32)
+    src_start = _exclusive_cumsum(list_len)
+    del assignment
+
+    # greedy longest-first row balance, on the host's (nlist,) table
+    ll = list_len.cpu().numpy()
+    padded = (np.maximum(-(-np.maximum(ll, 1) // pad), 1) * pad).astype(
+        np.int64)
+    owner = np.zeros(nlist, np.int32)
+    loads = np.zeros(n_shards, np.int64)
+    for l in np.argsort(-ll, kind="stable"):
+        s = int(np.argmin(loads))
+        owner[l] = s
+        loads[s] += int(padded[l])
+    cap = int(loads.max()) + tail_pad
+    if tile_seg:
+        cap = -(-cap // tile_seg) * tile_seg
+    if cap + MAX_SEG >= 2 ** 31:
+        raise ValueError(f"a shard of {cap} padded rows overflows the int32 "
+                         "id space; raise n_shards")
+    if verbose:
+        print(f"[build-dev] shard loads rows={loads.tolist()} cap={cap}",
+              flush=True)
+
+    codes_s, ids_s, starts_s, lens_s = [], [], [], []
+    owner_dev = torch.from_numpy(owner).to(dev)
+    for s in range(n_shards):
+        g_ids, st, ln = _pack_layout_core(order, list_len, src_start,
+                                          owner_dev == s, list_pad=pad,
+                                          cap=cap)
+        # the MAX_SEG overread tail goes on the gather map before the pack
+        # (a pack then concatenate would hold the shard twice at its peak)
+        g_ids = torch.cat([g_ids, torch.full((MAX_SEG,), -1,
+                                             dtype=torch.int32, device=dev)])
+        packed_t = _pack_codes_t(codes, g_ids)
+        if tile_seg:
+            # list_pad is a tile_seg multiple and cap is tile-rounded: the
+            # tiled layout is one reshape of the first cap columns
+            m = packed_t.shape[0]
+            packed_t = (packed_t[:, :cap]
+                        .reshape(m, cap // tile_seg, tile_seg)
+                        .permute(1, 0, 2).contiguous())
+        codes_s.append(packed_t)
+        ids_s.append(g_ids)
+        starts_s.append(st)
+        lens_s.append(ln)
+    del codes, order
+
+    sharded = ShardedIVF(
+        centroids=cent, codebooks=cbooks,
+        codes_t=None if tile_seg else tuple(codes_s), ids=tuple(ids_s),
+        list_start=tuple(starts_s), list_len=tuple(lens_s),
+        codes_tiled=tuple(codes_s) if tile_seg else None, opq_R=opq_R)
+    info = {"list_len": ll, "owner": owner, "shard_rows": loads,
+            "ntotal": n, "n_pad": cap}
+    return sharded, info
+
+
 # ---------------------------------------------------------------------------
 # streamed exact ground truth (same draw stream as the build)
 # ---------------------------------------------------------------------------

@@ -17,6 +17,7 @@ from chamjax_torch.retrieval.interface import (  # noqa: F401
 from chamjax_torch.retrieval.local import (  # noqa: F401
     DeviceRetriever,
     LocalRetriever,
+    MeshRetriever,
     NativeCPURetriever,
 )
 from chamjax_torch.retrieval.external import ExternalRetriever  # noqa: F401

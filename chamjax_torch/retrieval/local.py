@@ -1,6 +1,6 @@
 """In-process retrievers over the port's IVF-PQ search (the port of
-``chamjax/retrieval/local.py``: ``LocalRetriever``, ``DeviceRetriever`` and
-``NativeCPURetriever``).
+``chamjax/retrieval/local.py``: ``LocalRetriever``, ``DeviceRetriever``,
+``MeshRetriever`` and ``NativeCPURetriever``).
 
 ``retrieve`` takes and returns numpy arrays; ``retrieve_device`` takes a
 tensor on the index's device and returns tensors there, so the RALM loop
@@ -143,6 +143,72 @@ class DeviceRetriever(BaseRetriever):
 
     def retrieve_device(self, queries, nprobe: int, k: int
                         ) -> RetrievalResult:
+        d, i = self._search(queries, nprobe, k)
+        return RetrievalResult(ids=i, dists=d)
+
+
+class MeshRetriever(BaseRetriever):
+    """Retriever over a mesh-sharded index: a placed
+    :class:`~chamjax_torch.parallel.sharded_search.ShardedIVF` (lists over
+    ``axis``, and the batch over ``batch_axis`` when given: the 2-D
+    layout) behind the same contract as ``LocalRetriever``, the fused
+    ``retrieve_device`` included, so the RALM and tik-tok loops serve from
+    the mesh unchanged.  ``list_len`` is the host (nlist,) length table the
+    window budget is sized from.  Always ``backend="seg"``: the tiled scan
+    on a tiled index, the flat multi-window scan otherwise."""
+
+    def __init__(self, sh, mesh, list_len: np.ndarray,
+                 search_cfg: Optional[SearchConfig] = None,
+                 axis: str = "lists", batch_axis: Optional[str] = None):
+        self.sh = sh
+        self.mesh = mesh
+        self.axis = axis
+        self.batch_axis = batch_axis
+        self.list_len = np.asarray(list_len)
+        self.scfg = search_cfg or SearchConfig()
+        self.seg = (self.scfg.seg
+                    or (int(sh.codes_tiled[0].shape[-1])
+                        if sh.codes_tiled is not None
+                        else auto_seg(self.list_len)))
+        self.group = max(1, self.scfg.seg_group)
+        self.windows = self._rounded(self.scfg.scan_windows or auto_windows(
+            self.list_len, self.seg, self.scfg.nprobe))
+
+    def _rounded(self, w: int) -> int:
+        return w + (-w) % self.group      # the group divides the budget
+
+    def _search(self, q, nprobe, k):
+        from chamjax_torch.parallel.sharded_search import (sharded_search,
+                                                           sharded_search_2d)
+        np_ = nprobe or self.scfg.nprobe
+        kw = dict(mesh=self.mesh, axis=self.axis, nprobe=np_,
+                  k=k or self.scfg.k,
+                  windows=(self.windows if np_ == self.scfg.nprobe
+                           else self._rounded(auto_windows(
+                               self.list_len, self.seg, np_))),
+                  seg=self.seg, group=self.group,
+                  use_approx=self.scfg.use_approx_topk, backend="seg",
+                  lut_bf16=self.scfg.lut_bf16,
+                  select_l1=self.scfg.select_l1, lane_l1=self.scfg.lane_l1,
+                  coarse_cand=resolve_coarse_cand(
+                      self.scfg.coarse_cand, self.sh.centroids.shape[0],
+                      np_))
+        if self.batch_axis:
+            return sharded_search_2d(self.sh, q, batch_axis=self.batch_axis,
+                                     **kw)
+        return sharded_search(self.sh, q, **kw)
+
+    def retrieve(self, queries: np.ndarray, nprobe: int, k: int
+                 ) -> RetrievalResult:
+        d, i = self._search(as_f32(queries, self.mesh.device_at()), nprobe,
+                            k)
+        return RetrievalResult(ids=i.cpu().numpy().astype(np.int64),
+                               dists=d.cpu().numpy())
+
+    def retrieve_device(self, queries, nprobe: int, k: int
+                        ) -> RetrievalResult:
+        """A (b, d) float32 tensor in, ``(ids, dists)`` tensors out on its
+        device."""
         d, i = self._search(queries, nprobe, k)
         return RetrievalResult(ids=i, dists=d)
 

@@ -6,7 +6,9 @@ version, then drives every scan route of the IVF-PQ query path at the 1M
 flagship size, the kernel study, the RALM serving path (decode fused with
 the on-card retrieval) at the full width of the Dec-S, Llama-S and EncDec-S
 presets, disaggregated serving (engine processes behind an index server
-and behind the coordinators), and the streamed index build on the card.
+and behind the coordinators), the streamed index build on the card, and
+the mesh tier (list-sharded search, the sharded build, tensor-parallel
+decode, the multi-chip RAG step) on positions of this card.
 
     python3 chip_smoke.py
 
@@ -147,9 +149,28 @@ Phases (any failure exits non-zero and prints no result):
    equal up to ties); ``ralm_device_bench.run --streamed --hard --balance
    1.3`` (Dec-S over 2^20 rows, IVF4096) with the fused retrievals equal
    to an eager ``DeviceRetriever`` search up to ties.
-10. Print the kernels line, the main-path line, the routes line, the
+10. The mesh tier (``mesh_phase``), every position on this card (an
+   explicit virtual mesh: its times are the mesh program's cost over the
+   single-device search, not scaling; the line says
+   ``mesh_distinct_cards``): the flagship index sharded by ``shard_index``
+   (tiled over lists 2 and 4 and data 2 × lists 2; flat over lists 4 for
+   ``backend="seg"`` and ``"pallas"``), the 256 recall queries through each
+   with f32 and packed-bf16 LUTs, equal to ``IVFSearcher.search`` up to ties
+   at the same R@10, the route's kernel launching, b=128 and b=1 times
+   captured and eager beside the single-device search's;
+   ``build_ivfpq_device_sharded`` at the flagship's configuration over its
+   1M rows (4 shards, tiled), every id and list once, searched equal to the
+   xla oracle over the same lists up to ties; tensor-parallel decode of
+   Dec-S, EncDec-S and Llama-S at dp 2 × tp 2 (f32 against the unsharded
+   step, bf16 against the unsharded bf16 step within ``BF16_REL``, ms a
+   step, launches and busy share beside the unsharded step's); the
+   multi-chip RAG step: ``RalmDecoder`` and ``TikTokDecoder`` on Dec-S with
+   tensor-parallel parameters over a ``MeshRetriever`` (dp × tp × lists, 8
+   positions), the last fused retrieval equal to ``IVFSearcher.search``,
+   tok/s beside the unsharded loops'; ``entry.dryrun_multichip(8)``.
+11. Print the kernels line, the main-path line, the routes line, the
    kernel-study line, the ralm line, the tiktok line, the disagg line,
-   the build line and the result line.
+   the build line, the mesh line and the result line.
 
 Every search and every model step runs as a replay of a captured CUDA graph
 (``chamjax_torch/utils/graphs.py``), the default; each is also run eagerly
@@ -489,22 +510,28 @@ def flat_kernel_phase(dev):
 def time_search(dev_index, kw, xq_dev):
     """Device time of 65 back-to-back b=128 searches and of 200 b=1
     searches (CUDA events), beside the host time to enqueue them."""
-    import torch
     from chamjax_torch.searcher import ivfpq_search
+    return time_batches(lambda q: ivfpq_search(dev_index, q, **kw), xq_dev)
+
+
+def time_batches(search, xq_dev, small: int = 1):
+    """``time_search`` for any ``search(q)``: 65 b=128 batches and 200
+    batches of ``small`` queries."""
+    import torch
     n_b = xq_dev.shape[0] // BATCH
     batches = [xq_dev[i * BATCH:(i + 1) * BATCH] for i in range(n_b)]
-    singles = [xq_dev[i:i + 1] for i in range(200)]
+    singles = [xq_dev[i * small:(i + 1) * small] for i in range(200)]
     res = {}
-    for name, qs, warm in (("b128", batches, 3), ("b1", singles, 5)):
+    for name, qs, warm in (("b128", batches, 3), (f"b{small}", singles, 5)):
         for q in qs[:warm]:
-            ivfpq_search(dev_index, q, **kw)
+            search(q)
         torch.cuda.synchronize()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
         t0 = time.perf_counter()
         for q in qs:
-            ivfpq_search(dev_index, q, **kw)
+            search(q)
         res[f"host_{name}"] = (time.perf_counter() - t0) * 1e3 / len(qs)
         b.record()
         b.synchronize()
@@ -666,7 +693,7 @@ def main_path(dev):
     host_b128, host_b1 = ts["host_b128"], ts["host_b1"]
     with graphs.disable_capture():
         te = time_search(s.dev, kw, xq_dev)
-    ctx = dict(idx=idx, ds=ds, gt=gt, scfg=scfg, r10_xla=r10_xla,
+    ctx = dict(idx=idx, ds=ds, gt=gt, cfg=cfg, scfg=scfg, r10_xla=r10_xla,
                tiled_bf16=(d_s, i_s), tiled_f32=res_f, xq_dev=xq_dev,
                main_search=(s.dev, kw), searcher=s, searcher_f32=s_f)
     return dict(
@@ -2465,6 +2492,506 @@ def build_phase(dev):
                 seg=seg)
 
 
+# The mesh phase: every position on the one card (an explicit virtual mesh,
+# ``make_mesh(axes, devices=[card] * n)``), so its times are the mesh
+# program's cost over the single-device search, not scaling
+MESH_LAYOUTS = (    # name, axes, tiled, backend, kernel
+    ("tiled_lists2", (("lists", 2),), True, "seg", "adc_scan_tiles"),
+    ("tiled_lists4", (("lists", 4),), True, "seg", "adc_scan_tiles"),
+    ("tiled_data2_lists2", (("data", 2), ("lists", 2)), True, "seg",
+     "adc_scan_tiles"),
+    ("flat_seg_lists4", (("lists", 4),), False, "seg",
+     "adc_scan_segments_multi"),
+    ("flat_pallas_lists4", (("lists", 4),), False, "pallas",
+     "adc_scan_distances"),
+)
+MESH_BUILD_SHARDS = 4
+MESH_BUILD_GAP = 0.02          # sharded against host build R@10: a finding
+MESH_TP_PRESETS = ("Dec-S", "EncDec-S", "Llama-S")
+MESH_TP_AXES = (("dp", 2), ("tp", 2))
+MESH_TP_F32 = dict(batch=4, steps=4, rtol=1e-4)
+MESH_TP_BF16_STEPS = 16        # bf16 TP against bf16 unsharded, BF16_REL
+MESH_TP_WARM, MESH_TP_TIMED = 8, 32
+MESH_RAG_AXES = (("dp", 2), ("tp", 2), ("lists", 2))
+MESH_RAG_PRESET, MESH_RAG_STEPS = "Dec-S", 32
+
+
+def on_card_mesh(axes, dev):
+    import math
+    from chamjax_torch.parallel import make_mesh
+    return make_mesh(axes, devices=[dev] * math.prod(s for _, s in axes))
+
+
+def rows_off(d, i, d_ref, i_ref, rtol):
+    """The rows of ``(d, i)`` that differ from the reference's other than
+    by the order of ties."""
+    from chamjax_torch.eval import tie_mismatches
+    return [r for r in range(d.shape[0])
+            if tie_mismatches(d[r:r + 1], i[r:r + 1], d_ref[r:r + 1],
+                              i_ref[r:r + 1], rtol=rtol, atol=rtol)]
+
+
+def lut_batch_witness(s, xq):
+    """Why the 2-D rows are held to row-sized searches: the rotation,
+    probes and LUTs of the same b=128 batches built whole and as the two
+    data rows' halves, compared bit for bit (the LUTs in f32 and at their
+    packed-bf16 rounding, over the rows whose probes agree)."""
+    import numpy as np
+    import torch
+    from chamjax_torch.ops.coarse import select_probes
+    from chamjax_torch.ops.lut import build_luts
+    from chamjax_torch.searcher import _rotate
+    from chamjax_torch.utils.precision import fp32_matmul
+    idx, half = s.dev, BATCH // 2
+
+    @fp32_matmul()        # as ivfpq_search runs them
+    def pieces(q):
+        rot = _rotate(idx, q)
+        list_ids, _ = select_probes(rot, idx.centroids, NPROBE)
+        return rot, list_ids, build_luts(rot, idx.centroids, idx.codebooks,
+                                         list_ids)
+    n = dict(rot=0, probe_rows=0, lut_f32=0, lut_bf16=0, lut_entries=0)
+    for b0 in range(0, N_GT, BATCH):
+        q = torch.as_tensor(xq[b0:b0 + BATCH]).to(idx.centroids.device)
+        whole = pieces(q)
+        rot, ids, luts = (torch.cat(x) for x in zip(
+            pieces(q[:half]), pieces(q[half:])))
+        n["rot"] += int((rot != whole[0]).sum())
+        same = (ids == whole[1]).all(1)
+        n["probe_rows"] += int((~same).sum())
+        a, b = luts[same], whole[2][same]
+        n["lut_f32"] += int((a != b).sum())
+        n["lut_bf16"] += int((a.to(torch.bfloat16)
+                              != b.to(torch.bfloat16)).sum())
+        n["lut_entries"] += a.numel()
+    return n
+
+
+def mesh_search(dev, ctx):
+    """Step 1: the flagship index sharded by ``shard_index`` in each
+    ``MESH_LAYOUTS`` layout; the 256 recall queries through it with f32 and
+    packed-bf16 LUTs (f32 only on the padded-window route), the launch
+    counts set to 0 just before and read just after, each equal to the
+    single-device ``IVFSearcher.search`` with the same LUTs up to ties at
+    the same R@10; b=128 and b=1 (2-D: b=2) times, captured and eager,
+    beside the single-device search's in this run."""
+    import numpy as np
+    import torch
+    from chamjax_torch.eval import recall_at_k
+    from chamjax_torch.ops.scan_pallas import GROUP as PALLAS_GROUP
+    from chamjax_torch.parallel import (place_sharded, shard_index,
+                                        sharded_search, sharded_search_2d)
+    from chamjax_torch.parallel.sharded_search import captures
+    from chamjax_torch.utils import cuda_lib, graphs
+    idx, gt, xq = ctx["idx"], ctx["gt"], ctx["ds"].xq[:N_GT]
+    s = ctx["searcher"]
+    want = {True: ctx["tiled_bf16"], False: ctx["tiled_f32"]}
+    # the 2-D layout builds each data row's LUTs on its half of the batch,
+    # and the LUTs of a query differ in their last bits between a batch of
+    # 128 and one of 64 (``lut_batch_witness``); one bit can move a
+    # packed-bf16 entry a whole bf16 step, so the 2-D rows are held to the
+    # single-device search over row-sized batches, and the rows where that
+    # search itself differs between the two sizes are recorded
+    want_rows = {bf: tuple(np.concatenate(part) for part in zip(*(
+        searcher.search(xq[i:i + BATCH // 2])
+        for i in range(0, N_GT, BATCH // 2))))
+        for bf, searcher in ((True, s), (False, ctx["searcher_f32"]))}
+    witness = dict(bits_differ=lut_batch_witness(s, xq))
+    for bf, tag in ((True, "bf16"), (False, "f32")):
+        (d64, i64), (d128, i128) = want_rows[bf], want[bf]
+        witness[f"search_{tag}"] = dict(
+            rows_dists_not_bit_equal=int(np.any(d64 != d128, axis=1).sum()),
+            rows_off_up_to_ties=rows_off(d64, i64, d128, i128, 1e-5))
+    log(f"mesh lut batch witness: {witness}")
+    scan_len = -(-idx.suggest_scan_len(NPROBE) // PALLAS_GROUP) * PALLAS_GROUP
+    if scan_len < int(idx.list_len.max()):
+        raise AssertionError("the padded-window route would cut lists")
+    single = dict(time_search(*ctx["main_search"], ctx["xq_dev"]))
+    with graphs.disable_capture():
+        single.update(suffixed(time_search(*ctx["main_search"],
+                                           ctx["xq_dev"]), "_eager"))
+    out = dict(single=single, lut_batch_witness=witness)
+    launches = collections.Counter()
+    for name, axes, tiled, backend, kernel in MESH_LAYOUTS:
+        mesh = on_card_mesh(axes, dev)
+        sh = place_sharded(shard_index(idx, mesh.shape["lists"],
+                                       tile_seg=SEG if tiled else 0), mesh)
+        two_d = "data" in mesh.shape
+        search = sharded_search_2d if two_d else sharded_search
+        rec = dict(mesh=mesh.shape, backend=backend, tiled=tiled,
+                   captured=captures(mesh))
+        for lut_bf16 in ((False, True) if backend == "seg" else (False,)):
+            kw = dict(nprobe=NPROBE, k=K, windows=s.windows, seg=SEG,
+                      group=GROUP, backend=backend, lut_bf16=lut_bf16,
+                      scan_len=scan_len)
+            tag = "bf16" if lut_bf16 else "f32"
+            cuda_lib.launch_counts.clear()
+            res = [search(sh, torch.as_tensor(xq[i:i + BATCH]).to(dev),
+                          mesh=mesh, **kw) for i in range(0, N_GT, BATCH)]
+            got = dict(cuda_lib.launch_counts)
+            if got.get(kernel, 0) < 1:
+                raise AssertionError(f"mesh {name}: {kernel} did not "
+                                     f"launch: {got}")
+            launches[kernel] += got[kernel]
+            d = np.concatenate([r[0].cpu().numpy() for r in res])
+            i = np.concatenate([r[1].cpu().numpy() for r in res]).astype(
+                np.int64)
+            ref = (want_rows if two_d else want)[lut_bf16]
+            check_same_up_to_ties(f"mesh {name} {tag} vs IVFSearcher.search",
+                                  d, i, *ref, rtol=1e-5)
+            if two_d:
+                # where the 2-D rows leave the full-batch search, the
+                # single-device search leaves it too at row-sized batches
+                off = rows_off(d, i, *want[lut_bf16], 1e-5)
+                if set(off) - set(witness[f"search_{tag}"][
+                        "rows_off_up_to_ties"]):
+                    raise AssertionError(
+                        f"mesh {name} {tag}: rows {off} off the full-batch "
+                        f"search, not all explained by the batch size: "
+                        f"{witness}")
+                rec[f"rows_off_full_batch_{tag}"] = off
+            r10, r10_single = recall_at_k(i, gt, 10), recall_at_k(ref[1], gt,
+                                                                 10)
+            if abs(r10 - r10_single) > 1 / (10 * N_GT) or r10 < MIN_R10:
+                raise AssertionError(f"mesh {name} {tag}: R@10 {r10}, the "
+                                     f"single-device search's {r10_single}")
+            rec[f"recall_at_10_{tag}"] = r10
+            rec[f"launches_{tag}"] = got
+        # times at the route's production LUTs
+        kw["lut_bf16"] = backend == "seg"
+        small = 2 if two_d else 1
+
+        def run(q):
+            return search(sh, q, mesh=mesh, **kw)
+        rec.update(time_batches(run, ctx["xq_dev"], small))
+        with graphs.disable_capture():
+            rec.update(suffixed(time_batches(run, ctx["xq_dev"], small),
+                                "_eager"))
+        rec["graphs"] = len(sh.graphs)
+        log(f"mesh search {name}: {rec}")
+        out[name] = rec
+    return out, dict(launches)
+
+
+def reassembled(sh, info, cfg):
+    """The sharded build's lists as one ``PackedIVF``: each list's rows as
+    its owner shard holds them (tiled codes read back row-major)."""
+    import math
+    import numpy as np
+    from chamjax_torch.index.ivf import PackedIVF
+    from chamjax_torch.ops.scan_seg import MAX_SEG
+    pad = math.lcm(cfg.list_pad, SEG)
+    ll, owner = info["list_len"].astype(np.int64), info["owner"]
+    m = sh.codes_tiled[0].shape[1]
+    codes_sh = [t.permute(0, 2, 1).reshape(-1, m).cpu().numpy()
+                for t in sh.codes_tiled]
+    ids_sh = [t.cpu().numpy() for t in sh.ids]
+    starts_sh = [t.cpu().numpy() for t in sh.list_start]
+    padded = np.maximum(-(-np.maximum(ll, 1) // pad), 1) * pad
+    start = np.concatenate([[0], np.cumsum(padded)[:-1]])
+    n_pad = int(padded.sum()) + MAX_SEG
+    codes = np.zeros((n_pad, m), np.uint8)
+    ids = np.full(n_pad, -1, np.int32)
+    for li in range(ll.shape[0]):
+        s, n = int(owner[li]), int(ll[li])
+        a, b = int(starts_sh[s][li]), int(start[li])
+        codes[b:b + n] = codes_sh[s][a:a + n]
+        ids[b:b + n] = ids_sh[s][a:a + n]
+    return PackedIVF.from_arrays(
+        dict(dataclasses.asdict(cfg), list_pad=pad),
+        centroids=sh.centroids.cpu().numpy(),
+        codebooks=sh.codebooks.cpu().numpy(), codes=codes, ids=ids,
+        list_start=start, list_len=ll, ntotal=info["ntotal"],
+        opq_R=None if sh.opq_R is None else sh.opq_R.cpu().numpy())
+
+
+def mesh_build(dev, ctx, host_line):
+    """Step 2: ``build_ivfpq_device_sharded`` at the flagship's
+    configuration over its 1M rows (the numpy corpus in memory),
+    ``MESH_BUILD_SHARDS`` shards, tiled at seg 512: every id once, every
+    list owned once with ``info["list_len"]``; searched through
+    ``sharded_search`` (f32 LUTs, every window of the probed lists) equal
+    to the ``backend="xla"`` oracle over the same lists as one
+    ``PackedIVF`` up to ties and within ``ORACLE_R10``; build s, peak GiB
+    and R@10 beside the host build's."""
+    import numpy as np
+    import torch
+    from chamjax_torch.config import SearchConfig
+    from chamjax_torch.eval import recall_at_k
+    from chamjax_torch.index import build_ivfpq_device_sharded
+    from chamjax_torch.parallel import place_sharded, sharded_search
+    from chamjax_torch.searcher import IVFSearcher
+    from chamjax_torch.utils import cuda_lib
+    ds, cfg, gt = ctx["ds"], ctx["cfg"], ctx["gt"]
+    nb = ds.xb.shape[0]
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    mem0 = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    sh, info = build_ivfpq_device_sharded(
+        lambda s, c: ds.xb[s:s + c], nb, cfg, ds.xt, MESH_BUILD_SHARDS,
+        kmeans_iters=10, pq_iters=10, tile_seg=SEG, device=dev)
+    torch.cuda.synchronize(dev)
+    build_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated(dev) - mem0) / 2 ** 30
+    lens = np.stack([t.cpu().numpy() for t in sh.list_len])
+    ids = np.concatenate([t.cpu().numpy() for t in sh.ids])
+    if not (np.array_equal(np.sort(ids[ids >= 0]), np.arange(nb))
+            and ((lens > 0).sum(0) <= 1).all()
+            and np.array_equal(lens.sum(0), info["list_len"])):
+        raise AssertionError("sharded build: ids or lists not partitioned")
+    mesh = on_card_mesh((("lists", MESH_BUILD_SHARDS),), dev)
+    placed = place_sharded(sh, mesh)
+    xq = ds.xq[:N_GT]
+    windows = NPROBE * int(np.ceil(info["list_len"].max() / SEG))
+    kw = dict(nprobe=NPROBE, k=K, windows=windows, seg=SEG, group=GROUP,
+              backend="seg", lut_bf16=False)
+    cuda_lib.launch_counts.clear()
+    res = [sharded_search(placed, torch.as_tensor(xq[i:i + BATCH]).to(dev),
+                          mesh=mesh, **kw) for i in range(0, N_GT, BATCH)]
+    launches = dict(cuda_lib.launch_counts)
+    if launches.get("adc_scan_tiles", 0) < 1:
+        raise AssertionError(f"sharded build search: {launches}")
+    d = np.concatenate([r[0].cpu().numpy() for r in res])
+    i = np.concatenate([r[1].cpu().numpy() for r in res]).astype(np.int64)
+    oracle = IVFSearcher(reassembled(sh, info, cfg),
+                         SearchConfig(nprobe=NPROBE, k=K, backend="xla"),
+                         device=dev).search(xq)
+    check_same_up_to_ties("sharded build vs the xla oracle", d, i, *oracle,
+                          rtol=1e-5)
+    r10, r10_oracle = recall_at_k(i, gt, 10), recall_at_k(oracle[1], gt, 10)
+    if abs(r10 - r10_oracle) > ORACLE_R10:
+        raise AssertionError(f"sharded build R@10 {r10}, oracle "
+                             f"{r10_oracle}")
+    host = host_line["recall_at_10_f32_lut"]
+    rec = dict(shards=MESH_BUILD_SHARDS, build_s=build_s,
+               peak_mem_gib=peak, shard_rows=info["shard_rows"].tolist(),
+               n_pad=info["n_pad"], max_list=int(info["list_len"].max()),
+               windows=windows, recall_at_10_f32=r10,
+               recall_at_10_xla_oracle=r10_oracle,
+               host_build_s=host_line["build_s"],
+               host_recall_at_10_f32=host,
+               recall_gap_over_bar=host - r10 > MESH_BUILD_GAP,
+               launches=launches)
+    log(f"mesh build: {rec}")
+    return rec
+
+
+class DecodeSteps:
+    """Decode steps alone, no retrieval, on fixed buffers (a token buffer
+    the argmax is written back to; the encoder-decoder's cross K/V made
+    once from an encoded context): what a tensor-parallel step costs.
+    ``mesh`` None runs the unsharded step."""
+
+    def __init__(self, cfg, params, batch, dev, mesh=None):
+        import numpy as np
+        import torch
+        from chamjax_torch.models import encoder_forward
+        from chamjax_torch.models.transformer import build_cross_kv, leaves
+        from chamjax_torch.parallel import (shard_decoder_params,
+                                            shard_kv_cache,
+                                            shard_llama_params)
+        from chamjax_torch.serving.ralm import first_tokens, step_fns
+        from chamjax_torch.utils import graphs
+        self._step, new_cache = step_fns(cfg)
+        *enc, dec = params if cfg.model_type == "encoder-decoder" else (
+            params,)
+        self.cache = new_cache(cfg, batch, device=dev)
+        if mesh is not None:
+            dec = (shard_llama_params(dec, mesh, kv_heads=cfg.kv_heads)
+                   if cfg.model_type == "llama"
+                   else shard_decoder_params(dec, mesh))
+            enc = [shard_decoder_params(e, mesh) for e in enc]
+            self.cache = shard_kv_cache(self.cache, mesh)
+        self.dec = dec
+        self.tokens = first_tokens(batch, dev)
+        self.cross = {}
+        if enc:
+            src = torch.from_numpy(np.random.default_rng(3).integers(
+                1, cfg.vocab_size, (batch, 16)).astype(np.int32)).to(dev)
+            kv = build_cross_kv(dec, encoder_forward(
+                enc[0], src, cfg.attention_heads), cfg.attention_heads)
+            graphs.state(*leaves(kv))
+            self.cross = dict(cross_kv=kv)
+
+    def step(self, tokens=None):
+        import torch
+        if tokens is not None:
+            self.tokens.copy_(tokens)
+        logits, _, self.cache = self._step(self.dec, self.tokens, self.cache,
+                                           **self.cross)
+        self.tokens.copy_(torch.argmax(logits, dim=-1))
+        return logits
+
+    def multi_steps(self, n):
+        for _ in range(n):
+            self.step()
+
+
+def mesh_tp(dev):
+    """Step 3: tensor-parallel decode at full width, dp 2 × tp 2 on the
+    card: per preset, ``MESH_TP_F32`` steps in f32 against the unsharded
+    f32 step (logits within rtol of the largest, tokens equal), then
+    ``MESH_TP_BF16_STEPS`` bf16 steps at batch 64 on the same seeded tokens
+    against the unsharded bf16 step (``BF16_REL`` of the f32 logits'
+    largest magnitude), then captured ms a step, launches a step and busy
+    share (``trace_steps``) of both."""
+    import numpy as np
+    import torch
+    from chamjax_torch.benchmarks import ralm_device_bench as bench
+    from chamjax_torch.benchmarks.ralm_device_bench import no_host_sync
+    from chamjax_torch.models.transformer import reset_cache
+    args = bench.parse_args(RALM_ARGV + ["--presets",
+                                         ",".join(MESH_TP_PRESETS)])
+    mesh = on_card_mesh(MESH_TP_AXES, dev)
+    out = {}
+    for name, cfg in bench.model_configs(args).items():
+        rec = dict(mesh=mesh.shape)
+        f32 = dataclasses.replace(cfg, dtype="float32")
+        p32 = bench.init_params(f32, 0, dev)
+        b = MESH_TP_F32["batch"]
+        ref, tp = DecodeSteps(f32, p32, b, dev), DecodeSteps(f32, p32, b,
+                                                             dev, mesh)
+        errs = []
+        for _ in range(MESH_TP_F32["steps"]):
+            lr, lt = ref.step(), tp.step()
+            errs.append(float((lt - lr).abs().max() / lr.abs().max()))
+            if not torch.equal(ref.tokens, tp.tokens):
+                raise AssertionError(f"tp {name} f32: tokens differ")
+        if max(errs) > MESH_TP_F32["rtol"]:
+            raise AssertionError(f"tp {name} f32: rel err {errs}")
+        rec["f32_rel_err"] = errs
+        del ref, tp, p32
+        p16 = bench.init_params(cfg, 0, dev)
+        p32 = bench.init_params(f32, 0, dev)
+        for a, c in zip(p32 if isinstance(p32, tuple) else (p32,),
+                        p16 if isinstance(p16, tuple) else (p16,)):
+            a.load_state_dict(c.state_dict())       # bf16 → f32: exact
+        loops = {"unsharded": DecodeSteps(cfg, p16, args.batch, dev),
+                 "tp": DecodeSteps(cfg, p16, args.batch, dev, mesh),
+                 "f32": DecodeSteps(f32, p32, args.batch, dev)}
+        toks = np.random.default_rng(7).integers(
+            0, cfg.vocab_size, (MESH_TP_BF16_STEPS, args.batch))
+        errs = []
+        for t in toks:
+            t = torch.from_numpy(t.astype(np.int32)).to(dev)
+            lg = {k: v.step(t).float() for k, v in loops.items()}
+            errs.append(float((lg["tp"] - lg["unsharded"]).abs().max()
+                              / lg["f32"].abs().max()))
+        if max(errs) > BF16_REL:
+            raise AssertionError(f"tp {name} bf16: rel err {errs}")
+        rec["bf16_rel_err"] = errs
+        del loops["f32"], p32
+        for kind, loop in loops.items():
+            loop.cache = reset_cache(loop.cache)
+            loop.tokens.fill_(1)
+            loop.multi_steps(MESH_TP_WARM)
+            loop.cache = reset_cache(loop.cache)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            with no_host_sync(dev):
+                loop.multi_steps(MESH_TP_TIMED)
+            torch.cuda.synchronize(dev)
+            ms = (time.perf_counter() - t0) / MESH_TP_TIMED * 1e3
+            traced = trace_steps(loop, f"tp_{name}_{kind}", ms)
+            rec[kind] = dict(ms_per_step=ms,
+                             tok_per_s=args.batch * 1e3 / ms,
+                             launches_per_step=traced["launches_per_step"],
+                             kernel_ms_per_step=traced["kernel_ms_per_step"],
+                             busy_share=traced["busy_share"],
+                             graphs=len(loop.cache.graphs))
+        log(f"mesh tp {name}: {rec}")
+        out[name] = rec
+        del loops, p16
+    return out
+
+
+def mesh_rag(dev, retriever):
+    """Step 4: ``RalmDecoder`` and ``TikTokDecoder`` on Dec-S at interval 1,
+    batch 64: tensor-parallel parameters over a ``MeshRetriever`` on the
+    RALM index sharded over ``lists``, ``batch_axis="dp"`` (dp × tp × lists,
+    8 positions), beside the unsharded loop over the ``LocalRetriever``:
+    tok/s, ``adc_scan_tiles`` launches (counts set to 0 just before the
+    timed steps), the last fused retrieval equal to ``IVFSearcher.search``
+    on the same hidden states up to ties.  Then ``dryrun_multichip(8)`` on
+    8 positions of the card."""
+    import torch
+    from chamjax_torch import entry
+    from chamjax_torch.benchmarks import ralm_device_bench as bench
+    from chamjax_torch.parallel import (place_sharded, shard_decoder_params,
+                                        shard_index, shard_kv_cache)
+    from chamjax_torch.retrieval import MeshRetriever
+    from chamjax_torch.serving import RalmDecoder, TikTokDecoder
+    from chamjax_torch.utils import cuda_lib
+    s = retriever.searcher
+    args = bench.parse_args(RALM_ARGV + ["--presets", MESH_RAG_PRESET])
+    cfg = bench.model_configs(args)[MESH_RAG_PRESET]
+    params = bench.init_params(cfg, 0, dev)
+    mesh = on_card_mesh(MESH_RAG_AXES, dev)
+    sh = place_sharded(shard_index(s.packed, mesh.shape["lists"],
+                                   tile_seg=s.seg), mesh)
+    mesh_r = QueryRecorder(MeshRetriever(
+        sh, mesh, s.packed.list_len, dataclasses.replace(s.scfg, seg=s.seg),
+        batch_axis="dp"))
+    tp_params = shard_decoder_params(params, mesh)
+    out = dict(mesh=mesh.shape, steps=MESH_RAG_STEPS, batch=args.batch)
+    for kind, cls in (("ralm", RalmDecoder), ("tiktok", TikTokDecoder)):
+        for sharded in (False, True):
+            loop = cls(tp_params if sharded else params, cfg,
+                       mesh_r if sharded else retriever, args.batch,
+                       retrieval_interval=1, nprobe=args.nprobe, k=args.k)
+            if sharded:
+                states = (loop.states.values() if kind == "tiktok"
+                          else (loop,))
+                for st in states:
+                    st.cache = shard_kv_cache(st.cache, mesh)
+            loop.batch_inference(args.warmup)
+            loop.reset_inference_state()
+            cuda_lib.launch_counts.clear()
+            loop.batch_inference(MESH_RAG_STEPS)
+            launches = cuda_lib.launch_counts["adc_scan_tiles"]
+            if launches < 1:
+                raise AssertionError(f"mesh {kind}: adc_scan_tiles did not "
+                                     "launch")
+            key = f"{kind}{'_tp_mesh' if sharded else '_unsharded'}"
+            out[key] = dict(tok_per_s=loop.throughput_tokens_per_sec(
+                MESH_RAG_STEPS), launches_adc_scan_tiles=launches)
+            if sharded:
+                q, res = mesh_r.queries, mesh_r.result
+                d_s, i_s = s.search(q.cpu().numpy(), nprobe=args.nprobe,
+                                    k=args.k)
+                check_same_up_to_ties(
+                    f"mesh {kind}: fused retrieval vs IVFSearcher.search",
+                    res.dists.cpu().numpy(),
+                    res.ids.cpu().numpy().astype("int64"), d_s, i_s,
+                    rtol=1e-5)
+                out[key]["fused_equals_searcher"] = True
+            del loop
+            torch.cuda.synchronize(dev)
+    out["graphs"] = len(sh.graphs)
+    out["dryrun_multichip"] = entry.dryrun_multichip(8, devices=[dev] * 8)
+    log(f"mesh rag: {out}")
+    return out
+
+
+def mesh_phase(dev, ctx, main_line, retriever):
+    """Phase 10: the mesh tier on the card (``mesh_search``,
+    ``mesh_build``, ``mesh_tp``, ``mesh_rag``).  Returns the mesh line and
+    the launches of each scan kernel in its searches."""
+    t0 = time.perf_counter()
+    search, launches = mesh_search(dev, ctx)
+    build = mesh_build(dev, ctx, main_line)
+    tp = mesh_tp(dev)
+    rag = mesh_rag(dev, retriever)
+    launches["adc_scan_tiles"] += (
+        build["launches"]["adc_scan_tiles"]
+        + sum(v["launches_adc_scan_tiles"] for k, v in rag.items()
+              if k.endswith("_tp_mesh")))
+    cards = len(on_card_mesh(MESH_RAG_AXES, dev).distinct_devices())
+    return dict(mesh_distinct_cards=cards, search=search, build=build,
+                tp=tp, rag=rag, phase_s=time.perf_counter() - t0), launches
+
+
 def main() -> int:
     t_smoke = time.perf_counter()
     try:
@@ -2524,6 +3051,8 @@ def main() -> int:
         disagg = disagg_phase(dev, main["ctx"], ralm["rec"].inner,
                               streamed["gather_path"])
         build = build_phase(dev)
+        mesh, mesh_launches = mesh_phase(dev, main["ctx"], main["line"],
+                                         ralm["rec"].inner)
     except AssertionError as e:
         return fail(str(e))
     log(f"trace: {traced}")
@@ -2551,6 +3080,7 @@ def main() -> int:
         # the device-built index's searches (every nprobe) and the kernel
         # held at that index's tile width and windows
         launches_device_build=build["launches"],
+        launches_mesh=mesh_launches["adc_scan_tiles"],
         seg_device_build=build["seg"], device_build=build["kernel"],
         launches_disagg=dict(
             {"service card engine": disagg["service"]["card"]["launches"].get(
@@ -2569,6 +3099,8 @@ def main() -> int:
             ms=rk["ms"], plain_ms=rk["plain_ms"], bound_ms=rk["bound_ms"],
             bound_by=rk["bound_by"], library_ms=None, path=rk["path"],
             main_path_windows=rk["windows"], options=flat_options[name]))
+    kernels[1]["launches_mesh"] = mesh_launches["adc_scan_segments_multi"]
+    kernels[3]["launches_mesh"] = mesh_launches["adc_scan_distances"]
     kernels[1]["launches_streamed_flat"] = (
         streamed["launches"]["adc_scan_segments_multi"])
     kernels[1]["launches_kernel_study"] = (
@@ -2616,7 +3148,8 @@ def main() -> int:
     print(json.dumps(dict(tiktok=tiktok, card=card)), flush=True)
     print(json.dumps(dict(disagg=disagg, card=card,
                           gxx_s=gxx["s"])), flush=True)
-    print(json.dumps(dict(build=build["line"], card=card,
+    print(json.dumps(dict(build=build["line"], card=card)), flush=True)
+    print(json.dumps(dict(mesh=mesh, card=card,
                           smoke_s=time.perf_counter() - t_smoke)),
           flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1087,3 +1087,160 @@ def test_device_build_layout_equals_populate_on_card(cuda_device):
     same = moved == 0
     np.testing.assert_array_equal(info["list_len"][same],
                                   packed.list_len[same])
+
+
+# ---------------------------------------------------------------------------
+# the mesh tier: positions on one card, and on distinct cards
+# ---------------------------------------------------------------------------
+
+MESH_ROUTES = {
+    "tiled": (dict(tile_seg=256), dict(backend="seg"), "adc_scan_tiles"),
+    "flat": (dict(), dict(backend="seg"), "adc_scan_segments_multi"),
+    "pallas": (dict(), dict(backend="pallas", scan_len=1024),
+               "adc_scan_distances"),
+}
+
+
+def _mesh_search(idx, q, devices, axes, shard_kw, kw):
+    from chamjax_torch.parallel import (make_mesh, place_sharded,
+                                        shard_index, sharded_search,
+                                        sharded_search_2d)
+    mesh = make_mesh(axes, devices=devices)
+    sh = place_sharded(shard_index(idx, mesh.shape["lists"], **shard_kw),
+                       mesh)
+    search = sharded_search_2d if "data" in mesh.shape else sharded_search
+    return sh, search(sh, q.to(mesh.device_at()), mesh=mesh, **kw)
+
+
+def _held(got, want, rtol=1e-5):
+    d, i = (x.cpu().numpy() for x in got)
+    dw, iw = (x.cpu().numpy() for x in want)
+    np.testing.assert_allclose(d, dw, rtol=rtol, atol=rtol)
+    bad = tie_mismatches(d, i.astype(np.int64), dw, iw.astype(np.int64),
+                         rtol=rtol, atol=rtol)
+    assert not bad, bad
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("axes", [(("lists", 4),),
+                                  (("data", 2), ("lists", 2))])
+@pytest.mark.parametrize("route", sorted(MESH_ROUTES))
+def test_sharded_search_on_one_card(card_index, route, axes):
+    """Every position on cuda:0: the route's kernel launches (counted by
+    the replay), the search is one captured graph equal to its eager run,
+    and both equal the same sharded search on CPU positions (f32 LUTs,
+    rtol 1e-5, ids up to ties)."""
+    from chamjax_torch.utils import graphs
+    ds, idx = card_index
+    shard_kw, kw, kernel = MESH_ROUTES[route]
+    kw = dict(kw, nprobe=8, k=10, windows=48, seg=256, group=4,
+              lut_bf16=False)
+    q = torch.from_numpy(ds.xq[:16])
+    n_pos = int(np.prod([s for _, s in axes]))
+    before = cuda_lib.launch_counts[kernel]
+    sh, got = _mesh_search(idx, q, ["cuda:0"] * n_pos, axes, shard_kw, kw)
+    assert cuda_lib.launch_counts[kernel] > before
+    assert len(sh.graphs) == 1
+    with graphs.disable_capture():
+        eager = _mesh_search(idx, q, ["cuda:0"] * n_pos, axes, shard_kw,
+                             kw)[1]
+    _held(got, eager)
+    _, cpu = _mesh_search(idx, q, ["cpu"] * n_pos, axes, shard_kw, kw)
+    _held(got, cpu)
+
+
+TP_FAMILIES = {"decoder": "Dec", "llama": "Llama", "encoder-decoder": "Enc"}
+
+
+def _tp_run(family, cfg, params, devices, steps=4, b=4):
+    """``steps`` decode steps at batch ``b`` (cross attention over an
+    encoded context for the encoder-decoder), tensor-parallel over
+    ``devices`` (dp 2 × tp 2) or, ``devices=None``, unsharded."""
+    from chamjax_torch.models import encoder_forward
+    from chamjax_torch.models.transformer import build_cross_kv
+    from chamjax_torch.parallel import (make_mesh, shard_decoder_params,
+                                        shard_kv_cache, shard_llama_params)
+    from chamjax_torch.serving.ralm import step_fns
+    step, new_cache = step_fns(cfg)
+    *enc, dec = params if family == "encoder-decoder" else (params,)
+    dev = dec.embed.device
+    cache = new_cache(cfg, b, device=dev)
+    if devices is not None:
+        mesh = make_mesh((("dp", 2), ("tp", 2)), devices=devices)
+        dec = (shard_llama_params(dec, mesh, kv_heads=cfg.kv_heads)
+               if family == "llama" else shard_decoder_params(dec, mesh))
+        enc = [shard_decoder_params(e, mesh) for e in enc]
+        cache = shard_kv_cache(cache, mesh)
+    rng = np.random.default_rng(9)
+    cross = {}
+    if enc:
+        src = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, 6)).astype(
+            np.int32)).to(dev)
+        cross = dict(cross_kv=build_cross_kv(
+            dec, encoder_forward(enc[0], src, cfg.attention_heads),
+            cfg.attention_heads))
+    outs = []
+    for t in rng.integers(0, cfg.vocab_size, (steps, b)):
+        lg, hid, cache = step(dec, torch.from_numpy(t.astype(np.int32)).to(
+            dev), cache, **cross)
+        outs += [lg, hid]
+    return outs, cache
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", sorted(TP_FAMILIES))
+def test_tp_step_on_one_card(cuda_device, family):
+    """Tensor-parallel steps with every position on cuda:0 (f32): equal to
+    the unsharded steps on the card (atol 1e-4), captured in one graph a
+    step key on the sharded cache and equal to the eager run."""
+    from chamjax_torch.benchmarks.ralm_device_bench import init_params
+    from chamjax_torch.utils import graphs
+    cfg = ralm_config(family)
+    params = init_params(cfg, 0, cuda_device)
+    ref, _ = _tp_run(family, cfg, params, None)
+    got, cache = _tp_run(family, cfg, params, ["cuda:0"] * 4)
+    assert len(cache.graphs) == 1
+    assert_close(got, ref, rtol=1e-4)
+    with graphs.disable_capture():
+        eager, _ = _tp_run(family, cfg, params, ["cuda:0"] * 4)
+    assert_close(got, eager)
+
+
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA cards (positions on distinct cards)")
+    return [torch.device("cuda", 0), torch.device("cuda", 1)]
+
+
+@pytest.mark.gpu
+def test_sharded_search_on_distinct_cards(card_index, two_cards):
+    """lists 2 over cuda:0 and cuda:1 (peer copies, eager: one graph cannot
+    span devices) against the same mesh on one card."""
+    from chamjax_torch.parallel.sharded_search import captures
+    from chamjax_torch.parallel import make_mesh
+    ds, idx = card_index
+    shard_kw, kw, _ = MESH_ROUTES["tiled"]
+    kw = dict(kw, nprobe=8, k=10, windows=48, seg=256, group=4,
+              lut_bf16=False)
+    q = torch.from_numpy(ds.xq[:16])
+    axes = (("lists", 2),)
+    assert not captures(make_mesh(axes, devices=two_cards))
+    sh, got = _mesh_search(idx, q, two_cards, axes, shard_kw, kw)
+    assert len(sh.graphs) == 0
+    assert {t.device for t in sh.codes_tiled} == set(two_cards)
+    _held(got, _mesh_search(idx, q, ["cuda:0"] * 2, axes, shard_kw, kw)[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", sorted(TP_FAMILIES))
+def test_tp_step_on_distinct_cards(two_cards, family):
+    """dp 2 × tp 2 with tp over two cards (the dp rows share them), eager,
+    against the unsharded steps (f32, atol 1e-4)."""
+    from chamjax_torch.benchmarks.ralm_device_bench import init_params
+    cfg = ralm_config(family)
+    params = init_params(cfg, 0, two_cards[0])
+    ref, _ = _tp_run(family, cfg, params, None)
+    got, cache = _tp_run(family, cfg, params, two_cards * 2)
+    assert len(cache.graphs) == 0
+    assert_close(got, ref, rtol=1e-4)

@@ -164,7 +164,11 @@ def test_import_leaves_jax_out():
             "chamjax_torch.index.ondisk, chamjax_torch.index.imi, "
             "chamjax_torch.index.sizing, chamjax_torch.index.device_build, "
             "chamjax_torch.data.hard, "
-            "chamjax_torch.benchmarks.ralm_device_bench; "
+            "chamjax_torch.benchmarks.ralm_device_bench, "
+            "chamjax_torch.parallel, chamjax_torch.parallel.sharded_model, "
+            "chamjax_torch.parallel.sharded_search, chamjax_torch.entry, "
+            "chamjax_torch.utils.collectives, "
+            "chamjax_torch.retrieval.local; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'chamjax' "
             "or m.startswith('chamjax.')); print(bad); sys.exit(bool(bad))")
