@@ -25,6 +25,11 @@ Module names mirror ``chamjax/`` so each counterpart is easy to find:
   takes and returns tensors on the card.
 - ``chamjax_torch.serving`` — ``RalmDecoder`` and ``RalmEncoderDecoder``:
   decode steps fused with the on-card retrieval, and ``StepProfiler``.
+- ``chamjax_torch.ir``      — the BEIR-style IR harness: metrics, the
+  loader and synth corpus, lexical, sparse, exact and ANN search, the
+  trainable ``DualEncoder`` / ``SparseEncoder`` and the rerankers.
+- ``chamjax_torch.rag``     — splitters, loaders, ``VectorStore`` and the
+  ``AdvancedRAG`` pipeline with its ``DecoderReader``.
 
 The package imports ``torch`` and ``numpy`` only; it never imports ``jax``
 or ``chamjax``.  Entry points (``IVFSearcher``, ``HostStreamedSearcher``,

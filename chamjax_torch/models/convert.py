@@ -7,6 +7,11 @@ map: each port parameter ``a.b`` is read at ``tree.a["b"]``.  Arrays go
 through float32 on the host (numpy's bfloat16 arrays, which JAX hands out
 for bf16 parameters, are not accepted by ``torch.from_numpy``) and are cast
 to the config's dtype on the device, which is exact for bf16 values.
+
+The IR encoders' parameters are plain dicts of arrays
+(``JaxDualEncoder.params``, ``JaxSparseEncoder.params``);
+``dual_encoder_from_numpy`` and ``sparse_encoder_from_numpy`` build the
+port's ``nn.Module`` from them, its sizes read from the arrays' shapes.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import torch
 from torch import nn
 
 from chamjax_torch.config import ModelConfig
+from chamjax_torch.ir.models import DualEncoder, SparseEncoder
 from chamjax_torch.models.llama import LlamaParams
 from chamjax_torch.models.transformer import TransformerParams, dtype_of
 from chamjax_torch.utils.device import resolve_device
@@ -63,3 +69,25 @@ def llama_from_numpy(tree, cfg: ModelConfig, device=None) -> LlamaParams:
     params = LlamaParams(cfg, device=resolve_device(device),
                          dtype=dtype_of(cfg))
     return load_numpy_(params, tree)
+
+
+def dual_encoder_from_numpy(tree, max_len: int = 32, device=None
+                            ) -> DualEncoder:
+    """``JaxDualEncoder.params``: ``embed`` (vocab, emb_dim) and the ``q``
+    and ``d`` towers' ``w1 b1 w2 b2``."""
+    vocab, emb_dim = np.shape(tree["embed"])
+    enc = DualEncoder(vocab=vocab, dim=np.shape(tree["q"]["w2"])[1],
+                      emb_dim=emb_dim, max_len=max_len, device=device)
+    return load_numpy_(enc, tree)
+
+
+def sparse_encoder_from_numpy(tree, max_len: int = 32,
+                              max_expansion: int = 64, device=None
+                              ) -> SparseEncoder:
+    """``JaxSparseEncoder.params``: ``embed`` (vocab, latent) and ``head``
+    (latent, n_buckets)."""
+    vocab, latent = np.shape(tree["embed"])
+    enc = SparseEncoder(vocab=vocab, n_buckets=np.shape(tree["head"])[1],
+                        latent=latent, max_len=max_len,
+                        max_expansion=max_expansion, device=device)
+    return load_numpy_(enc, tree)

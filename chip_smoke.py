@@ -8,7 +8,9 @@ the on-card retrieval) at the full width of the Dec-S, Llama-S and EncDec-S
 presets, disaggregated serving (engine processes behind an index server
 and behind the coordinators), the streamed index build on the card, and
 the mesh tier (list-sharded search, the sharded build, tensor-parallel
-decode, the multi-chip RAG step) on positions of this card.
+decode, the multi-chip RAG step) on positions of this card, and the
+retrieval-quality path (the IR matrix with a dual encoder trained and mined
+on the card, and the advanced-RAG pipeline).
 
     python3 chip_smoke.py
 
@@ -168,9 +170,36 @@ Phases (any failure exits non-zero and prints no result):
    tensor-parallel parameters over a ``MeshRetriever`` (dp × tp × lists, 8
    positions), the last fused retrieval equal to ``IVFSearcher.search``,
    tok/s beside the unsharded loops'; ``entry.dryrun_multichip(8)``.
-11. Print the kernels line, the main-path line, the routes line, the
+11. The retrieval-quality path (``ir_phase``, ``rag_phase``):
+   ``benchmarks/ir_quality.py``'s matrix at its defaults, its corpus
+   (``write_beir_dataset``: 100k docs, 300 test and 1500 train queries,
+   seed 0) written by a child process started with the smoke, read back
+   through ``GenericDataLoader``; with the launch counts set to 0 just
+   before and read just after: bm25, dense_hash (``HashingEncoder(256)``
+   exact on the card), the ``DualEncoder`` (vocab 32768, dim 256, emb
+   192, max_len 48) trained 4000 steps at batch 128 and lr 3e-3 then 2
+   rounds of mining on the card (the IVF-PQ branch: IVF1024, PQ16, the
+   tiled kernel) and 2500 hard-negative steps at lr 1.5e-3 (pairs capped
+   at 200k), dense_trained, ivfpq_trained (IVF1562, PQ16, nprobe 32),
+   sparse, MaxSim rerank of dense_trained over the trained token table:
+   NDCG@10, MAP@100, R@100 and seconds each.  Held: the first 20 fit steps
+   on the card against the CPU's from the same parameters (1e-3
+   relative); dense_trained on the card against the CPU (ties, rtol
+   1e-5); ivfpq_trained's index with f32 LUTs against the xla oracle up
+   to ties, its packed-bf16 R@10 within 0.01 of the oracle's; the tiled
+   kernel against its plain version at the IR index's shape.  The RAG
+   leg: the corpus split (512-char chunks) into an IVF-PQ ``VectorStore``
+   (the ``HashingEncoder``), ``AdvancedRAG`` (30 retrieved, MaxSim rerank
+   to 5, a Dec-S ``DecoderReader`` at full width, random weights, 32 new
+   tokens) answering 32 test queries, counts set to 0 just before and
+   read just after; the store held to the xla oracle as above, the
+   reader's captured tokens to eager ones for 4 prompts (equal), and a
+   ``Seq2SeqReranker`` over ivfpq_trained's top 100 for 32 queries, the
+   card's scores within 1e-4 of the CPU's from the same weights.
+12. Print the kernels line, the main-path line, the routes line, the
    kernel-study line, the ralm line, the tiktok line, the disagg line,
-   the build line, the mesh line and the result line.
+   the build line, the mesh line, the ir line, the rag line and the
+   result line.
 
 Every search and every model step runs as a replay of a captured CUDA graph
 (``chamjax_torch/utils/graphs.py``), the default; each is also run eagerly
@@ -2094,6 +2123,28 @@ def synchronize(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
+def probed_rows(index, xq, nprobe, coarse_cand):
+    """Rows in the lists ``ivfpq_search`` probes for each query of ``xq``
+    (its rotation and coarse scan, in ``search_all``'s batches of
+    ``BATCH``: a query's rotation may differ in its last bits between batch
+    sizes), as int64 numpy."""
+    import numpy as np
+    import torch
+    from chamjax_torch.ops.coarse import select_probes
+    from chamjax_torch.searcher import _rotate
+    from chamjax_torch.utils.precision import fp32_matmul
+    out = []
+    with fp32_matmul():
+        for i in range(0, xq.shape[0], BATCH):
+            q = _rotate(index, torch.as_tensor(xq[i:i + BATCH]).to(
+                index.centroids.device))
+            list_ids, _ = select_probes(q, index.centroids, nprobe,
+                                        coarse_cand=coarse_cand,
+                                        use_approx=coarse_cand == 0)
+            out.append(index.list_len[list_ids.long()].sum(1).cpu().numpy())
+    return np.concatenate(out).astype(np.int64)
+
+
 def search_all(index, xq, kw):
     """``ivfpq_search`` over ``xq`` in b=128 batches → (dists, ids) numpy,
     ids int64."""
@@ -2199,8 +2250,19 @@ def build_search(dev, index, info, xq, gt):
                                  f"launch adc_scan_tiles")
         launches += n_l
         fin = np.isfinite(d_s)
-        if not fin[:, :10].all() or (np.diff(d_s, axis=1) < 0).any():
-            raise AssertionError("build search: distances not finite/sorted")
+        # every row of the probed lists is scanned here, so a row holds
+        # exactly min(K, rows in its probed lists) finite distances, first
+        # and sorted; at nprobe 1 a short list gives fewer than 10
+        held = probed_rows(index, q_gt, nprobe, ccand)
+        want = np.minimum(K, held)
+        prefix = np.arange(K)[None, :] < want[:, None]
+        if (not np.array_equal(fin, prefix)
+                or (np.diff(d_s, axis=1) < 0).any()):
+            bad = np.flatnonzero((fin != prefix).any(axis=1))[:5]
+            raise AssertionError(
+                f"build search nprobe {nprobe}: distances not finite/sorted "
+                f"(rows {bad.tolist()}: finite {fin[bad].sum(1).tolist()}, "
+                f"rows in their probed lists {held[bad].tolist()})")
         if ((i_s[fin] < 0) | (i_s[fin] >= BUILD_NB)).any():
             raise AssertionError("build search: ids out of range")
         rec = {f"recall_at_{r}": recall_at_k(i_s, gt, r)
@@ -2222,6 +2284,7 @@ def build_search(dev, index, info, xq, gt):
                                                                  q_time)
         out[str(nprobe)] = dict(
             rec, recall_at_10_xla_oracle=r10_x, windows_all=kw["windows"],
+            queries_under_10_rows=int((held < 10).sum()),
             launches=n_l, coarse_cand=ccand, windows=kw_a["windows"],
             recall_at_10_auto_windows=r10_a,
             recall_at_10_auto_windows_lut_bf16=r10_bf,
@@ -2992,6 +3055,397 @@ def mesh_phase(dev, ctx, main_line, retriever):
                 tp=tp, rag=rag, phase_s=time.perf_counter() - t0), launches
 
 
+# The IR phase: benchmarks/ir_quality.py's matrix at its defaults
+# (:47-74): 100,000 docs, 300 test and 1,500 train queries, seed 0; the
+# dual encoder at vocab 32768, dim 256, emb 192, max_len 48; 4,000 warmup
+# steps at batch 128 and lr 3e-3, then 2 mining rounds of 4 negatives at
+# depth 32, each followed by 2,500 steps at lr 1.5e-3; nprobe 32; k 10 and
+# 100.  One cut, in depth: the training pairs are capped at 200,000 (the
+# script caps them at 800,000; tokenizing a pair is host Python).  The
+# corpus is generated by a child process started with the smoke, so the
+# host writes it while the card runs the earlier phases.
+IR_DATA = dict(n_docs=100_000, seed=0, n_queries=300, n_train_queries=1500)
+IR_MODEL = dict(vocab=32768, dim=256, emb_dim=192, max_len=48)
+IR_WARMUP = dict(steps=4000, batch=128, lr=3e-3)
+IR_HARD = dict(steps=2500, batch=128, lr=1.5e-3)
+IR_ROUNDS, IR_NEGS, IR_NPROBE = 2, 4, 32
+IR_PAIR_CAP = 200_000
+IR_K = (10, 100)
+IR_CHECK = dict(steps=20, batch=128, lr=3e-3)   # card vs CPU, first steps
+IR_CHECK_PAIRS = 4096
+IR_CORPUS_WAIT_S = 900
+# RESULTS.md's 100k table (the JAX package's record), NDCG@10
+IR_RESULTS_100K = dict(bm25=0.521, sparse=0.372, dense_hash=0.128)
+# The RAG leg: advanced_rag.py's pipeline over the same corpus, answering the
+# first 32 test queries with a Dec-S reader (full width, random weights).
+RAG_QUERIES, RAG_NEW_TOKENS, RAG_SAME_PROMPTS = 32, 32, 4
+RAG_READER = "Dec-S"
+SEQ2SEQ_QUERIES, SEQ2SEQ_DEPTH = 32, 100
+
+
+class CorpusJob:
+    """``write_beir_dataset`` at ``IR_DATA`` in a child process, started
+    early: the generator is pure Python on one host core for minutes, and
+    the card runs the earlier phases meanwhile.  ``wait`` returns the
+    dataset's directory, the generator's own seconds and the seconds
+    waited; ``stop`` ends the child and removes the directory."""
+
+    def __init__(self):
+        import os
+        import tempfile
+        self.dir = tempfile.mkdtemp(prefix="chamjax_ir_")
+        self.path = os.path.join(self.dir, "beir")
+        code = ("import json, time\n"
+                "from chamjax_torch.ir.synth import write_beir_dataset\n"
+                "t = time.perf_counter()\n"
+                f"write_beir_dataset({self.path!r}, **{IR_DATA!r})\n"
+                "print(json.dumps(dict(s=time.perf_counter() - t)))\n")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", code],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def wait(self):
+        t0 = time.perf_counter()
+        out, err = self.proc.communicate(timeout=IR_CORPUS_WAIT_S)
+        if self.proc.returncode:
+            raise AssertionError(f"corpus generation failed: {err[-2000:]}")
+        gen_s = json.loads(out.strip().splitlines()[-1])["s"]
+        return self.path, gen_s, time.perf_counter() - t0
+
+    def stop(self):
+        import shutil
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.communicate()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def result_arrays(results, qids, k):
+    """BEIR result dicts → (negated scores, doc-number) arrays, best first,
+    short rows padded: ascending distances, as ``tie_mismatches`` reads."""
+    import numpy as np
+    d = np.full((len(qids), k), np.inf, np.float64)
+    i = np.full((len(qids), k), -1, np.int64)
+    for r, q in enumerate(qids):
+        items = sorted(results[q].items(), key=lambda kv: -kv[1])[:k]
+        for c, (did, s) in enumerate(items):
+            d[r, c], i[r, c] = -s, int(did.lstrip("d"))
+    return d, i
+
+
+def ir_oracle(name, dev, index, scfg, q, gt, got):
+    """The path's IVF-PQ answers ``got`` (its packed-bf16 LUTs) against the
+    ``backend="xla"`` oracle on the same index: the same index searched
+    with f32 LUTs equal to the oracle up to ties (rtol 1e-5); the path's
+    R@10 within 0.01 of the oracle's.  Returns the recalls."""
+    import dataclasses as dc
+    from chamjax_torch.config import SearchConfig
+    from chamjax_torch.eval import recall_at_k
+    from chamjax_torch.searcher import IVFSearcher
+    k = scfg.k
+    xla = IVFSearcher(index, SearchConfig(nprobe=scfg.nprobe, k=k,
+                                          backend="xla"),
+                      device=dev).search(q)
+    f32 = IVFSearcher(index, dc.replace(scfg, lut_bf16=False),
+                      device=dev).search(q)
+    check_same_up_to_ties(f"{name} f32 LUTs vs xla", *f32, *xla, rtol=1e-5)
+    r = dict(recall_at_10=recall_at_k(got[1], gt, 10),
+             recall_at_10_f32=recall_at_k(f32[1], gt, 10),
+             recall_at_10_xla=recall_at_k(xla[1], gt, 10))
+    if abs(r["recall_at_10"] - r["recall_at_10_xla"]) > 0.01:
+        raise AssertionError(f"{name}: R@10 {r} off the xla oracle")
+    return r
+
+
+def ir_pairs(corpus, tq, tqr):
+    """ir_quality.py's training pairs: the top grade twice and every
+    judged doc once, shuffled and capped at ``IR_PAIR_CAP``; each pair keeps
+    its query id."""
+    import random
+
+    def with_qid(min_score):
+        return [(qid, did) for qid, rel in tqr.items() if qid in tq
+                for did, score in rel.items()
+                if (score > 0 if min_score <= 0 else score >= min_score)
+                and did in corpus]
+    id_pairs = with_qid(2) * 2 + with_qid(0)
+    n_all = len(id_pairs)
+    if n_all > IR_PAIR_CAP:
+        random.Random(0).shuffle(id_pairs)
+        id_pairs = id_pairs[:IR_PAIR_CAP]
+    return id_pairs, n_all
+
+
+def ir_train(dev, corpus, tq, tqr):
+    """The dual encoder as ir_quality.py trains it: warmup, then mining
+    rounds on the card (the IVF-PQ branch) each followed by hard-negative
+    steps.  First, the card's first ``IR_CHECK`` steps held against the
+    CPU's from the same parameters."""
+    import numpy as np
+    from chamjax_torch.ir import DualEncoder
+    from chamjax_torch.ir.models import _batch_ids, _doc_text
+    id_pairs, n_all = ir_pairs(corpus, tq, tqr)
+    pairs = [(tq[q], _doc_text(corpus[d])) for q, d in id_pairs]
+
+    sub = pairs[:IR_CHECK_PAIRS]
+    cpu = DualEncoder(**IR_MODEL, device="cpu")
+    card = DualEncoder(**IR_MODEL, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    want = np.asarray(cpu.fit(sub, **IR_CHECK))
+    got = np.asarray(card.fit(sub, **IR_CHECK))
+    fit_rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    if not fit_rel <= 1e-3:
+        raise AssertionError(f"ir fit: card losses {got[:5]} vs CPU "
+                             f"{want[:5]} (max rel {fit_rel})")
+    del cpu, card
+
+    enc = DualEncoder(**IR_MODEL, device=dev)
+    t0 = time.perf_counter()
+    enc._pair_tokens(pairs)
+    tokenize_s = time.perf_counter() - t0
+
+    def fit(**kw):
+        t0 = time.perf_counter()
+        curve = enc.fit(pairs, **kw)            # ends in a host read
+        return curve, time.perf_counter() - t0
+
+    curve, warm_s = fit(**IR_WARMUP)
+    doc_ids = list(corpus.keys())
+    did2idx = {d: i for i, d in enumerate(doc_ids)}
+    qid_list = sorted({q for q, _ in id_pairs})
+    q_of = {q: i for i, q in enumerate(qid_list)}
+    positives = [set() for _ in qid_list]
+    for q, rel in tqr.items():
+        if q in q_of:
+            for did, sc in rel.items():
+                if sc > 0 and did in did2idx:
+                    positives[q_of[q]].add(did2idx[did])
+    t0 = time.perf_counter()
+    doc_tokens = _batch_ids([_doc_text(corpus[d]) for d in doc_ids],
+                            enc.vocab, enc.max_len)
+    doc_tokenize_s = time.perf_counter() - t0
+    pair_q = np.asarray([q_of[q] for q, _ in id_pairs])
+    rounds = []
+    for r in range(IR_ROUNDS):
+        t0 = time.perf_counter()
+        neg = enc.mine_hard_negatives(
+            [tq[q] for q in qid_list], doc_tokens, positives=positives,
+            n_neg=IR_NEGS, depth=8 * IR_NEGS, seed=r)
+        mine_s = time.perf_counter() - t0
+        info = enc.mining[-1]
+        if info["branch"] != "ivfpq":
+            raise AssertionError(f"ir mining round {r} took {info}")
+        hard, hard_s = fit(**IR_HARD, neg_tokens=doc_tokens,
+                           neg_idx=neg[pair_q])
+        rounds.append(dict(mine_s=mine_s, mining=info, fit_s=hard_s,
+                           loss_first=hard[0], loss_last=hard[-1]))
+    steps = IR_WARMUP["steps"] + IR_ROUNDS * IR_HARD["steps"]
+    fit_s = warm_s + sum(r["fit_s"] for r in rounds)
+    stats = dict(pairs=len(pairs), pairs_before_cap=n_all,
+                 pair_tokenize_s=tokenize_s, doc_tokenize_s=doc_tokenize_s,
+                 warmup_s=warm_s, warmup_loss_first=curve[0],
+                 warmup_loss_last=curve[-1], rounds=rounds, steps=steps,
+                 steps_per_s=steps / fit_s, fit_check_max_rel=fit_rel,
+                 fit_check_steps=IR_CHECK["steps"])
+    return enc, doc_tokens, stats
+
+
+def ir_phase(dev, job):
+    """Phase 11a: the IR matrix (``run`` a method: its results, NDCG@10,
+    MAP@100, R@100 and seconds), the launch counts set to 0 just before
+    and read just after; then the checks.  Returns the ir line, the
+    launches, the kernel held at the IR index's shape and what the RAG leg
+    reuses."""
+    import numpy as np
+    import torch
+    from chamjax_torch.data import compute_ground_truth
+    from chamjax_torch.ir import (BM25Search, DenseRetrievalExactSearch,
+                                  DenseRetrievalIVFPQSearch, DualEncoder,
+                                  EvaluateRetrieval, GenericDataLoader,
+                                  MaxSimReranker, SparseSearch)
+    from chamjax_torch.ir.ann import _normalize
+    from chamjax_torch.ir.dense import HashingEncoder
+    from chamjax_torch.ir.models import DualEncoderTokenAdapter
+    from chamjax_torch.utils import cuda_lib
+    t_phase = time.perf_counter()
+    path, gen_s, wait_s = job.wait()
+    t0 = time.perf_counter()
+    corpus, queries, qrels = GenericDataLoader(path).load("test")
+    _c, tq, tqr = GenericDataLoader(path).load("train")
+    load_s = time.perf_counter() - t0
+    log(f"ir corpus {len(corpus)} docs (generated in {gen_s:.1f} s, waited "
+        f"{wait_s:.1f} s), {len(queries)} queries, {len(tq)} train")
+    top = max(IR_K)
+    rows, results = {}, {}
+
+    def run(name, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        s = time.perf_counter() - t0
+        ndcg, _map, recall, _p = EvaluateRetrieval.evaluate(qrels, res,
+                                                            list(IR_K))
+        rows[name] = {"NDCG@10": ndcg["NDCG@10"], "MAP@100": _map["MAP@100"],
+                      "Recall@100": recall["Recall@100"], "seconds": s}
+        results[name] = res
+        log(f"ir {name}: {rows[name]}")
+
+    cuda_lib.launch_counts.clear()
+    run("bm25", lambda: BM25Search().search(corpus, queries, top))
+    hasher = HashingEncoder(dim=256)
+    run("dense_hash", lambda: DenseRetrievalExactSearch(
+        hasher, device=dev).search(corpus, queries, top))
+    t0 = time.perf_counter()
+    enc, doc_tokens, train = ir_train(dev, corpus, tq, tqr)
+    train["seconds"] = time.perf_counter() - t0
+    log(f"ir training: {train}")
+    run("dense_trained", lambda: DenseRetrievalExactSearch(
+        enc, device=dev).search(corpus, queries, top))
+    ivf = DenseRetrievalIVFPQSearch(enc, nprobe=IR_NPROBE, device=dev)
+    run("ivfpq_trained", lambda: ivf.search(corpus, queries, top))
+    run("sparse", lambda: SparseSearch().search(corpus, queries, top))
+    run("rerank(dense_trained)", lambda: MaxSimReranker(
+        token_encoder=DualEncoderTokenAdapter(enc), device=dev).rerank(
+        corpus, queries, results["dense_trained"], top_k=top))
+    launches = dict(cuda_lib.launch_counts)
+    if launches.get("adc_scan_tiles", 0) < 1 + IR_ROUNDS:
+        raise AssertionError(f"ir did not launch adc_scan_tiles (mining and "
+                             f"ivfpq_trained): {launches}")
+
+    # dense_trained: the card against the CPU, the same weights
+    cpu = DualEncoder(**IR_MODEL, device="cpu")
+    cpu.load_state_dict(enc.state_dict())
+    qids = list(queries)
+    want = DenseRetrievalExactSearch(cpu, device="cpu").search(
+        corpus, queries, top)
+    check_same_up_to_ties("ir dense_trained card vs CPU",
+                          *result_arrays(results["dense_trained"], qids, top),
+                          *result_arrays(want, qids, top), rtol=1e-5)
+    del cpu
+    # ivfpq_trained: its raw answers against the xla oracle
+    q = ivf.query_matrix(queries)
+    got = ivf.searcher.search(q)
+    emb = _normalize(enc._embed_tokens("d", *doc_tokens).cpu().numpy())
+    gt, _ = compute_ground_truth(emb, q, k=10, device=dev)
+    oracle = ir_oracle("ir ivfpq_trained", dev, ivf.index, ivf.searcher.scfg,
+                       q, gt, got)
+    kernel = tiles_on_queries("adc_scan_tiles[ir]", ivf.searcher,
+                              torch.as_tensor(q[:BATCH]).to(dev), IR_NPROBE)
+    kernel["measured"]["seg"] = ivf.searcher.seg
+    reference = {m: dict(results_md=v, port=rows[m]["NDCG@10"],
+                         diff=rows[m]["NDCG@10"] - v)
+                 for m, v in IR_RESULTS_100K.items()}
+    line = dict(
+        corpus=dict(docs=len(corpus), queries=len(queries),
+                    train_queries=len(tq), generate_s=gen_s, waited_s=wait_s,
+                    load_s=load_s),
+        methods=rows, training=train, launches_adc_scan_tiles=launches.get(
+            "adc_scan_tiles", 0), launches=launches,
+        ivfpq=dict(index=ivf.index.cfg.key, seg=ivf.searcher.seg,
+                   windows=ivf.searcher.windows, **oracle),
+        dense_trained_card_vs_cpu="equal up to ties (rtol 1e-5)",
+        results_md_100k_ndcg10=reference,
+        phase_s=time.perf_counter() - t_phase)
+    return dict(line=line, launches=launches, kernel=kernel["measured"],
+                corpus=corpus, queries=queries, hasher=hasher,
+                ivfpq=results["ivfpq_trained"])
+
+
+def rag_phase(dev, ir):
+    """Phase 11b: the RAG leg on the IR corpus (split → an ivfpq
+    ``VectorStore`` → ``AdvancedRAG`` with MaxSim rerank and a Dec-S
+    ``DecoderReader``), the launch counts set to 0 just before the answers
+    and read just after; the store held to the xla oracle, the reader's
+    captured tokens to eager ones; then ``Seq2SeqReranker`` over
+    ivfpq_trained's top 100, the card against the CPU."""
+    import numpy as np
+    from chamjax_torch.config import MODEL_PRESETS
+    from chamjax_torch.data import compute_ground_truth
+    from chamjax_torch.ir import MaxSimReranker, Rerank, Seq2SeqReranker
+    from chamjax_torch.rag import (AdvancedRAG, DecoderReader,
+                                   RecursiveTextSplitter, StageTimer,
+                                   VectorStore)
+    from chamjax_torch.utils import cuda_lib, graphs
+    t_phase = time.perf_counter()
+    corpus, queries = ir["corpus"], ir["queries"]
+    t0 = time.perf_counter()
+    chunks = RecursiveTextSplitter(chunk_size=512).split_documents(
+        list(corpus.values()))
+    split_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    store = VectorStore(ir["hasher"], backend="ivfpq", device=dev)
+    store.add_documents(chunks)
+    encode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    store.searcher                              # builds the index
+    build_s = time.perf_counter() - t0
+    reader = DecoderReader(cfg=MODEL_PRESETS[RAG_READER],
+                           max_new_tokens=RAG_NEW_TOKENS, seed=0, device=dev)
+    rag = AdvancedRAG(store, reader, reranker=MaxSimReranker(
+        dim=128, max_tokens=32, device=dev), n_retrieved=30, n_final=5)
+    qs = list(queries.values())
+    rag.answer(qs[RAG_QUERIES])                 # captures: not timed
+    rag.timer = StageTimer()
+    cuda_lib.launch_counts.clear()
+    answers = [rag.answer(q) for q in qs[:RAG_QUERIES]]
+    launches = dict(cuda_lib.launch_counts)
+    if launches.get("adc_scan_tiles", 0) < RAG_QUERIES:
+        raise AssertionError(f"rag did not launch adc_scan_tiles a "
+                             f"query: {launches}")
+    for text, ctx in answers:
+        if len(text.split()) != RAG_NEW_TOKENS or len(ctx) != 5:
+            raise AssertionError(f"rag answer {text!r} over {len(ctx)} docs")
+    stages = rag.timer.stats_ms()
+
+    q = np.asarray(store.encoder.encode_queries(qs[:RAG_QUERIES]),
+                   np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True) + 1e-9
+    got = store.searcher.search(q, k=rag.n_retrieved)
+    gt, _ = compute_ground_truth(store.emb, q, k=10, device=dev)
+    oracle = ir_oracle("rag store", dev, store.index, dataclasses.replace(
+        store.searcher.scfg, k=rag.n_retrieved), q, gt, got)
+    prompts = [f"question: {x}" for x in qs[:RAG_SAME_PROMPTS]]
+    captured = [reader.generate_ids(p) for p in prompts]
+    with graphs.disable_capture():
+        eager = [reader.generate_ids(p) for p in prompts]
+    if captured != eager:
+        raise AssertionError(f"rag reader captured {captured} vs eager "
+                             f"{eager}")
+
+    s2s = Seq2SeqReranker(device=dev)
+    s2s_cpu = Seq2SeqReranker(device="cpu")
+    s2s_cpu.enc_params.load_state_dict(s2s.enc_params.state_dict())
+    s2s_cpu.dec_params.load_state_dict(s2s.dec_params.state_dict())
+    sub = {qid: queries[qid] for qid in list(queries)[:SEQ2SEQ_QUERIES]}
+    first = {qid: ir["ivfpq"][qid] for qid in sub}
+    t0 = time.perf_counter()
+    reranked = Rerank(s2s).rerank(corpus, sub, first, top_k=SEQ2SEQ_DEPTH)
+    s2s_s = time.perf_counter() - t0
+    pairs = [(sub[qid], (corpus[d].get("title", "") + " "
+                         + corpus[d].get("text", "")).strip())
+             for qid in sub for d in first[qid]]
+    s_card = np.asarray(s2s.predict(pairs))
+    s_cpu = np.asarray(s2s_cpu.predict(pairs))
+    s2s_err = float(np.abs(s_card - s_cpu).max())
+    if not s2s_err <= 1e-4 or len(reranked) != len(sub):
+        raise AssertionError(f"seq2seq card vs CPU max abs diff {s2s_err}")
+    line = dict(
+        chunks=len(chunks), split_s=split_s, encode_s=encode_s,
+        index=store.index.cfg.key, build_s=build_s, reader=RAG_READER,
+        new_tokens=RAG_NEW_TOKENS, queries=RAG_QUERIES,
+        stage_ms={k: dict(p50=v["p50"], mean=v["mean"])
+                  for k, v in stages.items()},
+        launches_adc_scan_tiles=launches.get("adc_scan_tiles", 0),
+        launches=launches, store=oracle,
+        reader_captured_equal_eager=True, reader_graphs=len(
+            reader.cache.graphs),
+        seq2seq=dict(pairs=len(pairs), rerank_s=s2s_s,
+                     max_abs_diff_cpu=s2s_err),
+        phase_s=time.perf_counter() - t_phase)
+    log(f"rag: {line}")
+    return dict(line=line, launches=launches)
+
+
 def main() -> int:
     t_smoke = time.perf_counter()
     try:
@@ -3001,13 +3455,23 @@ def main() -> int:
     if not torch.cuda.is_available():
         return fail("no CUDA device is available")
     try:
-        from chamjax_torch.utils import cuda_lib, graphs
+        import chamjax_torch.utils.cuda_lib  # noqa: F401
     except ImportError as e:
         return fail(f"chamjax_torch is not importable beside this script: "
                     f"{e}")
-    from chamjax_torch import native
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    corpus_job = CorpusJob()          # the IR phase's corpus, on the host
+    try:
+        return run_smoke(t_smoke, dev, corpus_job)
+    finally:
+        corpus_job.stop()
+
+
+def run_smoke(t_smoke, dev, corpus_job) -> int:
+    import torch
+    from chamjax_torch import native
+    from chamjax_torch.utils import cuda_lib, graphs
 
     # libchamnet (g++) builds beside the CUDA libraries (nvcc)
     t0 = time.perf_counter()
@@ -3053,6 +3517,8 @@ def main() -> int:
         build = build_phase(dev)
         mesh, mesh_launches = mesh_phase(dev, main["ctx"], main["line"],
                                          ralm["rec"].inner)
+        ir = ir_phase(dev, corpus_job)
+        rag = rag_phase(dev, ir)
     except AssertionError as e:
         return fail(str(e))
     log(f"trace: {traced}")
@@ -3081,6 +3547,10 @@ def main() -> int:
         # held at that index's tile width and windows
         launches_device_build=build["launches"],
         launches_mesh=mesh_launches["adc_scan_tiles"],
+        # the IR matrix (mining and ivfpq_trained) and the RAG leg's answers
+        launches_ir=ir["launches"].get("adc_scan_tiles", 0),
+        launches_rag=rag["launches"].get("adc_scan_tiles", 0),
+        ir_kernel=ir["kernel"],
         seg_device_build=build["seg"], device_build=build["kernel"],
         launches_disagg=dict(
             {"service card engine": disagg["service"]["card"]["launches"].get(
@@ -3149,7 +3619,9 @@ def main() -> int:
     print(json.dumps(dict(disagg=disagg, card=card,
                           gxx_s=gxx["s"])), flush=True)
     print(json.dumps(dict(build=build["line"], card=card)), flush=True)
-    print(json.dumps(dict(mesh=mesh, card=card,
+    print(json.dumps(dict(mesh=mesh, card=card)), flush=True)
+    print(json.dumps(dict(ir=ir["line"], card=card)), flush=True)
+    print(json.dumps(dict(rag=rag["line"], card=card,
                           smoke_s=time.perf_counter() - t_smoke)),
           flush=True)
     print(json.dumps({"ok": True, "device": {

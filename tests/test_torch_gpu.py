@@ -4,7 +4,10 @@ versions, the query routes (tiled, flat, padded-window, host-streamed) on
 the card against the same routes on the CPU, profiler tracing of the
 card, the RALM path, the captured graphs (``utils/graphs.py``) against
 their eager runs, and the index build (the hard stream, the bf16
-shortlist, a preset-quantizer build against ``factory.populate``).  Every test is marked ``gpu`` and skips where there
+shortlist, a preset-quantizer build against ``factory.populate``) and the
+retrieval-quality path (the IR IVF-PQ search against the xla oracle, dual
+encoder training against the CPU, the Hamming count, mining's IVF-PQ
+branch, the RAG reader captured against eager).  Every test is marked ``gpu`` and skips where there
 is no card.  This file imports neither jax nor chamjax, so it runs on a
 machine that has only PyTorch:
 
@@ -1244,3 +1247,123 @@ def test_tp_step_on_distinct_cards(two_cards, family):
     got, cache = _tp_run(family, cfg, params, two_cards * 2)
     assert len(cache.graphs) == 0
     assert_close(got, ref, rtol=1e-4)
+
+
+# --- the retrieval-quality path: ir and rag on the card ----------------------
+
+
+@pytest.fixture(scope="module")
+def ir_corpus():
+    """A synth BEIR corpus of 5000 docs (enough for the mining's IVF-PQ
+    branch), its train pairs and the corpus tokenized once."""
+    from chamjax_torch.ir.models import _batch_ids, _doc_text
+    from chamjax_torch.ir.synth import generate_beir_corpus
+    corpus, queries, qrels, tq, tqr = generate_beir_corpus(
+        n_docs=5000, n_queries=40, n_train_queries=60, n_topics=60, seed=2)
+    dids = list(corpus)
+    tokens = _batch_ids([_doc_text(corpus[d]) for d in dids], 4096, 24)
+    return corpus, queries, qrels, tq, tqr, dids, tokens
+
+
+def _dual(device, seed=0):
+    from chamjax_torch.ir import DualEncoder
+    return DualEncoder(vocab=4096, dim=64, emb_dim=32, max_len=24, seed=seed,
+                       device=device)
+
+
+@pytest.mark.gpu
+def test_ir_ivfpq_search_on_card_matches_xla(cuda_device, ir_corpus):
+    """``DenseRetrievalIVFPQSearch`` on the card launches the tiled kernel;
+    its index searched with f32 LUTs equals the xla oracle up to ties."""
+    from chamjax_torch.ir import DenseRetrievalIVFPQSearch
+    from chamjax_torch.ir.dense import HashingEncoder
+    corpus, queries = ir_corpus[:2]
+    s = DenseRetrievalIVFPQSearch(HashingEncoder(dim=64), nprobe=16,
+                                  device=cuda_device)
+    before = cuda_lib.launch_counts["adc_scan_tiles"]
+    res = s.search(corpus, queries, 10)
+    assert cuda_lib.launch_counts["adc_scan_tiles"] > before
+    assert all(len(r) == 10 for r in res.values())
+    q = s.query_matrix(queries)
+    d_f, i_f = IVFSearcher(s.index, SearchConfig(nprobe=16, k=10,
+                                                 lut_bf16=False),
+                           device=cuda_device).search(q)
+    d_x, i_x = IVFSearcher(s.index, SearchConfig(nprobe=16, k=10,
+                                                 backend="xla"),
+                           device=cuda_device).search(q)
+    assert not tie_mismatches(d_f, i_f, d_x, i_x, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_dual_encoder_fit_on_card_matches_cpu(cuda_device, ir_corpus):
+    """Parameters copied off a CPU model: 10 steps on the card, in-batch
+    and with mined negatives, give losses within 1e-3 (relative) of the
+    CPU's."""
+    from chamjax_torch.ir import training_pairs
+    corpus, _q, _qr, tq, tqr, _dids, tokens = ir_corpus
+    pairs = training_pairs(tq, tqr, corpus, min_score=2)
+    neg = np.random.default_rng(0).integers(0, len(corpus), (len(pairs), 3))
+    for kw in ({}, dict(neg_tokens=tokens, neg_idx=neg)):
+        cpu = _dual("cpu")
+        card = _dual(cuda_device)
+        card.load_state_dict(cpu.state_dict())
+        args = dict(steps=10, batch=32, lr=3e-3, seed=4, **kw)
+        np.testing.assert_allclose(card.fit(pairs, **args),
+                                   cpu.fit(pairs, **args), rtol=1e-3)
+
+
+@pytest.mark.gpu
+def test_binary_hamming_on_card_matches_numpy(cuda_device):
+    from chamjax_torch.ir.ann import _words, hamming
+    rng = np.random.default_rng(1)
+    qb = rng.integers(0, 256, size=(7, 24), dtype=np.uint8)
+    cb = rng.integers(0, 256, size=(300, 24), dtype=np.uint8)
+    got = hamming(torch.from_numpy(_words(qb)).to(cuda_device),
+                  torch.from_numpy(_words(cb)).to(cuda_device))
+    want = np.unpackbits(qb[:, None] ^ cb[None], axis=-1).sum(-1)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.gpu
+def test_mining_takes_the_ivfpq_branch_on_card(cuda_device, ir_corpus):
+    """On the card the mining builds an IVF-PQ index and searches it with
+    the tiled kernel; it never falls back to the exact branch, and a
+    corpus too small for the index raises."""
+    corpus, _q, _qr, tq, tqr, dids, tokens = ir_corpus
+    enc = _dual(cuda_device)
+    qs = sorted(tq)[:32]
+    idx = {d: i for i, d in enumerate(dids)}
+    positives = [{idx[d] for d in tqr[q]} for q in qs]
+    before = cuda_lib.launch_counts["adc_scan_tiles"]
+    neg = enc.mine_hard_negatives([tq[q] for q in qs], tokens,
+                                  positives=positives, n_neg=4, depth=16)
+    assert cuda_lib.launch_counts["adc_scan_tiles"] > before
+    assert enc.mining[-1]["branch"] == "ivfpq"
+    assert neg.shape == (32, 4)
+    for row, pos in zip(neg, positives):
+        assert not set(row.tolist()) & pos
+    small = (tokens[0][:1000], tokens[1][:1000])
+    with pytest.raises(ValueError, match="too few"):
+        enc.mine_hard_negatives(["x"], small, positives=[set()])
+    enc.mine_hard_negatives(["x"], small, positives=[set()],
+                            use_ivfpq=False)
+    assert enc.mining[-1]["branch"] == "exact"
+
+
+@pytest.mark.gpu
+def test_decoder_reader_captured_matches_eager(cuda_device):
+    """The reader's decode replays one captured step graph (owned by its
+    cache) and gives the eager tokens, bit for bit."""
+    from chamjax_torch.config import ModelConfig
+    from chamjax_torch.rag import DecoderReader
+    from chamjax_torch.utils import graphs
+    cfg = ModelConfig(model_type="decoder", embed_dim=128, ffn_embed_dim=256,
+                      layers=2, attention_heads=4, vocab_size=1000,
+                      max_seq_len=64)
+    r = DecoderReader(cfg=cfg, max_new_tokens=16, device=cuda_device)
+    prompts = ["what is a rocket?", "bake a pie", "", "bonds and yields"]
+    got = [r.generate_ids(p) for p in prompts]
+    assert len(r.cache.graphs) == 1
+    with graphs.disable_capture():
+        want = [r.generate_ids(p) for p in prompts]
+    assert got == want

@@ -177,8 +177,25 @@ def test_import_leaves_jax_out():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
-_IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|chamjax)(?:[.\s,]|$)",
-                     re.M)
+_IMPORT = re.compile(
+    r"^\s*(?:import|from)\s+(jax|optax|chamjax)(?:[.\s,]|$)", re.M)
+
+
+def test_ir_rag_hf_adapter_leave_jax_optax_chamjax_out():
+    """The retrieval-quality path (``ir``, ``rag``, ``serving.hf_adapter``)
+    imports neither jax, optax nor chamjax: training is torch autograd and
+    ``torch.optim.Adam``."""
+    code = ("import sys, chamjax_torch.ir, chamjax_torch.ir.ann, "
+            "chamjax_torch.ir.models, chamjax_torch.ir.rerank, "
+            "chamjax_torch.ir.synth, chamjax_torch.ir.train, "
+            "chamjax_torch.rag, chamjax_torch.rag.pipeline, "
+            "chamjax_torch.rag.vector_store, chamjax_torch.rag.loaders, "
+            "chamjax_torch.serving.hf_adapter, chamjax_torch.models.convert; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'optax', 'chamjax')); print(bad); sys.exit(bool(bad))")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
 
 
 def test_no_source_imports_jax_or_chamjax():
