@@ -1,17 +1,18 @@
 """Measurement variants of the ADC scan body (the port of
 ``benchmarks/kernel_variants.py``).
 
-Each variant changes one part of the production scan body, so that the
-difference in time prices that part on the card (the table is in
-``chamjax_torch/csrc/adc_scan_variants.cu``): the LUT gather (``nogather``),
-the sum over m (``nosum``), the packed-bf16 decode (``bf16`` against
-``bf16_trim`` and ``bf16_nodecode``), byte against 32-bit code loads
-(``bytes_*``, ``i32view_*``, ``i32codes``), the code traffic itself
-(``bf16_trim_nodma``, ``dma_only``), the output writes (``bf16_min``),
-several rows per thread (``bf16_trim_w4``), a two-pass decode and reduce
-(``bf16_mxu``), and a tile staged in shared memory against one read in
-place (``contig_bf16t`` against ``block_bf16t``).  ``--same-lut`` gives
-every window LUT row 0.
+Each variant is the production scan's staged body
+(``chamjax_torch/csrc/adc_scan_stage.cuh``) with one step changed, so that
+the difference in time prices that step on the card (the table is in
+``chamjax_torch/csrc/adc_scan_variants.cu``): the LUT gather
+(``nogather``), the sum over m (``nosum``), the packed-bf16 decode
+(``bf16`` against ``bf16_trim`` and ``bf16_nodecode``), int32 codes
+(``i32codes``), the output order (``bytes_*``, ``i32view_*``), the code
+traffic itself (``bf16_trim_nodma``, ``dma_only``), the output writes
+(``bf16_min``), rows a thread (``bf16_trim_w4``), a two-pass decode and
+reduce (``bf16_mxu``), and one bulk copy of a whole tile against the
+``cp.async`` ring (``contig_bf16t`` against ``block_bf16t``).
+``--same-lut`` gives every window LUT row 0.
 
 :func:`run_variant` and :func:`run_block_variant` keep the JAX contracts:
 on a CUDA tensor they launch ``adc_scan_variants.cu``, on a CPU tensor
@@ -22,9 +23,14 @@ they run the plain versions :func:`run_variant_reference` and
         --variants f32 bf16 bf16_trim nogather --segs 2048
 
 prints one JSON line per (seg, group, variant): the JAX keys (``variant,
-seg, group, ms, grows, code_gbs``) and ``bound_ms``, ``bound_by``,
-``max_abs_err`` (the first output against the plain version, at the same
-shape) and the card's name and power limit.  It needs the card.
+seg, group, ms, grows, code_gbs``), ``bound_ms``, ``bound_by``,
+``bound_share`` (bound over time), ``max_abs_err`` (the first output
+against the plain version, at the same shape), the production
+``counterpart`` over the same windows (``adc_scan_segments`` with the
+variant's LUTs, ``adc_scan_tiles`` for the tiled layout; lens = seg), its
+``counterpart_ms`` and ``minus_counterpart_ms`` (the variant's time less
+the counterpart's), and the card's name and power limit.  It needs the
+card.
 """
 
 from __future__ import annotations
@@ -38,7 +44,8 @@ from typing import Dict, Iterator, List, Optional
 import torch
 
 from chamjax_torch.benchmarks.bounds import variant_bound
-from chamjax_torch.ops.scan_seg import pack_luts_bf16
+from chamjax_torch.ops.scan_seg import adc_scan_segments, pack_luts_bf16
+from chamjax_torch.ops.scan_seg_block import adc_scan_tiles
 from chamjax_torch.perf_model import H100
 from chamjax_torch.utils import cuda_lib
 from chamjax_torch.utils.device import card_description, resolve_device
@@ -81,6 +88,23 @@ def start_multiple(variant: str, seg: int) -> int:
 # ---------------------------------------------------------------------------
 # input checks
 # ---------------------------------------------------------------------------
+
+
+def smem_bytes(variant: str, m: int, seg: int) -> int:
+    """The least shared memory a CTA of ``variant`` runs with at (m, seg)
+    (``launch_staged``): the LUT row; for ``contig_bf16t`` the whole tile
+    and its mbarrier; else the code slots of the narrowest work item (128
+    columns; two where the window is wider), 4 bytes a code for
+    ``i32codes``, and ``bf16_min``'s lane buffer or ``bf16_mxu``'s decoded
+    entries.  The kernel widens the item as far as the card allows."""
+    lut = m * (128 if packed(variant) else 256) * 4
+    if variant == "contig_bf16t":
+        return lut + m * seg + 16
+    elem = 4 if variant == "i32codes" else 1
+    slots = 2 if seg > LANES else 1
+    return (lut + slots * m * (LANES * elem + 16)
+            + (4 * LANES if variant == "bf16_min" else 0)
+            + (4 * m * LANES if variant == "bf16_mxu" else 0))
 
 
 def _check(what: str, codes, starts, lens, lut_idx, luts, *, seg: int,
@@ -147,9 +171,7 @@ def _check(what: str, codes, starts, lens, lut_idx, luts, *, seg: int,
             raise ValueError(f"{what}: {variant} reads code rows as 32-bit "
                              f"words; n={codes.shape[1]} is not a multiple "
                              f"of 4")
-        smem = m * (128 if packed(variant) else 256) * 4 + (
-            m * seg if variant == "contig_bf16t" else
-            4 * m * seg if variant == "bf16_mxu" else 0)
+        smem = smem_bytes(variant, m, seg)
         if smem > SMEM_LIMIT:
             raise ValueError(f"{what}: {variant} needs {smem} bytes of "
                              f"shared memory at m={m}, seg={seg} (the card "
@@ -323,8 +345,9 @@ def run_block_variant(codes_tiled, starts, lens, lut_idx, luts, *, seg: int,
                       group: int) -> torch.Tensor:
     """``bf16_trim`` over the seg-tiled layout (n/seg, m, seg) uint8,
     window w reading tile ``starts[w] // seg`` (starts are row starts,
-    multiples of seg) straight from device memory; packed LUTs.  Same
-    checks as :func:`run_variant`."""
+    multiples of seg) through the staged ``cp.async`` ring, as
+    ``adc_scan_tiles`` reads its tiles; packed LUTs.  Same checks as
+    :func:`run_variant`."""
     _check("run_block_variant", codes_tiled, starts, lens, lut_idx, luts,
            seg=seg, group=group, variant=BLOCK_VARIANT)
     if codes_tiled.device.type == "cpu":
@@ -477,10 +500,27 @@ def inputs_for(data: Dict, variant: str, seg: int, starts: torch.Tensor):
     return codes, starts
 
 
+def counterpart(variant: str, data: Dict, cd, st, lens, lut_idx, luts, *,
+                seg: int):
+    """``(name, fn)``: the production scan over the variant's windows
+    (lens = seg), the study's yardstick: ``adc_scan_tiles`` (packed LUTs,
+    f32 out) over the tiles of ``contig``/``block``, else
+    ``adc_scan_segments`` with the variant's LUTs over the same columns of
+    the uint8 slab."""
+    if _tiled(variant):
+        tiles = st // seg
+        return "adc_scan_tiles", lambda: adc_scan_tiles(
+            cd, tiles, lens, lut_idx, luts, seg=seg, lut_bf16=True)
+    codes = data["codes"]
+    return "adc_scan_segments", lambda: adc_scan_segments(
+        codes, st, lens, lut_idx, luts, seg=seg, lut_bf16=packed(variant))
+
+
 def study(args: argparse.Namespace, dev: torch.device,
           card: str) -> Iterator[Dict]:
     """Yield one row per (seg, group, variant), its first output held
-    against its plain version (:func:`hold`) before it is timed; a variant
+    against its plain version (:func:`hold`) before it is timed, then its
+    production :func:`counterpart` timed over the same windows; a variant
     that raises or disagrees yields an ``error`` row and the study goes
     on."""
     data = make_data(args, dev)
@@ -515,6 +555,9 @@ def study(args: argparse.Namespace, dev: torch.device,
                     bound_ms, bound_by = variant_bound(
                         variant, cd, st, li, lt, seg=seg,
                         out_bytes=out.numel() * 4)
+                    prod, prod_fn = counterpart(variant, data, cd, st, lens,
+                                                li, lt, seg=seg)
+                    prod_ms = event_ms(prod_fn)
                 except Exception as e:  # noqa: BLE001 — one variant's fault
                     yield dict(row, error=f"{type(e).__name__}: "
                                           f"{str(e)[:800]}")
@@ -522,7 +565,9 @@ def study(args: argparse.Namespace, dev: torch.device,
                 grows = bw * seg / ms / 1e6
                 yield dict(row, ms=ms, grows=grows, code_gbs=grows * m,
                            bound_ms=bound_ms, bound_by=bound_by,
-                           max_abs_err=err,
+                           bound_share=bound_ms / ms, max_abs_err=err,
+                           counterpart=prod, counterpart_ms=prod_ms,
+                           minus_counterpart_ms=ms - prod_ms,
                            same_lut=args.same_lut, card=card)
 
 

@@ -1,11 +1,13 @@
 """Count the memory instructions of every kernel in the built CUDA
 libraries, from ``cuobjdump -sass``: global loads (``LDG``, by width),
-``cp.async`` copies (``LDGSTS``), shared-memory loads and stores (``LDS``,
-``STS``) and global stores (``STG``).  It shows which loads a kernel kept:
-the measurement bodies use some code bytes only to feed a sink, and must
-still load every one, and the staged scans must copy their code bytes with
-``LDGSTS.128`` instead of byte loads.  Run it again whenever a measurement
-body, its sink or the staged body changes (``adc_scan_variants.cu``,
+``cp.async`` copies (``LDGSTS``), bulk copies (``UBLKCP``, the TMA's
+non-tensor form) and the mbarrier operations that complete them
+(``SYNCS.*``), shared-memory loads and stores (``LDS``, ``STS``) and
+global stores (``STG``).  It shows which loads a kernel kept: the staged
+scans and the measurement variants must copy their code bytes with
+``LDGSTS.128`` (or one ``UBLKCP``) instead of byte loads, and a sink must
+keep the loads that feed it.  Run it again whenever a measurement body,
+its sink or the staged body changes (``adc_scan_variants.cu``,
 ``adc_scan_stage.cuh``): the counts in the notes and in PERF.md are this
 report's.
 
@@ -30,7 +32,7 @@ from typing import Dict, Iterator, List, Optional
 
 from chamjax_torch.utils import cuda_lib
 
-KINDS = ("LDG", "LDGSTS", "LDS", "STS", "STG")
+KINDS = ("LDG", "LDGSTS", "UBLKCP", "SYNCS", "LDS", "STS", "STG")
 _FUNCTION = re.compile(r"^\s*Function\s*:\s*(\S+)")
 # "/*0090*/   @!P0 LDG.E.U8 R2, desc[UR4][R2.64] ;"
 _INSTR = re.compile(

@@ -62,7 +62,7 @@
 // across windows inside one CTA.  benchmarks/scan_timing.py times the
 // chosen setting against an earlier csrc.
 // SASS (chamjax_torch/benchmarks/sass_report.py --match adc_scan_flat,
-// nvcc 12.8, sm_90a): 24 LDGSTS.E.BYPASS.128, 6 LDG.E (indices), no
+// nvcc 12.8, sm_90a): 17 LDGSTS.E.BYPASS.128, 5 LDG.E (indices), no
 // LDG.E.U8 in each of the four instantiations; the earlier body held 15
 // LDG.E.U8 in its unrolled code loop.
 

@@ -53,8 +53,8 @@
 // of adc_scan_stage.cuh; benchmarks/scan_timing.py times them against an
 // earlier csrc.
 // SASS (chamjax_torch/benchmarks/sass_report.py --match adc_scan_tiles,
-// nvcc 12.8, sm_90a): every staged body holds 24 LDGSTS.E.BYPASS.128 (the
-// 16-byte copies), 4-6 LDG.E (the window's indices) and no LDG.E.U8; the
+// nvcc 12.8, sm_90a): every staged body holds 17 LDGSTS.E.BYPASS.128 (the
+// 16-byte copies), 3-5 LDG.E (the window's indices) and no LDG.E.U8; the
 // earlier byte-load body held 15 LDG.E.U8 in its unrolled code loop and
 // 29 LDG.E.128 + 29 STS.128 for the LUT row.
 

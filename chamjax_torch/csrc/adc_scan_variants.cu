@@ -5,60 +5,69 @@
 //   run_variant        (body _kernel)       -> chamjax_run_variant
 //   run_block_variant  (body _kernel_block) -> chamjax_run_block_variant
 //
-// Each variant changes one part of the production scan body of
-// adc_scan_flat.cu / adc_scan_tiles.cu, so that "production minus variant"
-// prices that part on the card.  Every variant stages the window's LUT row
-// in shared memory (the production prologue), even where it never gathers;
-// none reads `lens` (the TPU kernel never does).  For window w (one CTA of
-// 128 threads), L = LUT row lut_idx[w], c[j, r] = code at column
-// starts[w] + r of code row j:
+// The TPU variants are the production scan's pipeline (double-buffered
+// window copies started one window ahead) with one step changed, so that
+// "production minus variant" prices that step.  Here every variant is the
+// production scan's staged body (adc_scan_stage.cuh: 16-byte cp.async.cg
+// staging of the code columns and the LUT row issued before any wait, two
+// code slots so item i+1 is in flight while item i is summed, 32-bit reads
+// of the staged rows with a funnel shift where a row is misaligned, four
+// rows a thread, fp32 sums in order over j, 128 threads, registers for 12
+// CTAs an SM) with the same one step changed, through the header's body
+// hooks.  None reads `lens`: every window is seg rows.  For window w, L =
+// LUT row lut_idx[w], c[j, r] = code at column starts[w] + r of code row j:
 //
-//   f32            sum_j L[j, c[j,r]], f32 LUT (m, 256)          baseline body
-//   i32codes       as f32, codes stored int32                    u8 loads/unpack
-//   bf16           packed LUT, 4-op decode                       production decode
-//   bf16_trim      packed LUT, 3-op decode (bit-equal to bf16)   decode op count
+//   f32            the production body, f32 LUT (m, 256)        baseline
+//   i32codes       codes int32 in memory and in the slots (a chunk of 256
+//                  columns keeps a slot's bytes); no byte unpack  u8 unpack
+//   bf16           packed LUT, 4-op decode                      decode ops
+//   bf16_trim      the production body, packed LUT (3-op decode)
 //   bf16_nodecode  sum_j f32 bits of the packed word c>>1        decode cost
-//   bf16_trim_w4   bf16_trim, four row groups per thread at once rows per thread
-//   bf16_trim_nodma  bf16_trim of code 0 on every row; no code load  code traffic
-//   bf16_min       per-lane min over row groups, (bW, 128) out   output writes
-//   bf16_mxu       decode into a shared (m, seg) f32 buffer, then
-//                  a second pass sums over m                     decode vs reduce
-//   nosum          L[0, c[0,r] & 127], the other m-1 gathers sunk  the sum
-//   nogather       sum_j c[j,r] as f32 (integer adds)            the LUT gather
-//   dma_only       out[w, g*128 + l] = c[0, l]; every code byte of
-//                  the window is read and sunk                   code bandwidth
-//   bytes_f32/_bf16     one 32-bit load = 4 codes; output permuted,
-//                  out[w, b*(seg/4) + f] = dist(row 4f + b)      32-bit code loads
+//   bf16_trim_w4   four row quads a thread, 16 sums (64 registers)
+//   bf16_trim_nodma  the LUT staged, no code copy issued; code 0 from
+//                  q * never (never = 0, unknown to the compiler) code traffic
+//   bf16_min       lane_l1's pass, min only, (bW, 128) out       output writes
+//   bf16_mxu       pass 1 decodes an item (512 columns) into shared memory,
+//                  pass 2 sums it over m                     decode vs reduce
+//   nosum          L[0, c[0,r] & 127]; rows j > 0 gathered, XORed into a
+//                  sink stored only if never != 0                the sum
+//   nogather       sum_j c[j,r] as f32 (integer adds)            the gather
+//   dma_only       out[w, r] = c[0, r % 128]; every code copied  code traffic
+//   bytes_f32/_bf16     the same word reads, permuted store
+//                  out[w, b*(seg/4) + f] = dist(row 4f + b)    output order
 //   i32view_f32/_bf16   the same, codes given as an (m, n/4) int32 view
-//   contig_bf16t   bf16_trim over the seg-tiled (n/seg, m, seg) layout,
-//                  tile starts[w]/seg staged in shared memory by cp.async
-//   block_bf16t    the same function, codes read straight from global memory
-//                  as adc_scan_tiles.cu reads them           staged vs direct
+//   block_bf16t    the staged ring over the seg-tiled (n/seg, m, seg)
+//                  layout (adc_scan_tiles' route), packed LUT, tile
+//                  starts[w]/seg
+//   contig_bf16t   the same, the whole contiguous (m, seg) tile in ONE
+//                  bulk copy (cp.async.bulk, the TMA's non-tensor form)
+//                  completed on an mbarrier, then the compute  ring vs one copy
 //
-// "Sunk" values feed an XOR that is stored only when the runtime argument
-// `never` is non-zero (the wrapper passes 0), so the compiler cannot drop
-// those loads.  Checked in the SASS (chamjax_torch/benchmarks/
-// sass_report.py, nvcc 12.8, sm_90a): every variant that reads codes byte
-// by byte keeps the production loop's 15 LDG.E.U8 (28 in w4's four-group
-// loop), i32codes has 32-bit loads in their place, the word variants 32-bit
-// loads, contig cp.async (LDGSTS.128) and byte LDS; nosum keeps its LDS
-// gathers; bf16_trim_nodma has no code load.
+// The bf16_mxu reduction is plain shared-memory sums, in order over j (the
+// TPU twin's MXU dot with a ones row; an mma.sync with a ones operand
+// would sum the 16 entries of m in the tensor core's order instead).
+// SASS (chamjax_torch/benchmarks/sass_report.py --match adc_scan_variants):
+// no variant loads codes with byte-wide global loads (LDG.E.U8): the code
+// bytes arrive by LDGSTS.128, or by one UBLKCP for contig_bf16t (with the
+// SYNCS mbarrier ops); bf16_trim_nodma issues only the LUT row's copies.
 //
-// Bound on an H100 SXM (3.35 TB/s): the variants read m*seg code bytes per
-// window (4x that for i32codes) and write 4*seg bytes; at the harness's
-// default shape (bW=4096, seg=2048, m=16, random windows over a 256 MB slab)
-// that is 134 MB of codes, 34 MB of output and up to 67 MB of LUT rows:
-// 0.05-0.07 ms by bytes.  The adds (134M) take 2 us at 67 TFLOP/s.  Bound by
-// bytes.  The design is that of the production kernels: one CTA of 128
-// threads per window, thread t owning rows t, t+128, ..., the LUT row in
-// shared memory; this file adds nothing to make the variants fast.
+// Bound on an H100 SXM (3.35 TB/s HBM, 67 TFLOP/s fp32; benchmarks/
+// bounds.py::variant_bound): what each function needs, each byte once.  At
+// the study's full width (bW 4096, m 16, seg 2048, random windows over a
+// 16M-column slab, 4096 LUT rows) the f32 body reads 134 MB of codes, 64
+// MB of distinct LUT rows and writes 34 MB: 0.0539 ms; block_bf16t 0.0475
+// (its distinct tiles, packed rows); the 134M adds take 2 us.  Bound by
+// bytes.  The smoke's phase-2 shape (a 2^20-column slab) repeats columns,
+// so its bounds are lower: 0.0275 and 0.0213 ms.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "adc_scan_stage.cuh"
+
 namespace {
 
-constexpr int kLanes = 128;
+using namespace chamjax_stage;
 
 enum Variant : int {
   kF32 = 0,
@@ -81,325 +90,63 @@ enum Variant : int {
   kBlockBf16t = 17,
 };
 
-__host__ __device__ constexpr bool packed_lut(int v) {
-  return v == kBf16 || v == kBf16Trim || v == kBf16NoDecode ||
-         v == kBf16TrimW4 || v == kBf16TrimNoDma || v == kBf16Min ||
-         v == kBf16Mxu || v == kBytesBf16 || v == kI32ViewBf16 ||
-         v == kContigBf16t || v == kBlockBf16t;
-}
-
-__host__ __device__ constexpr bool word_loads(int v) {
+bool word_strides(int v) {
   return v == kBytesF32 || v == kBytesBf16 || v == kI32ViewF32 ||
          v == kI32ViewBf16;
 }
 
-__device__ __forceinline__ float f32_entry(const uint32_t* lut, int j,
-                                           uint32_t c) {
-  return __uint_as_float(lut[j * 256 + c]);
-}
+using LaunchFn = cudaError_t (*)(StageArgs, cudaStream_t);
 
-// 3-op decode: an odd code keeps the high half in place, an even code moves
-// the low half up (bf16 -> f32 bits)
-__device__ __forceinline__ float trim_entry(const uint32_t* lut, int j,
-                                            uint32_t c) {
-  const uint32_t v = lut[j * 128 + (c >> 1)];
-  return __uint_as_float((c & 1u) ? (v & 0xFFFF0000u) : (v << 16));
-}
+// The staged body of a variant: <packed LUT, output, body, flat layout>,
+// lens unread.
+template <bool kPacked, int kOut, int kBody, bool kFlat>
+constexpr LaunchFn kStudy = &launch_staged<kPacked, kOut, kBody, kFlat, false>;
 
-// 4-op decode of the TPU's production body: select the half, mask, shift
-__device__ __forceinline__ float decode4_entry(const uint32_t* lut, int j,
-                                               uint32_t c) {
-  const uint32_t v = lut[j * 128 + (c >> 1)];
-  return __uint_as_float((((c & 1u) ? (v >> 16) : v) & 0xFFFFu) << 16);
-}
-
-template <int V>
-__device__ __forceinline__ float entry(const uint32_t* lut, int j,
-                                       uint32_t c) {
-  if constexpr (V == kBf16) {
-    return decode4_entry(lut, j, c);
-  } else if constexpr (V == kBf16NoDecode) {
-    return __uint_as_float(lut[j * 128 + (c >> 1)]);
-  } else if constexpr (packed_lut(V)) {
-    return trim_entry(lut, j, c);
-  } else {
-    return f32_entry(lut, j, c);
+LaunchFn pick(int v) {
+  switch (v) {
+    case kF32:           return kStudy<false, kOutF32, kBodyAdc, true>;
+    case kI32Codes:      return kStudy<false, kOutF32, kBodyI32, true>;
+    case kBf16:          return kStudy<true, kOutF32, kBodyDecode4, true>;
+    case kBf16Trim:      return kStudy<true, kOutF32, kBodyAdc, true>;
+    case kBf16NoDecode:  return kStudy<true, kOutF32, kBodyNoDecode, true>;
+    case kBf16TrimW4:    return kStudy<true, kOutF32, kBodyW4, true>;
+    case kBf16TrimNoDma: return kStudy<true, kOutF32, kBodyNoDma, true>;
+    case kBf16Min:       return kStudy<true, kOutMin, kBodyAdc, true>;
+    case kBf16Mxu:       return kStudy<true, kOutF32, kBodyMxu, true>;
+    case kNoSum:         return kStudy<false, kOutF32, kBodyNoSum, true>;
+    case kNoGather:      return kStudy<false, kOutF32, kBodyNoGather, true>;
+    case kDmaOnly:       return kStudy<false, kOutF32, kBodyDmaOnly, true>;
+    case kBytesF32:
+    case kI32ViewF32:    return kStudy<false, kOutPermuted, kBodyAdc, true>;
+    case kBytesBf16:
+    case kI32ViewBf16:   return kStudy<true, kOutPermuted, kBodyAdc, true>;
+    case kContigBf16t:   return kStudy<true, kOutF32, kBodyContig, false>;
+    case kBlockBf16t:    return kStudy<true, kOutF32, kBodyAdc, false>;
+    default:             return nullptr;
   }
-}
-
-// The LUT row of window w into shared memory with 16-byte loads.
-__device__ __forceinline__ void stage_lut(uint4* smem, const uint32_t* luts,
-                                          int64_t row, int words) {
-  const uint4* src = reinterpret_cast<const uint4*>(luts + row * words);
-  for (int i = threadIdx.x; i < words / 4; i += kLanes) smem[i] = src[i];
-}
-
-__device__ __forceinline__ void cp_async16(void* smem_dst,
-                                           const void* gmem_src) {
-  const unsigned dst =
-      static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(gmem_src));
-}
-
-// One row per thread per row group: every variant but the word-load and
-// two-pass ones.  `stride` is the code row stride in elements (uint8, or
-// int32 for i32codes); the tiled variants ignore it.
-template <int V>
-__global__ void __launch_bounds__(kLanes)
-variant_rows_kernel(const void* __restrict__ codes, int64_t stride,
-                    const int32_t* __restrict__ starts,
-                    const int32_t* __restrict__ lut_idx,
-                    const uint32_t* __restrict__ luts,
-                    float* __restrict__ out, int m, int seg, int never) {
-  extern __shared__ uint4 smem[];
-  const uint32_t* lut = reinterpret_cast<const uint32_t*>(smem);
-  constexpr int kWords = packed_lut(V) ? 128 : 256;
-  const int64_t w = blockIdx.x;
-  const int t = threadIdx.x;
-  const int64_t start = starts[w];
-  stage_lut(smem, luts, lut_idx[w], m * kWords);
-
-  const uint8_t* c8 = static_cast<const uint8_t*>(codes) + start;
-  const int32_t* c32 = static_cast<const int32_t*>(codes) + start;
-  const uint8_t* tile = static_cast<const uint8_t*>(codes) +
-                        (start / seg) * static_cast<int64_t>(m) * seg;
-  if constexpr (V == kContigBf16t) {
-    // the whole (m, seg) tile, one contiguous slab, into shared memory
-    uint8_t* dst = reinterpret_cast<uint8_t*>(smem) + m * kWords * 4;
-    for (int i = t; i < m * seg / 16; i += kLanes) {
-      cp_async16(dst + 16 * i, tile + 16 * i);
-    }
-    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
-                     : "memory");
-    tile = dst;
-  }
-  __syncthreads();
-
-  auto code = [&](int j, int r) -> uint32_t {
-    if constexpr (V == kI32Codes) {
-      return static_cast<uint32_t>(c32[j * stride + r]);
-    } else if constexpr (V == kContigBf16t || V == kBlockBf16t) {
-      return tile[j * seg + r];
-    } else if constexpr (V == kBf16TrimNoDma) {
-      // no load: code 0 on every row, from a value the compiler cannot fold
-      return static_cast<uint32_t>(r * never) & 0xFFu;
-    } else {
-      return c8[j * stride + r];
-    }
-  };
-
-  const int groups = seg / kLanes;
-  float* o = out + w * seg;
-  uint32_t sink = 0;
-  if constexpr (V == kBf16TrimW4) {
-    // four row groups per thread, four independent sums
-    for (int g = 0; g < groups; g += 4) {
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-      for (int j = 0; j < m; ++j) {
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          acc[k] += entry<V>(lut, j, code(j, (g + k) * kLanes + t));
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < 4; ++k) o[(g + k) * kLanes + t] = acc[k];
-    }
-    return;
-  }
-  float best = __int_as_float(0x7f800000);
-  uint32_t c0 = 0;
-  for (int g = 0; g < groups; ++g) {
-    const int r = g * kLanes + t;
-    float acc = 0.f;
-    // the sinks keep the production loop's shape over j = 0..m-1 (see
-    // adc_scan_tiles.cu's copy body)
-    if constexpr (V == kNoSum) {
-#pragma unroll 8
-      for (int j = 0; j < m; ++j) {
-        const float e = f32_entry(lut, j, code(j, r) & 127u);
-        if (j == 0) {
-          acc = e;
-        } else {
-          sink ^= __float_as_uint(e);
-        }
-      }
-    } else if constexpr (V == kNoGather) {
-      uint32_t s = 0;
-#pragma unroll 8
-      for (int j = 0; j < m; ++j) s += code(j, r);
-      acc = static_cast<float>(s);
-    } else if constexpr (V == kDmaOnly) {
-#pragma unroll 8
-      for (int j = 0; j < m; ++j) {
-        const uint32_t v = code(j, r);
-        if (j == 0 && g == 0) {
-          c0 = v;
-        } else {
-          sink ^= v;
-        }
-      }
-      acc = static_cast<float>(c0);
-    } else {
-#pragma unroll 8
-      for (int j = 0; j < m; ++j) acc += entry<V>(lut, j, code(j, r));
-    }
-    if constexpr (V == kBf16Min) {
-      best = fminf(best, acc);
-    } else {
-      o[r] = acc;
-    }
-  }
-  if constexpr (V == kBf16Min) {
-    out[w * kLanes + t] = best;
-  }
-  if constexpr (V == kNoSum || V == kDmaOnly) {
-    if (never) o[t] = __uint_as_float(sink);
-  }
-}
-
-// bytes_* and i32view_*: thread t loads 32-bit words f = t, t+128, ... of
-// each code row (four codes a load) and keeps four sums, one per byte.
-// `stride` is the code row stride in words.
-template <int V>
-__global__ void __launch_bounds__(kLanes)
-variant_words_kernel(const void* __restrict__ codes, int64_t stride,
-                     const int32_t* __restrict__ starts,
-                     const int32_t* __restrict__ lut_idx,
-                     const uint32_t* __restrict__ luts,
-                     float* __restrict__ out, int m, int seg, int never) {
-  extern __shared__ uint4 smem[];
-  const uint32_t* lut = reinterpret_cast<const uint32_t*>(smem);
-  constexpr int kWords = packed_lut(V) ? 128 : 256;
-  const int64_t w = blockIdx.x;
-  stage_lut(smem, luts, lut_idx[w], m * kWords);
-  __syncthreads();
-  const uint32_t* words =
-      static_cast<const uint32_t*>(codes) + starts[w] / 4;
-  const int q = seg / 4;
-  float* o = out + w * seg;
-  for (int f = threadIdx.x; f < q; f += kLanes) {
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-    for (int j = 0; j < m; ++j) {
-      const uint32_t v = words[j * stride + f];
-#pragma unroll
-      for (int b = 0; b < 4; ++b) acc[b] += entry<V>(lut, j, (v >> (8 * b)) & 0xFFu);
-    }
-#pragma unroll
-    for (int b = 0; b < 4; ++b) o[b * q + f] = acc[b];
-  }
-}
-
-// bf16_mxu: pass 1 decodes every (j, r) into a shared (m, seg) f32 buffer,
-// pass 2 sums it over m.
-__global__ void __launch_bounds__(kLanes)
-variant_mxu_kernel(const void* __restrict__ codes, int64_t stride,
-                   const int32_t* __restrict__ starts,
-                   const int32_t* __restrict__ lut_idx,
-                   const uint32_t* __restrict__ luts,
-                   float* __restrict__ out, int m, int seg, int never) {
-  extern __shared__ uint4 smem[];
-  const uint32_t* lut = reinterpret_cast<const uint32_t*>(smem);
-  float* gbuf = reinterpret_cast<float*>(smem) + m * 128;
-  const int64_t w = blockIdx.x;
-  const int t = threadIdx.x;
-  stage_lut(smem, luts, lut_idx[w], m * 128);
-  __syncthreads();
-  const uint8_t* c8 = static_cast<const uint8_t*>(codes) + starts[w];
-  for (int r = t; r < seg; r += kLanes) {
-#pragma unroll 8
-    for (int j = 0; j < m; ++j) {
-      gbuf[j * seg + r] = trim_entry(lut, j, c8[j * stride + r]);
-    }
-  }
-  __syncthreads();
-  float* o = out + w * seg;
-  for (int r = t; r < seg; r += kLanes) {
-    float acc = 0.f;
-#pragma unroll 8
-    for (int j = 0; j < m; ++j) acc += gbuf[j * seg + r];
-    o[r] = acc;
-  }
-}
-
-size_t smem_bytes(int v, int m, int seg) {
-  size_t b = static_cast<size_t>(m) * (packed_lut(v) ? 128 : 256) * 4;
-  if (v == kContigBf16t) b += static_cast<size_t>(m) * seg;
-  if (v == kBf16Mxu) b += static_cast<size_t>(m) * seg * 4;
-  return b;
-}
-
-using KernelFn = void (*)(const void*, int64_t, const int32_t*,
-                          const int32_t*, const uint32_t*, float*, int, int,
-                          int);
-
-template <int V>
-cudaError_t launch(const void* codes, int64_t stride, const int32_t* starts,
-                   const int32_t* lut_idx, const uint32_t* luts, float* out,
-                   int bw, int m, int seg, int never, cudaStream_t stream) {
-  KernelFn kernel;
-  if constexpr (V == kBf16Mxu) {
-    kernel = variant_mxu_kernel;
-  } else if constexpr (word_loads(V)) {
-    kernel = variant_words_kernel<V>;
-  } else {
-    kernel = variant_rows_kernel<V>;
-  }
-  const size_t smem = smem_bytes(V, m, seg);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  kernel<<<bw, kLanes, smem, stream>>>(codes, stride, starts, lut_idx, luts,
-                                       out, m, seg, never);
-  return cudaGetLastError();
 }
 
 int run(const void* codes, long long stride, const void* starts,
         const void* lut_idx, const void* luts, void* out, int bw, int m,
         int seg, int variant, int never, void* stream) {
-  if (bw <= 0 || m <= 0 || seg <= 0 || seg % kLanes ||
-      ((variant == kBf16TrimW4 || word_loads(variant)) && seg % 512)) {
+  const LaunchFn go = pick(variant);
+  if (!go || bw <= 0 || m <= 0 || seg <= 0 || seg % kLanes ||
+      ((variant == kBf16TrimW4 || word_strides(variant)) && seg % 512)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto* st = static_cast<const int32_t*>(starts);
-  const auto* li = static_cast<const int32_t*>(lut_idx);
-  const auto* lu = static_cast<const uint32_t*>(luts);
-  auto* o = static_cast<float*>(out);
-  auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  switch (variant) {
-#define CHAMJAX_VARIANT(V)                                              \
-  case V:                                                               \
-    e = launch<V>(codes, stride, st, li, lu, o, bw, m, seg, never, s);  \
-    break;
-    CHAMJAX_VARIANT(kF32)
-    CHAMJAX_VARIANT(kI32Codes)
-    CHAMJAX_VARIANT(kBf16)
-    CHAMJAX_VARIANT(kBf16Trim)
-    CHAMJAX_VARIANT(kBf16NoDecode)
-    CHAMJAX_VARIANT(kBf16TrimW4)
-    CHAMJAX_VARIANT(kBf16TrimNoDma)
-    CHAMJAX_VARIANT(kBf16Min)
-    CHAMJAX_VARIANT(kBf16Mxu)
-    CHAMJAX_VARIANT(kNoSum)
-    CHAMJAX_VARIANT(kNoGather)
-    CHAMJAX_VARIANT(kDmaOnly)
-    CHAMJAX_VARIANT(kBytesF32)
-    CHAMJAX_VARIANT(kBytesBf16)
-    CHAMJAX_VARIANT(kI32ViewF32)
-    CHAMJAX_VARIANT(kI32ViewBf16)
-    CHAMJAX_VARIANT(kContigBf16t)
-    CHAMJAX_VARIANT(kBlockBf16t)
-#undef CHAMJAX_VARIANT
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(e);
+  StageArgs a{};
+  a.codes = static_cast<const uint8_t*>(codes);
+  // the flat row stride in codes (bytes_* and i32view_* give it in words)
+  a.n_cols = word_strides(variant) ? 4 * stride : stride;
+  a.where = static_cast<const int32_t*>(starts);
+  a.lut_idx = static_cast<const int32_t*>(lut_idx);
+  a.luts = static_cast<const uint32_t*>(luts);
+  a.out = out;
+  a.bw = bw;
+  a.m = m;
+  a.width = seg;
+  a.never = never;
+  return static_cast<int>(go(a, static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace

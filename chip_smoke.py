@@ -1002,16 +1002,16 @@ N_TRACED = 10
 
 def variants_phase(dev):
     """Phase 2: every run_variant variant and run_block_variant against
-    their plain versions at m=16, n=2^20, bW=4096, seg 512 and 2048, each
-    timed beside its plain version and its bound.  Returns {kernel: [entry
-    per (variant, seg)]}, or raises."""
+    their plain versions at m=16, n=2^20, bW=4096, seg 512, 1024 and 2048,
+    each timed beside its plain version and its bound.  Returns {kernel:
+    [entry per (variant, seg)]}, or raises."""
     import torch
     from chamjax_torch.benchmarks import kernel_variants as kv
     from chamjax_torch.benchmarks.bounds import variant_bound
     args = kv.parse_args(["--n", str(1 << 20), "--seed", "3"])
     data = kv.make_data(args, dev)
     out = {"run_variant": [], "run_block_variant": []}
-    for seg in (512, 2048):
+    for seg in (512, 1024, 2048):
         starts = torch.randint(0, (args.n - seg) // 512, (args.bw,),
                                generator=data["gen"], device=dev,
                                dtype=torch.int32) * 512
@@ -1139,8 +1139,9 @@ def host_launch_calls(prof) -> dict:
 def study_phase(dev, card):
     """Phase 5: the kernel-study path at its full width (the JAX harness's
     defaults: a 16M x m16 slab, bW=4096, n_lut=4096): every measurement
-    variant at seg 2048, again with --same-lut, then the roofline matrix
-    at seg 1024 and 2048 with runlen 0 and 8.  Both harnesses hold each
+    variant at seg 2048, each beside its production counterpart over the
+    same windows, again with --same-lut, then the roofline matrix at seg
+    1024 and 2048 with runlen 0 and 8.  Both harnesses hold each
     configuration's first output against its plain version before timing
     it (a disagreement fails the phase).  Counts are set to 0 just before
     and read just after; every kernel of the path must launch."""
@@ -1169,8 +1170,11 @@ def study_phase(dev, card):
         raise AssertionError("kernel study: a time is not finite and > 0")
     for r in rows:
         log(f"study {r['variant']}{' same_lut' if r['same_lut'] else ''}: "
-            f"{r['ms']:.4f} ms, {r['code_gbs']:.0f} code GB/s, bound "
-            f"{r['bound_ms']:.4f} ms, max_abs_err {r['max_abs_err']:.3g}")
+            f"{r['ms']:.4f} ms, {r['code_gbs']:.0f} code GB/s; "
+            f"{r['counterpart']} {r['counterpart_ms']:.4f} ms, variant - "
+            f"counterpart {r['minus_counterpart_ms']:+.4f} ms; bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_share']:.1%} of it); "
+            f"max_abs_err {r['max_abs_err']:.3g}")
     for r in roof:
         log(f"roofline {r}")
     return dict(variants=[r for r in rows if not r["same_lut"]],
@@ -3577,13 +3581,15 @@ def run_smoke(t_smoke, dev, corpus_job) -> int:
         study["launches"]["adc_scan_segments_multi"])
     # the measurement kernels: the row's times are the baseline body's
     # (f32; block_bf16t) at seg 2048 against its plain version; options
-    # hold every variant at seg 512 and 2048
+    # hold every variant at seg 512, 1024 and 2048; full_width_* is the
+    # kernel study's (a 16M-column slab), beside its production counterpart
     for name, head, replaces in (
             ("run_variant", "f32", "benchmarks/kernel_variants.py:322"),
             ("run_block_variant", "block_bf16t",
              "benchmarks/kernel_variants.py:280")):
         rows = variant_options[name]
         h = next(r for r in rows if r["variant"] == head and r["seg"] == 2048)
+        fw = next(r for r in study["variants"] if r["variant"] == head)
         kernels.append(dict(
             name=name, route="cuda",
             source="chamjax_torch/csrc/adc_scan_variants.cu",
@@ -3591,7 +3597,9 @@ def run_smoke(t_smoke, dev, corpus_job) -> int:
             max_abs_err=max(r["max_abs_err"] for r in rows), ms=h["ms"],
             plain_ms=h["plain_ms"], bound_ms=h["bound_ms"],
             bound_by=h["bound_by"], library_ms=None, path="kernel study",
-            options=rows))
+            full_width_ms=fw["ms"], full_width_bound_ms=fw["bound_ms"],
+            full_width_counterpart=fw["counterpart"],
+            full_width_counterpart_ms=fw["counterpart_ms"], options=rows))
     print(json.dumps({"kernels": kernels}), flush=True)
     # busy_share divides by the profiled window, which the profiler
     # stretches; busy_share_unprofiled divides the same kernel time a

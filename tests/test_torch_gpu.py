@@ -434,12 +434,15 @@ def test_streamed_on_card_matches_cpu(card_index, tiled):
         np.testing.assert_array_equal(i_p, i_s)
 
 
-def variant_args(variant, seg, dev, *, m=16, n=1 << 18, bw=512, n_lut=64):
+def variant_args(variant, seg, dev, *, m=16, n=1 << 18, bw=512, n_lut=64,
+                 same_lut=False):
     """Codes in the layout the variant takes, window starts (multiples of
-    512; tile starts for the tiled layouts), full lens, LUT rows and LUTs
-    (packed for the names holding bf16)."""
+    512; tile starts for the tiled layouts; a third of the windows overlap
+    the window before them, or repeat its tile), full lens, LUT rows (all
+    0 with ``same_lut``) and LUTs (packed for the names holding bf16)."""
     rng = np.random.default_rng(seg)
     codes = rng.integers(0, 256, (m, n)).astype(np.uint8)
+    align = kv.start_multiple(variant, seg)
     starts = (rng.integers(0, (n - seg) // 512, bw) * 512).astype(np.int32)
     if variant == "i32codes":
         codes = codes.astype(np.int32)
@@ -449,8 +452,11 @@ def variant_args(variant, seg, dev, *, m=16, n=1 << 18, bw=512, n_lut=64):
         codes = np.ascontiguousarray(
             codes.reshape(m, n // seg, seg).transpose(1, 0, 2))
         starts = (rng.integers(0, n // seg, bw) * seg).astype(np.int32)
+    over = starts[0:-1:3] + (0 if align == seg else align)
+    starts[1::3] = np.minimum(over, (n - seg) // align * align)
     lens = np.full(bw, seg, np.int32)
-    lut_idx = rng.integers(0, n_lut, bw).astype(np.int32)
+    lut_idx = (np.zeros(bw, np.int32) if same_lut
+               else rng.integers(0, n_lut, bw).astype(np.int32))
     luts = torch.from_numpy(
         (rng.random((n_lut, m, 256)) * 4.0).astype(np.float32)).to(dev)
     if kv.packed(variant):
@@ -459,11 +465,18 @@ def variant_args(variant, seg, dev, *, m=16, n=1 << 18, bw=512, n_lut=64):
             for a in (codes, starts, lens, lut_idx)] + [luts]
 
 
+# seg 256 for the variants that take it (the others need multiples of 512)
+VARIANT_CASES = [(v, seg) for v in (*kv.VARIANTS, kv.BLOCK_VARIANT)
+                 for seg in (256, 512, 1024, 2048)
+                 if seg % 512 == 0 or not (
+                     v == "bf16_trim_w4" or v.startswith(("bytes_", "i32view_")))]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("seg", [512, 2048])
-@pytest.mark.parametrize("variant", [*kv.VARIANTS, kv.BLOCK_VARIANT])
-def test_variant_matches_plain_on_card(cuda_device, variant, seg):
-    args = variant_args(variant, seg, cuda_device)
+@pytest.mark.parametrize("same_lut", [False, True])
+@pytest.mark.parametrize("variant,seg", VARIANT_CASES)
+def test_variant_matches_plain_on_card(cuda_device, variant, seg, same_lut):
+    args = variant_args(variant, seg, cuda_device, same_lut=same_lut)
     if variant == kv.BLOCK_VARIANT:
         name, fn, ref = ("run_block_variant", kv.run_block_variant,
                          kv.run_block_variant_reference)
@@ -487,6 +500,36 @@ def test_variant_matches_plain_on_card(cuda_device, variant, seg):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("seg", [512, 2048])
+@pytest.mark.parametrize("lut_bf16", [False, True])
+@pytest.mark.parametrize("tiled", [False, True])
+def test_production_scans_bit_equal_in_order_sums_on_card(cuda_device, tiled,
+                                                          lut_bf16, seg):
+    """adc_scan_tiles and adc_scan_segments at fixed inputs (full lens)
+    are bit-equal to fp32 sums over j in order: the plain versions of the
+    kernel study's f32 / bf16_trim bodies (run_variant_reference), which
+    sum as the staged body does.  The study's hooks in the shared body
+    must leave these outputs as they were."""
+    variant = "bf16_trim" if lut_bf16 else "f32"
+    codes, starts, lens, lut_idx, luts = variant_args(variant, seg,
+                                                      cuda_device)
+    if tiled:
+        starts = starts // seg * seg
+    want = kv.run_variant_reference(codes, starts, lens, lut_idx, luts,
+                                    seg=seg, group=8, variant=variant)
+    if tiled:
+        m, n = codes.shape
+        tiles = codes.reshape(m, n // seg, seg).transpose(0, 1).contiguous()
+        got = adc_scan_tiles(tiles, starts // seg, lens, lut_idx, luts,
+                             seg=seg, group=8, lut_bf16=lut_bf16)
+    else:
+        got = adc_scan_segments(codes, starts, lens, lut_idx, luts, seg=seg,
+                                lut_bf16=lut_bf16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
 def test_variant_refuses_on_card(cuda_device):
     """The card's wrapper keeps the CPU one's checks, plus the card's."""
     args = variant_args("f32", 512, cuda_device)
@@ -497,9 +540,56 @@ def test_variant_refuses_on_card(cuda_device):
         kv.run_variant(args[0][:, ::2], *args[1:], seg=512, group=8,
                        variant="f32")
     with pytest.raises(ValueError, match="shared memory"):
-        wide = variant_args("bf16_mxu", 2048, cuda_device, m=64, n=1 << 16,
-                            bw=8)
-        kv.run_variant(*wide, seg=2048, group=8, variant="bf16_mxu")
+        # the whole (64, 4096) tile of one bulk copy is past 227 KB
+        wide = variant_args("contig_bf16t", 4096, cuda_device, m=64,
+                            n=1 << 16, bw=8)
+        kv.run_variant(*wide, seg=4096, group=8, variant="contig_bf16t")
+
+
+# each variant's instantiation of the staged body, as its demangled name
+# gives it: <packed LUT, OutMode, Body, flat, lens read> (adc_scan_stage.cuh)
+STAGED_BODY = {
+    "f32": (0, 0, 0, 1), "i32codes": (0, 0, 8, 1), "bf16": (1, 0, 3, 1),
+    "bf16_trim": (1, 0, 0, 1), "bf16_nodecode": (1, 0, 4, 1),
+    "bf16_trim_w4": (1, 0, 9, 1), "bf16_trim_nodma": (1, 0, 7, 1),
+    "bf16_min": (1, 3, 0, 1), "bf16_mxu": (1, 0, 10, 1),
+    "nosum": (0, 0, 5, 1), "nogather": (0, 0, 2, 1), "dma_only": (0, 0, 6, 1),
+    "bytes_f32": (0, 4, 0, 1), "bytes_bf16": (1, 4, 0, 1),
+    "i32view_f32": (0, 4, 0, 1), "i32view_bf16": (1, 4, 0, 1),
+    "contig_bf16t": (1, 0, 11, 0), "block_bf16t": (1, 0, 0, 0),
+}
+
+
+def staged_args(kernel: str):
+    """The template arguments of a demangled ``adc_scan_staged_kernel``
+    name as ints, bools as 0/1 (with or without ``(bool)`` casts)."""
+    import re
+    inner = re.search(r"adc_scan_staged_kernel<(.*?)>", kernel).group(1)
+    args = [re.sub(r"^\(\w+\)", "", a.strip()) for a in inner.split(",")]
+    return tuple(1 if a == "true" else 0 if a == "false" else int(a)
+                 for a in args)
+
+
+@pytest.mark.gpu
+def test_variants_sass_on_card(cuda_device):
+    """From the SASS (sass_report): no variant loads codes byte by byte;
+    contig_bf16t issues a bulk copy on an mbarrier; bf16_trim_nodma copies
+    only its LUT row (fewer cp.async than bf16_trim, which also copies the
+    codes); every variant has its instantiation."""
+    from chamjax_torch.benchmarks import sass_report
+    rows = {staged_args(r["kernel"]): r["counts"]
+            for r in sass_report.report("adc_scan_variants")}
+    for variant, body in STAGED_BODY.items():
+        counts = rows[(*body, 0)]
+        assert not any(op.startswith("LDG.E.U8") for op in counts), variant
+        assert counts.get("LDGSTS", 0) >= 1, variant      # the LUT row
+    contig = rows[(*STAGED_BODY["contig_bf16t"], 0)]
+    assert contig.get("UBLKCP", 0) >= 1 and contig.get("SYNCS", 0) >= 1
+    for variant, body in STAGED_BODY.items():
+        if variant != "contig_bf16t":
+            assert not rows[(*body, 0)].get("UBLKCP"), variant
+    assert (rows[(*STAGED_BODY["bf16_trim_nodma"], 0)]["LDGSTS"]
+            < rows[(*STAGED_BODY["bf16_trim"], 0)]["LDGSTS"])
 
 
 @pytest.mark.gpu

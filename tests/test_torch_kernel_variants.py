@@ -386,3 +386,66 @@ def test_sass_report_counts_each_memory_instruction_once():
         "LDG": 1, "LDG.E.U8.CONSTANT": 1, "LDS": 2, "STG": 1, "STG.E": 1}
     assert dict(counts["_Z5otherv"]) == {"LDGSTS": 1,
                                          "LDGSTS.E.BYPASS.128": 1}
+
+
+def test_sass_report_counts_bulk_copies_and_barriers():
+    """The bulk copy (``UBLKCP``) and the mbarrier operations (``SYNCS``)
+    of a TMA-fed kernel are counted beside its ``cp.async`` copies; uniform
+    predicates are read as predicates."""
+    sass = """
+        Function : _Z6contigv
+        /*0100*/                   SYNCS.EXCH.64 URZ, [UR4], UR6 ;
+        /*0110*/              @!UP0 UBLKCP.S.G [UR8], [UR10], UR12 ;
+        /*0120*/                   SYNCS.ARRIVE.TRANS64.RED.A1T0 RZ, [UR4], RZ ;
+        /*0130*/                   LDGSTS.E.BYPASS.128 [R1], desc[UR4][R2.64] ;
+        /*0140*/                   SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [UR4], R3 ;
+        /*0150*/               @P0 LDS R5, [R4] ;
+    """
+    counts = sass_report.parse_sass(sass)["_Z6contigv"]
+    assert dict(counts) == {
+        "UBLKCP": 1, "UBLKCP.S.G": 1, "SYNCS": 3, "SYNCS.EXCH.64": 1,
+        "SYNCS.ARRIVE.TRANS64.RED.A1T0": 1,
+        "SYNCS.PHASECHK.TRANS64.TRYWAIT": 1, "LDGSTS": 1,
+        "LDGSTS.E.BYPASS.128": 1, "LDS": 1}
+
+
+@pytest.mark.parametrize("variant,m,seg,want", [
+    # LUT row + two 144-byte slot rows a code row (the narrowest item)
+    ("f32", 16, 2048, 16 * 1024 + 2 * 16 * 144),
+    ("bf16_trim", 16, 128, 16 * 512 + 16 * 144),
+    ("i32codes", 16, 2048, 16 * 1024 + 2 * 16 * (4 * 128 + 16)),
+    ("bf16_min", 8, 512, 8 * 512 + 2 * 8 * 144 + 4 * 128),
+    ("bf16_mxu", 8, 512, 8 * 512 + 2 * 8 * 144 + 4 * 8 * 128),
+    # the whole tile and its mbarrier
+    ("contig_bf16t", 16, 2048, 16 * 512 + 16 * 2048 + 16)])
+def test_smem_bytes_is_the_staged_launchs_least(variant, m, seg, want):
+    assert tkv.smem_bytes(variant, m, seg) == want
+
+
+@pytest.mark.parametrize("variant,name", [
+    ("f32", "adc_scan_segments"), ("bf16_mxu", "adc_scan_segments"),
+    ("i32codes", "adc_scan_segments"), ("block_bf16t", "adc_scan_tiles"),
+    ("contig_bf16t", "adc_scan_tiles")])
+def test_counterpart_is_the_production_scan_over_the_same_windows(variant,
+                                                                  name):
+    """The study's yardstick computes the function of f32 / bf16_trim /
+    block_bf16t over the variant's windows (lens = seg), on the CPU its
+    plain version."""
+    args = tkv.parse_args(["--n", "8192", "--m", "4", "--bw", "8",
+                           "--n_lut", "3", "--seed", "1"])
+    dev = torch.device("cpu")
+    data = tkv.make_data(args, dev)
+    starts = torch.arange(8, dtype=torch.int32) * 512
+    lens = torch.full((8,), SEG, dtype=torch.int32)
+    cd, st = tkv.inputs_for(data, variant, SEG, starts)
+    lt = data["luts_p"] if tkv.packed(variant) else data["luts"]
+    got_name, fn = tkv.counterpart(variant, data, cd, st, lens,
+                                   data["lut_idx"], lt, seg=SEG)
+    assert got_name == name
+    base = ("block_bf16t" if tkv._tiled(variant) else
+            "bf16_trim" if tkv.packed(variant) else "f32")
+    if variant == "i32codes":
+        cd = data["codes"]
+    want = tkv.run_variant_reference(cd, st, lens, data["lut_idx"], lt,
+                                     seg=SEG, group=GROUP, variant=base)
+    torch.testing.assert_close(fn(), want, rtol=1e-5, atol=1e-5)

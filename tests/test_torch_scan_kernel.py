@@ -162,8 +162,9 @@ def test_cuda_loader_layout():
 
 def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
     """An edit to the shared staged body (adc_scan_stage.cuh) names a new
-    library for both scans that include it, and not for the others; an edit
-    to a source does the same for that source alone."""
+    library for every source that includes it (the two scans and the
+    kernel study's variants, instantiations of the same body); an edit to
+    a source names a new library for that source alone."""
     csrc = tmp_path / "csrc"
     shutil.copytree(cuda_lib.CSRC_DIR, csrc)
     monkeypatch.setattr(cuda_lib, "CSRC_DIR", csrc)
@@ -171,12 +172,12 @@ def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
     header = csrc / "adc_scan_stage.cuh"
     header.write_bytes(header.read_bytes() + b"\n// edited\n")
     after = {n: cuda_lib.library_path(n) for n in cuda_lib.SOURCES}
-    for name in ("adc_scan_tiles", "adc_scan_flat"):
+    for name in ("adc_scan_tiles", "adc_scan_flat", "adc_scan_variants"):
         assert after[name] != before[name], name
         assert after[name].parent == cuda_lib.BUILD_DIR
-    assert after["adc_scan_variants"] == before["adc_scan_variants"]
     src = csrc / "adc_scan_flat.cu"
     src.write_bytes(src.read_bytes() + b"\n")
     again = {n: cuda_lib.library_path(n) for n in cuda_lib.SOURCES}
     assert again["adc_scan_flat"] != after["adc_scan_flat"]
     assert again["adc_scan_tiles"] == after["adc_scan_tiles"]
+    assert again["adc_scan_variants"] == after["adc_scan_variants"]
