@@ -1,17 +1,24 @@
-"""Index, search and model configuration: the port's copy of the
-dataclasses of ``chamjax/config.py`` that the IVF-PQ query path and the
-RALM serving path read, and of ``MODEL_PRESETS``.
+"""Configuration: the port's copy of the dataclasses of
+``chamjax/config.py`` (index, search, model, mesh, service and the
+experiment that holds them, read from ``configs/*.yaml``) and of
+``MODEL_PRESETS``.
 
 Field names and defaults are identical to the JAX package's, so an index's
-saved ``cfg`` (the ``repr`` of ``dataclasses.asdict``) loads in either
-package.  The mesh, service and YAML parts wait for the slices that need
-them.
+saved ``cfg`` (the ``repr`` of ``dataclasses.asdict``) and an experiment's
+YAML file load in either package.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any, Dict
+
+
+def _coerce(cls, d: Dict[str, Any]):
+    """Build dataclass ``cls`` from a dict, ignoring unknown keys."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{k: v for k, v in d.items() if k in names})
 
 
 @dataclass(frozen=True)
@@ -135,6 +142,64 @@ class ModelConfig:
     retrieval_interval: int = 1
     retrieval_token_len: int = 64    # enc-dec: tokens per retrieved doc
     k: int = 10                      # neighbours per retrieval
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout for sharded search / model parallelism."""
+
+    data: int = 1      # batch-parallel axis
+    lists: int = 1     # inverted-list shard axis
+    model: int = 1     # tensor-parallel axis for the LM
+
+
+@dataclass(frozen=True)
+class ServiceConfig:
+    """TCP service endpoints (the keys of ``configs/*.yaml``)."""
+
+    host: str = "127.0.0.1"
+    port: int = 25000
+    coordinator_host: str = "127.0.0.1"
+    coordinator_port: int = 25001
+    n_clients: int = 1
+    n_engines: int = 1
+    batch_size: int = 32
+    dim: int = 128
+    k: int = 100
+    nprobe: int = 32
+
+
+@dataclass(frozen=True)
+class ExperimentConfig:
+    index: IndexConfig = field(default_factory=IndexConfig)
+    search: SearchConfig = field(default_factory=SearchConfig)
+    model: ModelConfig = field(default_factory=ModelConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    service: ServiceConfig = field(default_factory=ServiceConfig)
+    dbname: str = "SIFT1M"
+    seed: int = 0
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "ExperimentConfig":
+        return ExperimentConfig(
+            index=_coerce(IndexConfig, d.get("index", {})),
+            search=_coerce(SearchConfig, d.get("search", {})),
+            model=_coerce(ModelConfig, d.get("model", {})),
+            mesh=_coerce(MeshConfig, d.get("mesh", {})),
+            service=_coerce(ServiceConfig, d.get("service", {})),
+            dbname=d.get("dbname", "SIFT1M"),
+            seed=d.get("seed", 0),
+        )
+
+    @staticmethod
+    def from_yaml(path: str) -> "ExperimentConfig":
+        import yaml     # only here: the card's machine has no pyyaml
+
+        with open(path) as f:
+            return ExperimentConfig.from_dict(yaml.safe_load(f) or {})
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
 
 
 # Model presets matching the reference experiment shapes

@@ -7,8 +7,8 @@ and corpus with a duck-typed model (``encode_queries`` / ``encode_corpus``),
 score by cosine or dot product in corpus chunks, keep a running top-k on the
 device.  The JAX package scores at ``Precision.HIGHEST``; here the matmul is
 float32 with TF32 off (``fp32_matmul``) and the top-k is ``torch.topk``,
-exact.  ``HFEncoder`` (published weights through ``from_pretrained``) is
-not ported yet.
+exact.  ``HFEncoder`` mean-pools a ``transformers`` checkpoint; it needs
+``transformers``, imported when one is made.
 """
 
 from __future__ import annotations
@@ -139,6 +139,45 @@ class HashingEncoder:
         texts = [(d.get("title", "") + " " + d.get("text", "")).strip()
                  if isinstance(d, dict) else str(d) for d in docs]
         return np.stack([self._embed(t) for t in texts])
+
+
+class HFEncoder:
+    """Sentence-embedding adapter over a HuggingFace model (mean pooling),
+    the reference's SBERT-model equivalent
+    (``beir/beir/retrieval/models/``).  Needs ``transformers`` (imported
+    here); ``model_name`` is a hub name or a local checkpoint directory.
+    ``device=None`` means the card, and raises without one before anything
+    loads."""
+
+    def __init__(self, model_name: str = "sentence-transformers/all-MiniLM-L6-v2",
+                 device=None, max_length: int = 256):
+        self.device = resolve_device(device)
+        from transformers import AutoModel, AutoTokenizer   # gated import
+        self.tok = AutoTokenizer.from_pretrained(model_name)
+        self.model = AutoModel.from_pretrained(model_name).to(
+            self.device).eval()
+        self.max_length = max_length
+
+    def _encode(self, texts: List[str], batch_size: int) -> np.ndarray:
+        out = []
+        with torch.no_grad():
+            for i in range(0, len(texts), batch_size):
+                enc = self.tok(texts[i:i + batch_size], padding=True,
+                               truncation=True, max_length=self.max_length,
+                               return_tensors="pt").to(self.device)
+                h = self.model(**enc).last_hidden_state
+                mask = enc["attention_mask"].unsqueeze(-1)
+                emb = (h * mask).sum(1) / mask.sum(1).clamp(min=1)
+                out.append(emb.cpu().numpy())
+        return np.concatenate(out, axis=0).astype(np.float32)
+
+    def encode_queries(self, texts, batch_size: int = 32, **kw):
+        return self._encode(list(texts), batch_size)
+
+    def encode_corpus(self, docs, batch_size: int = 32, **kw):
+        texts = [(d.get("title", "") + " " + d.get("text", "")).strip()
+                 if isinstance(d, dict) else str(d) for d in docs]
+        return self._encode(texts, batch_size)
 
 
 class DenseRetrievalExactSearchMulti:

@@ -9,8 +9,8 @@ Parity with the reference's rerank surface:
 MaxSim late interaction: queries and docs encode to per-token vectors; the
 score is the sum over query tokens of the max similarity to any doc token —
 one batched fp32 einsum (TF32 off), a max and a sum on the device.
-``HFCrossEncoder`` (published weights through ``from_pretrained``) is not
-ported yet.
+``HFCrossEncoder`` scores pairs with a ``transformers`` sequence
+classifier; it needs ``transformers``, imported when one is made.
 """
 
 from __future__ import annotations
@@ -134,6 +134,44 @@ class HashingTokenEncoder:
                 emb[i, j] = self._tok_vec(tok)
                 mask[i, j] = 1.0
         return emb, mask
+
+
+class HFCrossEncoder:
+    """Cross-encoder scorer over a HuggingFace sequence-classification
+    checkpoint (the reference's ``beir/beir/reranking/models/
+    cross_encoder`` — e.g. ms-marco MiniLM); plugs into ``Rerank``.  Needs
+    ``transformers`` (imported here); ``model_name`` is a hub name or a
+    local checkpoint directory.  ``device=None`` means the card, and raises
+    without one before anything loads."""
+
+    def __init__(self, model_name: str =
+                 "cross-encoder/ms-marco-MiniLM-L-6-v2",
+                 device=None, max_length: int = 256):
+        self.device = resolve_device(device)
+        from transformers import (                     # gated import
+            AutoModelForSequenceClassification, AutoTokenizer,
+        )
+        self.tok = AutoTokenizer.from_pretrained(model_name)
+        self.model = AutoModelForSequenceClassification.from_pretrained(
+            model_name).to(self.device).eval()
+        self.max_length = max_length
+
+    def predict(self, pairs, batch_size: int = 32):
+        """One score a (query, doc) pair: the logit of a one-label head,
+        else the softmax probability of the last label."""
+        out = []
+        with torch.no_grad():
+            for i in range(0, len(pairs), batch_size):
+                batch = pairs[i:i + batch_size]
+                enc = self.tok([p[0] for p in batch], [p[1] for p in batch],
+                               padding=True, truncation=True,
+                               max_length=self.max_length,
+                               return_tensors="pt").to(self.device)
+                logits = self.model(**enc).logits
+                score = logits[:, 0] if logits.shape[-1] == 1 else \
+                    torch.softmax(logits, dim=-1)[:, -1]
+                out.extend(score.cpu().numpy().tolist())
+        return out
 
 
 class Seq2SeqReranker:

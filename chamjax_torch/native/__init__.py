@@ -9,7 +9,9 @@ origin on its first line):
 - ``gather.cpp``: the window gathers of the host-streamed tier
   (``gather_windows``, ``gather_codes``);
 - ``ivfpq.cpp``: the CPU IVF-PQ engine (``NativeIVFPQ``);
-- ``hnsw.cpp``: the HNSW graph index (``HNSWIndex``).
+- ``hnsw.cpp``: the HNSW graph index (``HNSWIndex``);
+- ``adc_bench.cpp``: a standalone program, not in the library, that
+  measures one core's ADC scan rate (``run_adc_bench``).
 
 ``load`` compiles them with ``g++`` on first use, into
 ``chamjax_torch/build/native/`` (git-ignored), as one library named by a
@@ -26,6 +28,7 @@ import os
 import subprocess
 import threading
 from pathlib import Path
+from typing import Dict
 
 import numpy as np
 
@@ -37,6 +40,10 @@ SOURCES = ("chamnet.cpp", "hnsw.cpp", "gather.cpp", "ivfpq.cpp")
 # -O3 vectorises the CPU engine's LUT and dot-product loops
 GXX_FLAGS = ("-O3", "-march=native", "-funroll-loops", "-pthread",
              "-std=c++17", "-shared", "-fPIC")
+# the ADC microbenchmark: a program of its own, with its source's build line
+ADC_BENCH = "adc_bench.cpp"
+ADC_BENCH_FLAGS = ("-O3", "-march=native")
+ADC_BENCH_VARIANTS = ("scalar", "unrolled", "soa")
 
 _lock = threading.Lock()
 _lib = None
@@ -46,34 +53,76 @@ class NativeUnavailable(RuntimeError):
     pass
 
 
-def library_path() -> Path:
-    """Where the library is built: named by a hash of the sources and the
-    flags."""
-    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
-    for name in SOURCES:
+def _hashed(stem: str, flags, sources, suffix: str = "") -> Path:
+    """``BUILD_DIR/<stem>-<hash><suffix>``, the hash of the flags and the
+    sources' names and bytes."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for name in sources:
         h.update(name.encode() + b"\0" + (SRC_DIR / name).read_bytes())
-    return BUILD_DIR / f"libchamnet-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}{suffix}"
 
 
-def build() -> Path:
-    """Compile the library unless it is built; returns its path.  The
-    compiler writes a file of its own, renamed into place, so processes
-    that build at once never load a half-written library."""
-    out = library_path()
+def _gxx(out: Path, flags, sources, what: str) -> Path:
+    """Compile ``sources`` into ``out`` unless it exists.  The compiler
+    writes a file of its own, renamed into place, so processes that build
+    at once never load or run a half-written file."""
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}"
                         ".tmp")
-    cmd = ["g++", *GXX_FLAGS, "-o", str(tmp),
-           *(str(SRC_DIR / s) for s in SOURCES)]
+    cmd = ["g++", *flags, "-o", str(tmp), *(str(SRC_DIR / s) for s in sources)]
     try:
         subprocess.run(cmd, check=True, capture_output=True, text=True)
     except (subprocess.CalledProcessError, FileNotFoundError) as e:
         detail = getattr(e, "stderr", None) or str(e)
-        raise NativeUnavailable(f"chamnet build failed: {detail}") from e
+        raise NativeUnavailable(f"{what} build failed: {detail}") from e
     os.replace(tmp, out)
     return out
+
+
+def library_path() -> Path:
+    """Where the library is built: named by a hash of the sources and the
+    flags."""
+    return _hashed("libchamnet", GXX_FLAGS, SOURCES, ".so")
+
+
+def build() -> Path:
+    """Compile the library unless it is built; returns its path."""
+    return _gxx(library_path(), GXX_FLAGS, SOURCES, "chamnet")
+
+
+def build_adc_bench() -> Path:
+    """Compile the host ADC microbenchmark (``src/adc_bench.cpp``, a
+    standalone program outside the library) unless it is built; returns
+    the executable's path, named by a hash of the source and the flags."""
+    return _gxx(_hashed("adc_bench", ADC_BENCH_FLAGS, (ADC_BENCH,)),
+                ADC_BENCH_FLAGS, (ADC_BENCH,), "adc_bench")
+
+
+def run_adc_bench(n_rows: int = 1 << 20, m: int = 16,
+                  timeout: float = 600.0) -> Dict[str, float]:
+    """Build and run the host ADC microbenchmark over ``n_rows`` random
+    rows of ``m`` code bytes on one core: ``{"scalar", "unrolled", "soa"}``
+    → Mrows/s, as it prints them.  Raises ``NativeUnavailable`` where
+    ``g++`` fails and ``RuntimeError`` where the program fails or prints
+    no rate for a variant."""
+    exe = build_adc_bench()
+    r = subprocess.run([str(exe), str(int(n_rows)), str(int(m))],
+                       capture_output=True, text=True, timeout=timeout)
+    if r.returncode:
+        raise RuntimeError(f"adc_bench exited {r.returncode}: {r.stderr}")
+    rates = {}
+    for line in r.stdout.splitlines():
+        parts = line.split()
+        if (len(parts) == 5 and parts[0] in ADC_BENCH_VARIANTS
+                and parts[4] == "Mrows/s"):
+            rates[parts[0]] = float(parts[3])
+    if set(rates) != set(ADC_BENCH_VARIANTS):
+        raise RuntimeError(f"adc_bench printed no rate for "
+                           f"{sorted(set(ADC_BENCH_VARIANTS) - set(rates))}"
+                           f":\n{r.stdout}")
+    return rates
 
 
 _VP, _I, _LL, _U64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,

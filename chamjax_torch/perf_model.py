@@ -88,13 +88,19 @@ def coarse_flops_per_query(nlist: int, dim: int) -> float:
 #     f32 (PERF.md, kernel study; each run its own build and machine).
 SCAN_EFF_BF16 = 0.3526
 SCAN_EFF_F32 = 0.3314
-# Not measured on the card yet: selection over the (b, W·seg) distances at
-# a low / high recall target, and the coarse probe selection by full sort /
-# two-stage shortlist.
-SELECT_EFF_LOW_RT = None
-SELECT_EFF_HIGH_RT = None
-COARSE_SELECT_EFF_SORT = None
-COARSE_SELECT_EFF_2STAGE = None
+#   - selection over the (b, W·seg) f32 distances, and the coarse probe
+#     selection over the (b, nlist) scores by full top-k / two-stage
+#     shortlist: ``benchmarks/profiling_stages.implied_efficiencies`` of the
+#     stage profile (``profile_stages``, device times by ``event_ms``) over
+#     the 1M flagship's index in ``chip_smoke.py``'s stages line (b=128,
+#     nlist 4096, nprobe 32, seg 512, W 48) on an NVIDIA H100 80GB HBM3 at
+#     700 W: topk 0.1013 ms, coarse 0.0661, coarse2 0.0817 (PERF.md §6).
+#     The port's selection is exact ``torch.topk`` at any recall target, so
+#     both targets take the one figure.
+SELECT_EFF_LOW_RT = 0.0371
+SELECT_EFF_HIGH_RT = 0.0371
+COARSE_SELECT_EFF_SORT = 0.0095
+COARSE_SELECT_EFF_2STAGE = 0.0077
 
 
 def _measured(name: str) -> float:

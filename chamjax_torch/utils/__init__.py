@@ -1,0 +1,1 @@
+from chamjax_torch.utils.results import ResultStore  # noqa: F401

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import subprocess
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -56,3 +57,19 @@ def card_description() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     return smi.stdout.strip().splitlines()[0]
+
+
+def card_power_limit() -> Tuple[str, float]:
+    """``(name, watts)`` of the first card: :func:`card_description` split
+    at its last comma, the power limit in watts.  Raises ``ValueError``
+    where ``nvidia-smi`` prints no positive number for the limit
+    (``[N/A]``)."""
+    desc = card_description()
+    name, _, limit = desc.rpartition(",")
+    try:
+        watts = float(limit.strip().split()[0])
+    except (IndexError, ValueError):
+        watts = 0.0
+    if not watts > 0:
+        raise ValueError(f"no power limit in nvidia-smi's {desc!r}")
+    return name.strip(), watts

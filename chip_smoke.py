@@ -10,15 +10,17 @@ and behind the coordinators), the streamed index build on the card, and
 the mesh tier (list-sharded search, the sharded build, tensor-parallel
 decode, the multi-chip RAG step) on positions of this card, and the
 retrieval-quality path (the IR matrix with a dual encoder trained and mined
-on the card, and the advanced-RAG pipeline).
+on the card, and the advanced-RAG pipeline); on the flagship also the stage
+profile, the recall-loss diagnosis, the card's efficiency and the host's
+ADC rate.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result):
 
-1. Build the kernels (one ``nvcc`` per source, started together) and
-   ``libchamnet`` (``g++``, in a thread meanwhile); print the card's name
-   and power limit.
+1. Build the kernels (one ``nvcc`` per source, started together),
+   ``libchamnet`` and ``adc_bench`` (``g++``, in a thread meanwhile); print
+   the card's name and power limit.
 2. Kernels vs plain versions, each timed on the device (``device_ms``:
    CUDA events around back-to-back calls queued behind a spin kernel)
    beside its plain version and its bound:
@@ -51,7 +53,22 @@ Phases (any failure exits non-zero and prints no result):
    10 back-to-back b=128 searches (``chamjax_torch.utils.tracing``): the
    card's busy share (CUDA kernel time over the profiled window, and its
    kernel time a search over the unprofiled b=128 batch time) and the
-   kernels that took the most device time.
+   kernels that took the most device time.  ``recall_diagnosis`` splits
+   the R@10 loss of the packed-bf16 search and of the f32-LUT search
+   (their top 10) into found / probe / window / quant / select: the five
+   sum to 1 within 1e-9 and ``found`` is the search's intersection R@10
+   exactly.  ``card_efficiency`` gives QPS/W and mJ/query at the b=128
+   QPS (duty 1.0, the card's power limit), and ``RaplMeter`` the host's
+   power over 20 passes of the b=128 loop (null without RAPL counters).
+   Each scan kernel's library column: ``embedding_bag`` over the flat
+   LUT indices of the valid rows at that kernel's main-path inputs, held
+   against the kernel's output (rtol 1e-5) and timed beside it.
+   The stage profile (``benchmarks/profiling_stages.py``) over the
+   flagship's ``DeviceIVF`` at b=128 and b=1 with every option (packed
+   LUTs, the two-stage coarse scan, lane L1, select L1), counts set to 0
+   just before and read just after: every time finite and > 0, the timed
+   scans' outputs equal the plain version's (f32 rtol 1e-5, packed one
+   bf16 ulp), the five stages' sum beside ``full_ms``.
 4. The other routes on the same index, each run over the 256 recall
    queries with the launch counts set to 0 just before and read just
    after (its kernel must have launched): the flat layout (``tiled=False``)
@@ -125,7 +142,10 @@ Phases (any failure exits non-zero and prints no result):
    requests in flight (1 and 2), every engine serving under each
    coordinator, each worker's last answer equal to the search in process
    up to ties.  Last, the relay's cost a round trip of a RALM frame,
-   direct and through each coordinator.
+   direct and through each coordinator.  Then ``native.run_adc_bench`` (4M rows,
+   m 16, one core: scalar, unrolled and soa Mrows/s; ``g++`` failing
+   fails the phase) beside the CPU engine's rate: the rows its b=128
+   batches' probed lists hold over its p50 a batch.
 9. The index build on the card (``build_phase``): ``benchmarks/
    bench_large.py``'s configuration with ``--hard --n-clusters 262144
    --opq --balance 1.30 --balance-deadband 1.25 --balance-iters 12``, cut
@@ -196,10 +216,10 @@ Phases (any failure exits non-zero and prints no result):
    reader's captured tokens to eager ones for 4 prompts (equal), and a
    ``Seq2SeqReranker`` over ivfpq_trained's top 100 for 32 queries, the
    card's scores within 1e-4 of the CPU's from the same weights.
-12. Print the kernels line, the main-path line, the routes line, the
-   kernel-study line, the ralm line, the tiktok line, the disagg line,
-   the build line, the mesh line, the ir line, the rag line and the
-   result line.
+12. Print the kernels line, the main-path line, the stages line, the
+   routes line, the kernel-study line, the ralm line, the tiktok line,
+   the disagg line, the adc_bench line, the build line, the mesh line,
+   the ir line, the rag line and the result line.
 
 Every search and every model step runs as a replay of a captured CUDA graph
 (``chamjax_torch/utils/graphs.py``), the default; each is also run eagerly
@@ -302,10 +322,12 @@ def device_ms(fn, plain: bool = False) -> float:
     return event_ms(fn, launches=20, reps=9)
 
 
-def hold(name, fn, ref, args, kw, ref_kw, bound):
+def hold(name, fn, ref, args, kw, ref_kw, bound, library=None):
     """Launch ``fn``, synchronise, compare with the plain version ``ref`` on
     the same inputs (``check_scan``), and time both (``device_ms``).
-    ``bound(out)`` gives (ms, by).  Returns the measurement, or raises."""
+    ``bound(out)`` gives (ms, by); ``library(out)``, where given, the
+    library call's ms (``library_scan``).  Returns the measurement, or
+    raises."""
     import torch
     got = fn(*args, **kw)
     torch.cuda.synchronize()
@@ -319,10 +341,49 @@ def hold(name, fn, ref, args, kw, ref_kw, bound):
     ms = device_ms(lambda: fn(*args, **kw))
     plain_ms = device_ms(lambda: ref(*args, **ref_kw), plain=True)
     bound_ms, bound_by = bound(got)
+    library_ms = library(got) if library is not None else None
     log(f"{name}: ok, max_abs_err={err:.3g} kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), library "
+        f"{library_ms} ms")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
+def scan_rows(lens, width):
+    """(window, column) of every valid row of a scan output: columns below
+    the window's length."""
+    import torch
+    valid = (torch.arange(width, device=lens.device)[None, :]
+             < lens.long()[:, None])
+    return valid.nonzero(as_tuple=True)
+
+
+def library_scan(name, got, w, c, codes, lut_row, luts, lut_bf16):
+    """The one PyTorch call nearest to an ADC scan, timed on the scan's
+    valid rows: ``embedding_bag(idx, lut.view(-1, 1), mode="sum")`` over
+    the flat indices ``(lut_row·m + j)·256 + code`` of each row's ``m``
+    codes (``codes`` (n, m) u8, ``lut_row`` (n,)), a bag a row; packed LUTs
+    are decoded to f32 first.  The indices and the table are built outside
+    the timed call (in the library's favour).  Its sums are held against
+    the kernel's output at those rows (rtol 1e-5).  Returns its ms."""
+    import torch
+    import torch.nn.functional as F
+    m = codes.shape[1]
+    table = luts.contiguous().view(torch.bfloat16).float() if lut_bf16 \
+        else luts
+    weight = table.reshape(-1, 1)
+    idx = ((lut_row.long()[:, None] * m
+            + torch.arange(m, device=codes.device)[None, :]) * 256
+           + codes.long())
+
+    def call():
+        return F.embedding_bag(idx, weight, mode="sum")
+
+    out = call()[:, 0]
+    if not torch.allclose(out, got[w, c], rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"{name}: embedding_bag disagrees with the "
+                             f"kernel")
+    return device_ms(call)
 
 
 def bf16_ulp_ok(got, want) -> bool:
@@ -568,7 +629,7 @@ def time_batches(search, xq_dev, small: int = 1):
     return res
 
 
-def tiles_on_queries(name, s, q, nprobe):
+def tiles_on_queries(name, s, q, nprobe, library: bool = False):
     """``adc_scan_tiles`` on the windows that one search of the queries
     ``q`` by the tiled ``IVFSearcher`` ``s`` scans (its seg, window budget
     and LUT type; windows in probe order), held against its plain version
@@ -593,9 +654,17 @@ def tiles_on_queries(name, s, q, nprobe):
     args = (dv.codes_tiled, (starts // seg).reshape(-1).contiguous(),
             lens.reshape(-1).contiguous(), lut_idx, luts_k)
     kw = dict(seg=seg, group=GROUP, lut_bf16=lut_bf16)
+
+    def lib(out):
+        w, c = scan_rows(args[2], seg)
+        return library_scan(name, out, w, c,
+                            dv.codes_tiled[args[1].long()[w], :, c],
+                            args[3][w], args[4], lut_bf16)
+
     measured = hold(name, adc_scan_tiles, adc_scan_tiles_reference, args, kw,
                     dict(seg=seg, lut_bf16=lut_bf16),
-                    lambda o: tile_scan_bound(*args, o.numel() * 4))
+                    lambda o: tile_scan_bound(*args, o.numel() * 4),
+                    library=lib if library else None)
     measured["windows"] = int(args[1].numel())
     return dict(measured=measured, qr=qr, list_ids=list_ids, luts=luts,
                 args=args, kw=kw)
@@ -695,7 +764,8 @@ def main_path(dev):
     # kernel vs plain on one real main-path batch (not counted above)
     q = torch.as_tensor(xq[:BATCH]).to(dev)
     dv = s.dev
-    scan = tiles_on_queries("adc_scan_tiles[main path]", s, q, NPROBE)
+    scan = tiles_on_queries("adc_scan_tiles[main path]", s, q, NPROBE,
+                            library=True)
     qr, list_ids, luts = scan["qr"], scan["list_ids"], scan["luts"]
     args, kw_k = scan["args"], scan["kw"]
     main_kernel = scan["measured"]
@@ -722,6 +792,13 @@ def main_path(dev):
     host_b128, host_b1 = ts["host_b128"], ts["host_b1"]
     with graphs.disable_capture():
         te = time_search(s.dev, kw, xq_dev)
+    t0 = time.perf_counter()
+    efficiency = efficiency_block(s.dev, kw, xq_dev, BATCH * 1e3 / ms_b128)
+    diagnosis = {
+        name: diagnose(f"main path {name}", searcher, xq, gt, res)
+        for name, searcher, res in (("bf16", s, (d_s, i_s)),
+                                    ("f32", s_f, res_f))}
+    t_extra = time.perf_counter() - t0
     ctx = dict(idx=idx, ds=ds, gt=gt, cfg=cfg, scfg=scfg, r10_xla=r10_xla,
                tiled_bf16=(d_s, i_s), tiled_f32=res_f, xq_dev=xq_dev,
                main_search=(s.dev, kw), searcher=s, searcher_f32=s_f)
@@ -735,6 +812,9 @@ def main_path(dev):
             recall_at_10_f32_lut=r10_f32,
             qps_b128=BATCH * 1e3 / ms_b128, ms_per_batch_b128=ms_b128,
             ms_per_query_b1=ms_b1, stage_ms_b128=stages,
+            diagnosis_bf16=diagnosis["bf16"], diagnosis_f32=diagnosis["f32"],
+            efficiency_and_diagnosis_s=t_extra,
+            **efficiency,
             # host time to enqueue one search; near the device time above
             # means the card waits on the host
             host_enqueue_ms_b128=host_b128, host_enqueue_ms_b1=host_b1,
@@ -747,6 +827,147 @@ def main_path(dev):
             captured_bit_equal_eager=equal, graphs=len(s.dev.graphs),
             dataset_s=t_data, build_s=t_build, ground_truth_s=t_gt,
             max_list_len=int(idx.list_len.max())))
+
+
+def diagnose(name, s, xq, gt, res):
+    """``recall_diagnosis`` of one search of the recall queries by the
+    ``IVFSearcher`` ``s`` (its window budget, seg, group and coarse
+    shortlist), over its top 10: the five fractions, held to sum to 1
+    within 1e-9 and ``found`` to equal the search's intersection R@10
+    exactly, and that R@10 beside them."""
+    from chamjax_torch.eval import recall_at_k, recall_diagnosis
+    from chamjax_torch.searcher import resolve_coarse_cand
+    d, i = res
+    diag = recall_diagnosis(
+        s.dev, xq, gt, i[:, :10], d[:, :10], nprobe=s.scfg.nprobe,
+        windows=s.windows, seg=s.seg, group=s.group, at=10,
+        coarse_approx=s.scfg.coarse_approx,
+        coarse_cand=resolve_coarse_cand(s.scfg.coarse_cand, s.cfg.nlist,
+                                        s.scfg.nprobe))
+    r10 = recall_at_k(i, gt, 10, mode="intersection")
+    if abs(sum(diag.values()) - 1.0) > 1e-9:
+        raise AssertionError(f"{name}: diagnosis does not sum to 1: {diag}")
+    if diag["found"] != r10:
+        raise AssertionError(f"{name}: found {diag['found']} is not the "
+                             f"intersection R@10 {r10}")
+    log(f"{name} diagnosis: {diag}")
+    return dict(diag, recall_at_10_intersection=r10)
+
+
+def efficiency_block(dev_index, kw, xq_dev, qps):
+    """``card_efficiency`` at the b=128 QPS with duty 1.0 (``bench.py``'s
+    accounting), at the card's power limit from ``nvidia-smi``; and the
+    host's RAPL power over 20 passes of the b=128 loop (``None`` where the
+    host exposes no RAPL counters)."""
+    import torch
+    from chamjax_torch.searcher import ivfpq_search
+    from chamjax_torch.utils.energy import RaplMeter, card_efficiency
+    eff = card_efficiency(qps, duty=1.0)
+    batches = [xq_dev[i * BATCH:(i + 1) * BATCH]
+               for i in range(xq_dev.shape[0] // BATCH)]
+    torch.cuda.synchronize()
+    with RaplMeter() as rapl:
+        for _ in range(20):
+            for q in batches:
+                ivfpq_search(dev_index, q, **kw)
+        torch.cuda.synchronize()
+    out = dict(qps_per_watt=eff["qps_per_watt"],
+               mj_per_query=eff["mj_per_query"],
+               assumed_watts=eff["assumed_watts"], duty=1.0,
+               host_watts=rapl.watts, host_rapl_s=rapl.seconds,
+               host_rapl_domains=len(rapl.domains))
+    log(f"efficiency: {out}")
+    return out
+
+
+STAGE_BATCHES = (BATCH, 1)
+STAGE_OPTIONS = dict(lut_bf16=True, coarse_cand=4 * NPROBE, lane_l1=True,
+                     select_l1=4 * K)
+
+
+def stages_phase(dev, ctx):
+    """The stage profile (``benchmarks/profiling_stages.profile_stages``)
+    over the flagship's ``DeviceIVF`` at b=128 and b=1, every option on
+    (packed LUTs, the two-stage coarse scan at 4·nprobe, lane L1, select
+    L1 4·k), with the launch counts set to 0 just before and read just
+    after.  Holds every time finite and > 0, and the timed scans' outputs
+    against the plain version (f32 LUTs rtol 1e-5, packed LUTs one bf16
+    ulp).  Returns the stages line's entries and the launches."""
+    import math
+    from chamjax_torch.benchmarks.profiling_stages import (
+        implied_efficiencies, profile_stages)
+    from chamjax_torch.ops.scan_seg import pack_luts_bf16
+    from chamjax_torch.ops.scan_seg_multi import (
+        adc_scan_segments_multi_reference as plain)
+    from chamjax_torch.utils import cuda_lib
+    dv, xq = ctx["searcher"].dev, ctx["ds"].xq[N_GT:]
+    out = {}
+    t0 = time.perf_counter()
+    cuda_lib.launch_counts.clear()
+    runs = {b: profile_stages(dv, xq, batch=b, nprobe=NPROBE, k=K, seg=SEG,
+                              group=GROUP, **STAGE_OPTIONS)
+            for b in STAGE_BATCHES}
+    launches = dict(cuda_lib.launch_counts)
+    if launches.get("adc_scan_segments_multi", 0) < 1:
+        raise AssertionError(f"the stage profile did not launch "
+                             f"adc_scan_segments_multi: {launches}")
+    for b, (times, t) in runs.items():
+        bad = {k: v for k, v in times.items()
+               if not (math.isfinite(v) and v > 0)}
+        if bad:
+            raise AssertionError(f"stages b={b}: {bad}")
+        args = (dv.codes_t, t["starts"], t["lens"], t["lut_idx"])
+        for key, got, luts, bf16 in (
+                ("dists", t["dists"], t["luts_k"], False),
+                ("dists_bf16", t["dists_bf16"], pack_luts_bf16(t["luts_k"]),
+                 True)):
+            want = plain(*args, luts, seg=SEG, lut_bf16=bf16).reshape(b, -1)
+            ok, err = check_scan(got, want, dist_bf16=bf16)
+            if not ok:
+                raise AssertionError(f"stages b={b}: the {key} scan "
+                                     f"disagrees with its plain version "
+                                     f"(max abs err {err})")
+        coarse = times["coarse2_ms" if STAGE_OPTIONS["coarse_cand"]
+                       else "coarse_ms"]
+        scan = times["scan_bf16_ms" if STAGE_OPTIONS["lut_bf16"]
+                     else "scan_ms"]
+        total = (coarse + times["lut_ms"] + times["expand_ms"] + scan
+                 + times["topk_ms"])
+        nlist, d = dv.centroids.shape
+        out[f"b{b}"] = dict(
+            times, windows=t["W"], sum_of_stages_ms=total,
+            sum_over_full=total / times["full_ms"],
+            implied_efficiencies=implied_efficiencies(
+                times, batch=b, nlist=nlist, d=d, windows=t["W"], seg=SEG))
+        log(f"stages b={b}: {out[f'b{b}']}")
+    return dict(line=dict(out, options=STAGE_OPTIONS,
+                          phase_s=time.perf_counter() - t0),
+                launches=launches)
+
+
+ADC_BENCH_ROWS, ADC_BENCH_M = 1 << 22, 16
+
+
+def adc_bench_phase(ctx, disagg):
+    """The host's ADC scan rate (``native.run_adc_bench``, one core) beside
+    the CPU engine's rate in the disagg phase: the rows that the probed
+    lists of its b=128 batches hold over its p50 a batch."""
+    import os
+    from chamjax_torch import native
+    t0 = time.perf_counter()
+    rates = native.run_adc_bench(ADC_BENCH_ROWS, ADC_BENCH_M)
+    row = disagg["service"]["native"]["b128"]
+    n = row["batches"] * BATCH
+    rows = probed_rows(ctx["searcher"].dev, ctx["ds"].xq[:n], NPROBE, 0)
+    per_batch = float(rows.sum()) / row["batches"]
+    line = dict(n_rows=ADC_BENCH_ROWS, m=ADC_BENCH_M,
+                mrows_per_s=rates, cpu_count=os.cpu_count(),
+                cpu_engine_b128_p50_ms=row["p50_ms"],
+                cpu_engine_rows_per_batch=per_batch,
+                cpu_engine_mrows_per_s=per_batch / row["p50_ms"] / 1e3,
+                phase_s=time.perf_counter() - t0)
+    log(f"adc_bench: {line}")
+    return line
 
 
 def check_same_up_to_ties(name, d, i, d_ref, i_ref, rtol: float) -> None:
@@ -856,13 +1077,20 @@ def routes_phase(dev, ctx):
             args = (dv.codes_t, p_starts, p_lens, luts_k)
             rows = torch.arange(p_starts.numel(), dtype=torch.int32,
                                 device=dev)
+
+            def lib(out, a=args, width=sr.scan_len):
+                w, c = scan_rows(a[2], width)
+                return library_scan(f"{kernel}[main path]", out, w, c,
+                                    a[0][:, a[1].long()[w] + c].T, w, a[3],
+                                    False)
+
             meas = hold(f"{kernel}[main path]", adc_scan_distances,
                      adc_scan_distances_reference, args,
                      dict(scan_len=sr.scan_len), dict(scan_len=sr.scan_len),
                      lambda o: flat_bound(
                          dv.codes_t, p_starts, p_lens, rows, luts_k,
                          width=sr.scan_len, n_idx=2,
-                         out_bytes=o.numel() * 4))
+                         out_bytes=o.numel() * 4), library=lib)
         else:
             windows = -(-sr.windows // sr.group) * sr.group
             starts, lens, probe, _ = expand_windows(
@@ -878,10 +1106,17 @@ def routes_phase(dev, ctx):
             kw_k = dict(seg=SEG, lut_bf16=False)
             if fn is adc_scan_segments_multi:
                 kw_k["group"] = sr.group
+            def lib(out, a=args):
+                w, c = scan_rows(a[2], SEG)
+                return library_scan(f"{kernel}[main path]", out, w, c,
+                                    a[0][:, a[1].long()[w] + c].T, a[3][w],
+                                    a[4], False)
+
             meas = hold(f"{kernel}[main path]", fn, ref, args, kw_k,
                      dict(seg=SEG, lut_bf16=False),
                      lambda o, a=args: flat_bound(
-                         *a, width=SEG, n_idx=3, out_bytes=o.numel() * 4))
+                         *a, width=SEG, n_idx=3, out_bytes=o.numel() * 4),
+                     library=lib)
         kernels[kernel] = dict(meas, path=name,
                                launches=launches.get(kernel, 0),
                                windows=int(args[1].numel()))
@@ -3476,29 +3711,30 @@ def run_smoke(t_smoke, dev, corpus_job) -> int:
     import torch
     from chamjax_torch import native
     from chamjax_torch.utils import cuda_lib, graphs
+    from chamjax_torch.utils.device import card_description
 
-    # libchamnet (g++) builds beside the CUDA libraries (nvcc)
+    # libchamnet and adc_bench (g++) build beside the CUDA libraries (nvcc)
     t0 = time.perf_counter()
     gxx = {}
     gxx_thread = threading.Thread(target=lambda: gxx.update(
-        path=native.build(), s=time.perf_counter() - t0), daemon=True)
+        path=native.build(), bench=native.build_adc_bench(),
+        s=time.perf_counter() - t0), daemon=True)
     gxx_thread.start()
     build_logs = cuda_lib.build()
     t_nvcc = time.perf_counter() - t0
     gxx_thread.join()
-    if "path" not in gxx:
+    if "bench" not in gxx:
         native.build()          # raises with the compiler's output
+        native.build_adc_bench()
     log(f"libchamnet built in {gxx['s']:.1f} s: {gxx['path'].name}")
     for name, text in build_logs.items():
         for line in text.strip().splitlines():
             log(f"nvcc {name}: {line}")
     log(f"kernels built in {t_nvcc:.1f} s")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    if smi.returncode:
-        return fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0]
+    try:
+        card = card_description()
+    except (OSError, subprocess.SubprocessError) as e:
+        return fail(f"nvidia-smi failed: {e}")
     print(card, flush=True)
 
     try:
@@ -3506,6 +3742,7 @@ def run_smoke(t_smoke, dev, corpus_job) -> int:
         flat_options = flat_kernel_phase(dev)
         variant_options = variants_phase(dev)
         main = main_path(dev)
+        stages = stages_phase(dev, main["ctx"])
         traced = trace_phase(dev, main["ctx"])
         with graphs.disable_capture():
             traced_eager = trace_phase(dev, main["ctx"])
@@ -3518,6 +3755,7 @@ def run_smoke(t_smoke, dev, corpus_job) -> int:
                       host=tiktok_host(dev, ralm["rec"].inner))
         disagg = disagg_phase(dev, main["ctx"], ralm["rec"].inner,
                               streamed["gather_path"])
+        adc_bench = adc_bench_phase(main["ctx"], disagg)
         build = build_phase(dev)
         mesh, mesh_launches = mesh_phase(dev, main["ctx"], main["line"],
                                          ralm["rec"].inner)
@@ -3534,7 +3772,8 @@ def run_smoke(t_smoke, dev, corpus_job) -> int:
         replaces="chamjax/ops/scan_seg_block.py:122",
         launches=main["launches"].get("adc_scan_tiles", 0),
         max_abs_err=mk["max_abs_err"], ms=mk["ms"], plain_ms=mk["plain_ms"],
-        bound_ms=mk["bound_ms"], bound_by=mk["bound_by"], library_ms=None,
+        bound_ms=mk["bound_ms"], bound_by=mk["bound_by"],
+        library_ms=mk["library_ms"], library="embedding_bag",
         main_path_windows=mk["windows"], options=options,
         launches_streamed_tiled=streamed["launches"]["adc_scan_tiles"],
         launches_kernel_study=study["launches"]["adc_scan_tiles"],
@@ -3571,7 +3810,8 @@ def run_smoke(t_smoke, dev, corpus_job) -> int:
             source="chamjax_torch/csrc/adc_scan_flat.cu", replaces=replaces,
             launches=rk["launches"], max_abs_err=rk["max_abs_err"],
             ms=rk["ms"], plain_ms=rk["plain_ms"], bound_ms=rk["bound_ms"],
-            bound_by=rk["bound_by"], library_ms=None, path=rk["path"],
+            bound_by=rk["bound_by"], library_ms=rk["library_ms"],
+            library="embedding_bag", path=rk["path"],
             main_path_windows=rk["windows"], options=flat_options[name]))
     kernels[1]["launches_mesh"] = mesh_launches["adc_scan_segments_multi"]
     kernels[3]["launches_mesh"] = mesh_launches["adc_scan_distances"]
@@ -3579,6 +3819,9 @@ def run_smoke(t_smoke, dev, corpus_job) -> int:
         streamed["launches"]["adc_scan_segments_multi"])
     kernels[1]["launches_kernel_study"] = (
         study["launches"]["adc_scan_segments_multi"])
+    # the stage profile's scans and full paths (b=128 and b=1)
+    kernels[1]["launches_stages"] = (
+        stages["launches"]["adc_scan_segments_multi"])
     # the measurement kernels: the row's times are the baseline body's
     # (f32; block_bf16t) at seg 2048 against its plain version; options
     # hold every variant at seg 512, 1024 and 2048; full_width_* is the
@@ -3616,6 +3859,7 @@ def run_smoke(t_smoke, dev, corpus_job) -> int:
                           trace=traced, trace_eager=traced_eager, card=card,
                           nvcc_s=t_nvcc)),
           flush=True)
+    print(json.dumps(dict(stages=stages["line"], card=card)), flush=True)
     print(json.dumps(dict(routes=routes["line"], **streamed["line"],
                           card=card)), flush=True)
     print(json.dumps(dict(kernel_study=study, card=card)), flush=True)
@@ -3626,6 +3870,7 @@ def run_smoke(t_smoke, dev, corpus_job) -> int:
     print(json.dumps(dict(tiktok=tiktok, card=card)), flush=True)
     print(json.dumps(dict(disagg=disagg, card=card,
                           gxx_s=gxx["s"])), flush=True)
+    print(json.dumps(dict(adc_bench=adc_bench, card=card)), flush=True)
     print(json.dumps(dict(build=build["line"], card=card)), flush=True)
     print(json.dumps(dict(mesh=mesh, card=card)), flush=True)
     print(json.dumps(dict(ir=ir["line"], card=card)), flush=True)

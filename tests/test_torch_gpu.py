@@ -1457,3 +1457,70 @@ def test_decoder_reader_captured_matches_eager(cuda_device):
     with graphs.disable_capture():
         want = [r.generate_ids(p) for p in prompts]
     assert got == want
+
+
+# --- the last unported modules: stage profile, diagnosis, card power --------
+
+
+@pytest.mark.gpu
+def test_stage_profile_on_card(cuda_device):
+    """``profile_stages`` on the card over a random index: every time
+    finite and > 0, and the scans it timed equal the plain version on the
+    CPU (f32 LUTs rtol 1e-5, packed LUTs one bf16 ulp)."""
+    import math
+    from chamjax_torch.benchmarks import profiling_stages as ps
+    index = ps.synthetic_index(262_144, 64, 1024, 16, 512, True,
+                               device=cuda_device, seed=1)
+    xq = np.random.default_rng(2).standard_normal((64, 64)).astype(
+        np.float32)
+    times, t = ps.profile_stages(index, xq, batch=64, nprobe=16, k=50,
+                                 seg=512, group=8, lut_bf16=True,
+                                 coarse_cand=64, lane_l1=True, select_l1=200)
+    assert tuple(times) == ps.KEYS
+    assert all(math.isfinite(v) and v > 0 for v in times.values()), times
+    cpu = [x.cpu() for x in (index.codes_t, t["starts"], t["lens"],
+                             t["lut_idx"])]
+    want = adc_scan_segments_multi_reference(
+        *cpu, t["luts_k"].cpu(), seg=512).reshape(64, -1)
+    got = t["dists"].cpu()
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-5)
+    want_bf16 = adc_scan_segments_multi_reference(
+        *cpu, pack_luts_bf16(t["luts_k"].cpu()), seg=512,
+        lut_bf16=True).reshape(64, -1)
+    assert_bf16_scan(t["dists_bf16"], want_bf16)
+
+
+@pytest.mark.gpu
+def test_recall_diagnosis_on_card_equals_cpu(cuda_device):
+    """The diagnosis on the card's copy of an index equals the CPU's on the
+    same index, queries and results."""
+    from chamjax_torch.data import compute_ground_truth
+    from chamjax_torch.eval import recall_diagnosis
+    from chamjax_torch.searcher import DeviceIVF
+    ds = synthetic_dataset(nb=20_000, nq=32, nt=6000, d=32, seed=9,
+                           n_clusters=4)
+    idx = build_ivfpq(ds.xb, IndexConfig(dim=32, nlist=64, m=8, list_pad=64,
+                                         opq=True),
+                      xt=ds.xt, kmeans_iters=6, pq_iters=6, device="cpu")
+    gt, _ = compute_ground_truth(ds.xb, ds.xq, k=10, device="cpu")
+    s = IVFSearcher(idx, SearchConfig(nprobe=8, k=10, seg=256, seg_group=2,
+                                      lut_bf16=False), device=cuda_device)
+    d, i = s.search(ds.xq)
+    for windows in (s.windows, max(3, s.windows // 4) | 1):
+        kw = dict(nprobe=8, windows=windows, seg=256, group=2)
+        got = recall_diagnosis(s.dev, ds.xq, gt, i, d, **kw)
+        want = recall_diagnosis(DeviceIVF.from_packed(idx, device="cpu",
+                                                      tile_seg=256),
+                                ds.xq, gt, i, d, **kw)
+        assert got == want
+        assert abs(sum(got.values()) - 1.0) < 1e-9
+
+
+@pytest.mark.gpu
+def test_card_efficiency_reads_a_positive_power_limit(cuda_device):
+    from chamjax_torch.utils.energy import card_efficiency
+    eff = card_efficiency(100_000.0)
+    assert eff["card"] and eff["assumed_watts"] > 0
+    assert eff["qps_per_watt"] == round(100_000.0 / eff["assumed_watts"], 3)

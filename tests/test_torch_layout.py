@@ -168,7 +168,11 @@ def test_import_leaves_jax_out():
             "chamjax_torch.parallel, chamjax_torch.parallel.sharded_model, "
             "chamjax_torch.parallel.sharded_search, chamjax_torch.entry, "
             "chamjax_torch.utils.collectives, "
-            "chamjax_torch.retrieval.local; "
+            "chamjax_torch.retrieval.local, chamjax_torch.config, "
+            "chamjax_torch.utils, chamjax_torch.utils.results, "
+            "chamjax_torch.utils.energy, chamjax_torch.eval.diagnose, "
+            "chamjax_torch.benchmarks.profiling_stages, "
+            "chamjax_torch.native; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'chamjax' "
             "or m.startswith('chamjax.')); print(bad); sys.exit(bool(bad))")
@@ -225,6 +229,19 @@ def test_entry_points_need_card_or_explicit_cpu(jax_index, no_card):
         compute_ground_truth(ds.xb, ds.xq, k=5)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         t_build(ds.xb, TIndexConfig(dim=32, nlist=8, m=8), xt=ds.xt)
+    from chamjax_torch.benchmarks.profiling_stages import (flagship_index,
+                                                           synthetic_index)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        synthetic_index(4096, 32, 8, 8, 512, True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        flagship_index(4096, 32, 8, 8, 512, True)
+    # the HF classes refuse before they load a checkpoint (or transformers)
+    from chamjax_torch.ir.dense import HFEncoder
+    from chamjax_torch.ir.rerank import HFCrossEncoder
+    from chamjax_torch.ir.train import QueryGenerator
+    for cls in (HFEncoder, HFCrossEncoder, QueryGenerator):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cls("/nonexistent/checkpoint")
     # the explicit CPU request works
     s = TIVFSearcher(t, TSearchConfig(nprobe=4, k=5), device="cpu")
     d, i = s.search(ds.xq)

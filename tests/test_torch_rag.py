@@ -1,5 +1,5 @@
 """chamjax_torch.rag on the CPU: one counterpart for each test of
-``tests/test_rag.py`` (the demo script's end-to-end test aside), then parity
+``tests/test_rag.py``, then parity
 with the JAX package: the splitters and loaders (framework-free copies)
 equal; ``VectorStore`` exact and ivfpq over the same embeddings and the same
 index up to the order of score ties (rtol 1e-5); ``AdvancedRAG.answer`` with
@@ -86,6 +86,38 @@ def test_advanced_rag_end_to_end():
     assert answer
     assert {"retrieval", "rerank", "prompt_build",
             "generate"} <= set(rag.timer.stats_ms())
+
+
+def test_doc_qa_end_to_end(tmp_path):
+    """The demo's full flow: load URL → split → embed → retrieve → answer,
+    and the same answer and context as chamjax's flow over the same file."""
+    from chamjax.rag import AdvancedRAG as JAdvancedRAG
+    from chamjax.rag import CharacterTextSplitter as JSplitter
+    from chamjax.rag import URLLoader as JURLLoader
+    from chamjax.rag import VectorStore as JVectorStore
+    from chamjax.rag.pipeline import EchoReader as JEchoReader
+    from chamjax.ir.dense import HashingEncoder as JHashingEncoder
+
+    from chamjax_torch.rag import CharacterTextSplitter, URLLoader
+    p = tmp_path / "sotu.txt"
+    p.write_text("The economy grew strongly this year.\n\n"
+                 "The supreme court gained a new justice of great renown.\n\n"
+                 "Rural broadband expanded to five million homes.\n")
+    docs = URLLoader(p.as_uri()).load()
+    chunks = CharacterTextSplitter(chunk_size=80).split_documents(docs)
+    assert len(chunks) >= 2
+    store = VectorStore.from_documents(chunks, HashingEncoder(dim=128), **CPU)
+    rag = AdvancedRAG(store, EchoReader(), n_retrieved=2, n_final=1)
+    question = "what about the supreme court justice"
+    answer, ctx = rag.answer(question)
+    assert "supreme court" in ctx[0]["text"].lower()
+    assert answer
+    j_chunks = JSplitter(chunk_size=80).split_documents(
+        JURLLoader(p.as_uri()).load())
+    j_store = JVectorStore.from_documents(j_chunks, JHashingEncoder(dim=128))
+    j_answer, j_ctx = JAdvancedRAG(j_store, JEchoReader(), n_retrieved=2,
+                                   n_final=1).answer(question)
+    assert (answer, ctx) == (j_answer, j_ctx)
 
 
 def test_decoder_reader_generates():
