@@ -4,6 +4,9 @@ PyTorch and CUDA.
 A port of the JAX package ``chamjax`` to PyTorch on an NVIDIA Hopper card.
 Module names mirror ``chamjax/`` so each counterpart is easy to find:
 
+- ``chamjax_torch.random``  — ``jax.random`` as the JAX package draws from
+  it (threefry2x32; on the card the kernel ``csrc/threefry.cu``): every
+  seeded corpus, k-means seeding and initial model is the JAX package's.
 - ``chamjax_torch.data``    — synthetic corpora and exact ground truth.
 - ``chamjax_torch.index``   — k-means, PQ/OPQ training and the packed
   IVF-PQ layout (reads and writes the JAX package's npz format).

@@ -1,9 +1,11 @@
-"""The least time the card could take for a scan kernel's work, from the
+"""The least time the card could take for a kernel's work, from the
 inputs of one call: the bytes the function needs (each input byte it
 depends on read once, each output byte written once) over the HBM rate,
-against its adds over the fp32 rate (``perf_model.roofline_ms``).  Where
-the work depends on the data (window lengths, repeated tiles or LUT
-rows), the count is what these inputs need."""
+against its operations over the card's rate for their type
+(``perf_model.roofline_ms``): a scan's adds at the fp32 rate, the threefry
+hash's integer operations at the integer rate.  Where the work depends
+on the data (window lengths, repeated tiles or LUT rows), the count is
+what these inputs need."""
 
 from __future__ import annotations
 
@@ -108,3 +110,27 @@ def variant_bound(variant: str, codes, starts, lut_idx, luts, *, seg: int,
     adds = 0 if variant in ("nosum", "dma_only") else bw * seg * m
     return roofline_ms(code_bytes + lut_bytes + 4 * bw + out_bytes, adds,
                        spec)
+
+
+# threefry2x32 (csrc/threefry.cu) an output: each of its 20 rounds a funnel
+# shift and an xor, and the closing bits1 ^ bits2, which only the integer
+# pipe runs; an add each round, two at the start and two at each of the 5
+# key injections, which the integer pipe or the FMA pipe (as IMAD) can run
+THREEFRY_ROUNDS = 20
+THREEFRY_INT_ONLY = 2 * THREEFRY_ROUNDS + 1
+THREEFRY_ADDS = THREEFRY_ROUNDS + 2 + 2 * (THREEFRY_ROUNDS // 4)
+
+
+def threefry_bound(n: int, out_bytes: int, spec: GpuSpec = H100
+                   ) -> Tuple[float, str]:
+    """A threefry draw of ``n`` outputs: ``out_bytes`` written (nothing is
+    read) against the hash's integer instructions, which the function
+    needs whatever the compiler emits: the integer pipe runs the rotations
+    and xors, the adds go to whichever of the two 64-lane pipes (each at
+    ``spec.int32_tops``) is less busy, so the busier one runs
+    ``max(int_only, (int_only + adds) / 2)`` an output.  A float form adds
+    work on other pipes, so this bounds every form from below."""
+    per_output = max(THREEFRY_INT_ONLY,
+                     (THREEFRY_INT_ONLY + THREEFRY_ADDS) / 2)
+    return roofline_ms(out_bytes, n * per_output, spec,
+                       tflops=spec.int32_tops)

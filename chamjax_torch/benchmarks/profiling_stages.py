@@ -20,9 +20,10 @@ windows under its ``W`` rule.
     python -m chamjax_torch.benchmarks.profiling_stages --sweep batch \\
         --values 8 32 128 [--synthetic] [--lut-bf16] [--coarse-cand 128]
 
-Without ``--synthetic`` it builds the 1M flagship's index (the numpy
-``synthetic_dataset``, hard-balanced at cap ``seg``) on the device; with
-it, a balanced random index at full shape from a seeded generator.
+Without ``--synthetic`` it builds the 1M flagship's index
+(``synthetic_dataset_device``, seed 42, hard-balanced at cap ``seg``) on
+the device; with it, a balanced random index at full shape drawn from
+``key(0)``: the reference profile's corpus and index, draw for draw.
 Results go to a ``ResultStore`` (``--out``) and one line a point.
 """
 
@@ -44,7 +45,8 @@ from chamjax_torch.ops.scan_seg_multi import (adc_scan_segments_multi,
                                               scan_lists_seg_multi)
 from chamjax_torch.ops.topk import select_topk
 from chamjax_torch.searcher import DeviceIVF
-from chamjax_torch.utils.device import resolve_device, seeded_generator
+from chamjax_torch import random as jr
+from chamjax_torch.utils.device import resolve_device
 
 KEYS = ("coarse_ms", "coarse2_ms", "lut_ms", "scan_ms", "scan_bf16_ms",
         "topk_ms", "expand_ms", "full_ms", "full_lane_l1_ms",
@@ -218,20 +220,20 @@ def synthetic_index(nb: int, d: int, nlist: int, m: int, seg: int,
     """A balanced random index at full ``(nb, nlist, m)`` shape with no
     build: stage times depend on shapes, not on the values.  Lists of
     ``nb // nlist`` rows, padded to 128 rows (to ``seg`` with ``tiled``,
-    which also attaches the seg-tiled twin); codes, centroids and
-    codebooks from a ``torch.Generator`` seeded with ``seed``."""
+    which also attaches the seg-tiled twin); centroids, codebooks and
+    codes from ``split(key(seed), 4)``, as the reference profile draws
+    them."""
     dev = resolve_device(device)
-    g = seeded_generator(dev, seed)
+    ks = jr.split(seed, 4)
     L = nb // nlist
     Lpad = -(-L // (seg if tiled else 128)) * (seg if tiled else 128)
     n_pad = nlist * Lpad + MAX_SEG
-    codes_t = torch.randint(0, 256, (m, n_pad), generator=g, device=dev,
-                            dtype=torch.uint8)
+    codes_t = jr.randint(ks[2], (m, n_pad), 0, 256, torch.uint8, device=dev)
     codes_tiled = (codes_t[:, :nlist * Lpad].reshape(m, -1, seg)
                    .permute(1, 0, 2).contiguous() if tiled else None)
     return DeviceIVF(
-        centroids=torch.randn((nlist, d), generator=g, device=dev),
-        codebooks=torch.randn((m, 256, d // m), generator=g, device=dev),
+        centroids=jr.normal(ks[0], (nlist, d), device=dev),
+        codebooks=jr.normal(ks[1], (m, 256, d // m), device=dev),
         codes_t=codes_t,
         ids=torch.arange(n_pad, dtype=torch.int32, device=dev),
         list_start=torch.arange(nlist, dtype=torch.int32, device=dev) * Lpad,
@@ -241,21 +243,23 @@ def synthetic_index(nb: int, d: int, nlist: int, m: int, seg: int,
 
 def flagship_index(nb: int, d: int, nlist: int, m: int, seg: int,
                    tiled: bool, device=None) -> Tuple[DeviceIVF, np.ndarray]:
-    """The flagship's index built on ``device`` from the numpy corpus
-    (seed 42, 4096 clusters), hard-balanced with cap ``seg`` as
-    ``bench.py`` builds it, and 8192 queries of that corpus."""
+    """The flagship's index built on ``device`` from
+    ``synthetic_dataset_device`` (seed 42, 4096 clusters, drawn there),
+    hard-balanced with cap ``seg`` as ``bench.py`` builds it, and 8192
+    queries of that corpus."""
     from chamjax_torch.config import IndexConfig
-    from chamjax_torch.data import synthetic_dataset
+    from chamjax_torch.data import synthetic_dataset_device
     from chamjax_torch.index import build_ivfpq
     dev = resolve_device(device)
-    ds = synthetic_dataset(nb=nb, nq=8192, nt=100_000, d=d, seed=42,
-                           n_clusters=4096)
+    ds = synthetic_dataset_device(nb=nb, nq=8192, nt=100_000, d=d, seed=42,
+                                  n_clusters=4096, to_host=False, device=dev)
     idx = build_ivfpq(ds.xb, IndexConfig(
         dim=d, nlist=nlist, m=m, balanced=True, balance_hard=True,
         balance_factor=seg * nlist / nb, list_pad=128),
         xt=ds.xt, kmeans_iters=10, pq_iters=10, device=dev)
-    return DeviceIVF.from_packed(idx, device=dev,
-                                 tile_seg=seg if tiled else 0), ds.xq
+    index = DeviceIVF.from_packed(idx, device=dev,
+                                  tile_seg=seg if tiled else 0)
+    return index, ds.xq.cpu().numpy()
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -299,12 +303,13 @@ def main(argv: Optional[List[str]] = None) -> None:
     from chamjax_torch.utils import ResultStore
     args = parse_args(argv)
     if args.synthetic:
-        from chamjax_torch.data import synthetic_dataset
+        from chamjax_torch.data import synthetic_dataset_device
         index = synthetic_index(args.nb, args.d, args.nlist, args.m,
                                 args.seg, bool(args.tiled),
                                 device=args.device)
-        xq = synthetic_dataset(nb=1, nq=8192, nt=1, d=args.d, seed=42,
-                               n_clusters=64).xq
+        xq = synthetic_dataset_device(nb=1, nq=8192, nt=1, d=args.d,
+                                      seed=42, n_clusters=64, parts=("xq",),
+                                      device=args.device).xq
     else:
         index, xq = flagship_index(args.nb, args.d, args.nlist, args.m,
                                    args.seg, bool(args.tiled),

@@ -4,12 +4,13 @@ host transfer between them (the port of ``benchmarks/ralm_device_bench.py``).
 Builds a synthetic corpus and an IVF-PQ index at the model's hidden width
 on the card, wires a retriever whose ``retrieve_device`` keeps queries and
 results on the card, and times ``batch_inference`` over the whole fused
-chain: one JSON line per (preset, interval).  By default the corpus is a
-numpy ``synthetic_dataset`` built by ``build_ivfpq`` behind a
-``LocalRetriever``; ``--streamed`` draws it on the card instead (a
-clustered stream, or the hard-mode corpus with ``--hard``) through the
-streamed device builder (``--balance`` caps its lists) into a tile-only
-index behind a ``DeviceRetriever``.
+chain: one JSON line per (preset, interval).  By default the corpus is
+``synthetic_dataset_device`` (seed 11) drawn on the card and built by
+``build_ivfpq`` behind a ``LocalRetriever``; ``--streamed`` draws it in
+chunks (a clustered stream, or the hard-mode corpus with ``--hard``)
+through the streamed device builder (``--balance`` caps its lists) into a
+tile-only index behind a ``DeviceRetriever``.  Every corpus and the model
+(seed 0) draw the reference bench's threefry streams.
 
     python -m chamjax_torch.benchmarks.ralm_device_bench \\
         --presets Dec-S,Llama-S,EncDec-S --batch 64
@@ -42,7 +43,9 @@ import torch
 
 from chamjax_torch.config import (MODEL_PRESETS, IndexConfig, ModelConfig,
                                   SearchConfig)
-from chamjax_torch.data import synthetic_dataset
+from chamjax_torch import random as jr
+from chamjax_torch.data import synthetic_dataset_device
+from chamjax_torch.data.datasets import clustered_rows
 from chamjax_torch.data.hard import GEN as HARD_GEN
 from chamjax_torch.data.hard import make_hard_corpus
 from chamjax_torch.index import build_ivfpq, build_ivfpq_device
@@ -53,9 +56,7 @@ from chamjax_torch.retrieval.local import DeviceRetriever, LocalRetriever
 from chamjax_torch.searcher import auto_seg
 from chamjax_torch.serving.ralm import RalmDecoder, RalmEncoderDecoder
 from chamjax_torch.utils import cuda_lib
-from chamjax_torch.utils.device import (card_description, resolve_device,
-                                        seeded_generator)
-from chamjax_torch.utils.precision import fp32_matmul
+from chamjax_torch.utils.device import card_description, resolve_device
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -110,49 +111,42 @@ def model_configs(args) -> Dict[str, ModelConfig]:
 
 
 def build_retriever(args, d: int, device) -> LocalRetriever:
-    """The corpus (numpy, seed 11, clustered) and a balanced IVF-PQ index
-    built on ``device``, behind a LocalRetriever there."""
-    ds = synthetic_dataset(nb=args.nb, nq=8, nt=min(100_000, args.nb), d=d,
-                           seed=11, n_clusters=args.nlist)
+    """The corpus (``synthetic_dataset_device``, seed 11, clustered, drawn
+    on ``device`` in ~256 MB chunks) and a balanced IVF-PQ index built on
+    ``device``, behind a LocalRetriever there."""
+    ds = synthetic_dataset_device(nb=args.nb, nq=8, nt=min(100_000, args.nb),
+                                  d=d, seed=11, n_clusters=args.nlist,
+                                  chunk=max(8192, (1 << 26) // d),
+                                  parts=("xb", "xt"), to_host=False,
+                                  device=device)
     idx = build_ivfpq(ds.xb, IndexConfig(dim=d, nlist=args.nlist, m=args.m,
                                          list_pad=128, balanced=True,
                                          balance_factor=1.3),
                       xt=ds.xt, kmeans_iters=8, pq_iters=8, device=device)
+    del ds                  # drop the corpus before the parameters allocate
     return LocalRetriever(idx, SearchConfig(nprobe=args.nprobe, k=args.k),
                           device=device)
 
 
 def clustered_stream(d: int, n_clusters: int, seed: int, device):
-    """The easy streamed corpus: ``n_clusters`` Gaussian centres (scale 4)
-    plus a rank-d/4 projection of a unit normal and 0.05 noise, drawn on
-    ``device`` in ``gen``-row chunks (~256 MB) from torch generators seeded
-    by the chunk start, so a draw does not depend on the caller's
-    chunking.  Returns ``(draw_base, draw_train, gen)``."""
-    rank = max(4, d // 4)
+    """The easy streamed corpus (the family of ``clustered_rows``) in
+    ``gen``-row chunks (~256 MB): base chunk ``s`` from ``fold_in(key,
+    1_000_000 + s)``, training chunk ``s`` from ``fold_in(key, 2_000_000 +
+    s)``, so a draw does not depend on the caller's chunking.  Returns
+    ``(draw_base, draw_train, gen)``."""
     gen = max(8192, (1 << 26) // d)
-    centers = torch.randn((n_clusters, d), device=device,
-                          generator=seeded_generator(device, seed, 0)) * 4.0
-    proj = torch.randn((rank, d), device=device, generator=seeded_generator(
-        device, seed, 1)) / np.sqrt(rank)
+    key, rows = clustered_rows(d, n_clusters, seed, device=device)
 
-    @fp32_matmul()
-    def chunk(g: torch.Generator) -> torch.Tensor:
-        asg = torch.randint(0, n_clusters, (gen,), generator=g,
-                            device=device)
-        z = torch.randn((gen, rank), generator=g, device=device)
-        noise = torch.randn((gen, d), generator=g, device=device) * 0.05
-        return centers[asg] + torch.matmul(z, proj) + noise
-
-    def stream(salt: int):
+    def stream(offset: int):
         def draw(s: int, c: int) -> torch.Tensor:
             if s % gen or c % gen or c <= 0:
                 raise ValueError(f"draws align to {gen} rows; got ({s}, {c})")
-            parts = [chunk(seeded_generator(device, seed, salt, s + i))
+            parts = [rows(jr.fold_in(key, offset + s + i), gen)
                      for i in range(0, c, gen)]
             return parts[0] if len(parts) == 1 else torch.cat(parts)
         return draw
 
-    return stream(2), stream(3), gen
+    return stream(1_000_000), stream(2_000_000), gen
 
 
 def build_streamed_retriever(args, d: int, device) -> DeviceRetriever:

@@ -67,6 +67,52 @@ def parse_sass(text: str) -> Dict[str, collections.Counter]:
     return out
 
 
+# the two issue pipes of Hopper's integer instructions, 64 lanes an SM a
+# clock each: the integer pipe (add, logic, shift and funnel shift,
+# compare, select) and the FMA pipe's integer multiply-add
+PIPES = {
+    "alu": ("IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "ISETP",
+            "SEL", "LEA", "IMNMX", "PRMT", "IABS", "PLOP3", "BMSK", "VIADD"),
+    "imad": ("IMAD", "IMUL"),
+}
+_PIPE_OF = {op: pipe for pipe, ops in PIPES.items() for op in ops}
+
+
+def pipe_counts(text: str) -> Dict[str, collections.Counter]:
+    """{mangled kernel name: Counter of its instructions by issue pipe
+    (``PIPES``)}: static counts, each instruction once as written."""
+    out: Dict[str, collections.Counter] = {}
+    current = None
+    for line in text.splitlines():
+        f = _FUNCTION.match(line)
+        if f:
+            current = out.setdefault(f.group(1), collections.Counter())
+            continue
+        i = _INSTR.search(line)
+        if current is not None and i:
+            pipe = _PIPE_OF.get(i.group(1).split(".")[0])
+            if pipe:
+                current[pipe] += 1
+    return out
+
+
+def library_pipe_counts(lib: str) -> Dict[str, Dict[str, int]]:
+    """{demangled kernel name: instructions by pipe} of built library
+    ``lib`` (built first where needed)."""
+    cuda_lib.build((lib,))
+    cuobjdump = _tool("cuobjdump")
+    if not cuobjdump:
+        raise RuntimeError("cuobjdump not found beside nvcc or on PATH")
+    sass = subprocess.run([cuobjdump, "-sass",
+                           str(cuda_lib.library_path(lib))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts = pipe_counts(sass)
+    mangled = sorted(counts)
+    return {name: dict(counts[raw])
+            for raw, name in zip(mangled, _demangle(mangled))}
+
+
 def _demangle(names: List[str]) -> List[str]:
     tool = _tool("cu++filt") or shutil.which("c++filt")
     if not tool or not names:

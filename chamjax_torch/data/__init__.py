@@ -12,6 +12,7 @@ from chamjax_torch.data.datasets import (  # noqa: F401
     load_dataset,
     load_real_dataset,
     synthetic_dataset,
+    synthetic_dataset_device,
     Dataset,
 )
 from chamjax_torch.data.ground_truth import compute_ground_truth  # noqa: F401

@@ -10,7 +10,9 @@
 - ``load_dataset`` (the on-disk bigann layout, else a cached synthetic
   draw) and ``load_real_dataset`` (a directory or a ``base=...`` spec).
 
-``synthetic_dataset_device`` is not copied: it draws from JAX's PRNG.
+- ``synthetic_dataset_device``: the clustered corpus drawn on the device
+  from the JAX package's threefry streams (``chamjax_torch.random``), so
+  both packages draw the same corpus from the same arguments.
 """
 
 from __future__ import annotations
@@ -18,11 +20,15 @@ from __future__ import annotations
 import os
 import warnings
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 from chamjax_torch import native
+from chamjax_torch import random as jr
+from chamjax_torch.utils.device import resolve_device
+from chamjax_torch.utils.precision import fp32_matmul
 
 
 # ---------------------------------------------------------------------------
@@ -223,6 +229,78 @@ def synthetic_dataset(
         xb = rng.standard_normal((nb, d)).astype(np.float32)
         xt = rng.standard_normal((nt, d)).astype(np.float32)
         xq = rng.standard_normal((nq, d)).astype(np.float32)
+    return Dataset(name=name, xb=xb, xq=xq, xt=xt)
+
+
+def clustered_rows(d: int, n_clusters: int, seed: int, *,
+                   rank: Optional[int] = None, spectrum_tau: float = 0.0,
+                   device=None):
+    """The clustered family of ``synthetic_dataset_device`` on ``device``:
+    centres (scale 4) and a rank-``rank`` projection (default ``d // 4``)
+    from ``split(key(seed))``, then ``rows(k, n)``, ``n`` rows from key
+    ``k`` split three ways (cluster ids, the latent normal, 0.05 noise):
+    ``centers[asg] + z @ proj + noise``, the product in float32 with TF32
+    off.  ``spectrum_tau > 0`` scales latent component ``j`` by
+    ``exp(-j / tau)`` (energy kept).  Returns ``(key, rows)``."""
+    dev = resolve_device(device)
+    rank = rank or max(4, d // 4)
+    key = jr.key(seed)
+    k_c, k_p = jr.split(key)
+    centers = jr.normal(k_c, (n_clusters, d), scale=4.0, device=dev)
+    proj = jr.normal(k_p, (rank, d), device=dev) / float(
+        np.float32(np.sqrt(rank)))
+    if spectrum_tau > 0:
+        lam = torch.exp(-torch.arange(rank, dtype=torch.float32, device=dev)
+                        / spectrum_tau)
+        lam = lam * torch.sqrt(rank / torch.sum(lam * lam))
+        proj = proj * lam[:, None]
+
+    @fp32_matmul()
+    def rows(k, n: int) -> torch.Tensor:
+        k1, k2, k3 = jr.split(k, 3)
+        asg = jr.randint(k1, (n,), 0, n_clusters, device=dev)
+        z = jr.normal(k2, (n, rank), device=dev)
+        noise = jr.normal(k3, (n, d), scale=0.05, device=dev)
+        return centers[asg.long()] + torch.matmul(z, proj) + noise
+
+    return key, rows
+
+
+def synthetic_dataset_device(
+    name: str = "SYN",
+    nb: int = 100_000,
+    nq: int = 1000,
+    nt: int = 50_000,
+    d: int = 128,
+    seed: int = 0,
+    n_clusters: int = 4096,
+    rank: Optional[int] = None,
+    chunk: int = 1 << 20,
+    parts: Tuple[str, ...] = ("xb", "xt", "xq"),
+    to_host: bool = True,
+    spectrum_tau: float = 0.0,
+    device=None,
+) -> Dataset:
+    """Clustered synthetic corpus drawn on ``device`` (the card unless
+    given ``"cpu"``): the JAX package's ``synthetic_dataset_device``, draw
+    for draw (:func:`clustered_rows`).  Each split is drawn in
+    ``chunk``-row chunks, chunk ``i`` from ``fold_in(fold_in(key, salt),
+    i)``, salt 1 (``xb``), 2 (``xt``) or 3 (``xq``), so each split is drawn
+    alone (``parts``; the others are ``None``).  ``to_host=False`` leaves
+    the splits on the device."""
+    key, rows = clustered_rows(d, n_clusters, seed, rank=rank,
+                               spectrum_tau=spectrum_tau, device=device)
+
+    def draw(n: int, salt: int):
+        base = jr.fold_in(key, salt)
+        chunks = [rows(jr.fold_in(base, i), min(chunk, n - i))
+                  for i in range(0, n, chunk)]
+        out = chunks[0] if len(chunks) == 1 else torch.cat(chunks)
+        return out.cpu().numpy() if to_host else out
+
+    xb = draw(nb, 1) if "xb" in parts else None
+    xt = draw(nt, 2) if "xt" in parts else None
+    xq = draw(nq, 3) if "xq" in parts else None
     return Dataset(name=name, xb=xb, xq=xq, xt=xt)
 
 

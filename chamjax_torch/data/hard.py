@@ -11,13 +11,10 @@ anchors the reference cites (SIFT100M IVF4096,PQ16 → R@10
 0.41/0.66/0.79/0.80 at nprobe 1/4/16/32).
 
 Everything is a deterministic row-indexed stream: ``draw(start, count)``
-generates ``GEN``-row chunks, each from a ``torch.Generator`` seeded by
-(seed, salt, chunk start) on the draw's device, so a draw is identical
-whatever the caller's chunking.  The stream is torch's, not JAX-PRNG: the
-two packages draw different corpora from one seed, and on one seed a CPU
-draw (MT19937) differs from a card draw (Philox).  The RNG-free parameters
-— the Zipf mass CDF and the eigenvalue profile ``lam`` — are computed as
-the JAX package computes them, in float32.
+generates ``GEN``-row chunks, chunk ``s`` from ``fold_in(fold_in(key,
+salt), s)`` — the JAX package's threefry streams (``chamjax_torch.random``),
+so both packages draw the same rows from one seed, on the CPU as on a card,
+whatever the caller's chunking.
 """
 
 from __future__ import annotations
@@ -27,15 +24,58 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from chamjax_torch.utils.device import resolve_device, seeded_generator
+from chamjax_torch import random as jr
+from chamjax_torch.utils.device import resolve_device
 from chamjax_torch.utils.precision import fp32_matmul
 
 GEN = 1 << 20     # generator granularity (rows); draws are identical
                   # regardless of the caller's chunking
 
-# seed-sequence salts of the parameter draws (the JAX package splits its
-# key four ways: centers, projection, banks, and one unused)
-_CENTERS, _PROJ, _BANKS, _STREAM, _QUERIES = range(5)
+
+def _scan16(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive float32 prefix sums in XLA's CPU order: rows of 16, each
+    summed left to right, plus the scanned totals of the rows before."""
+    n = x.shape[0]
+    if n <= 16:
+        rows = x[None]
+    else:
+        rows = torch.nn.functional.pad(x, (0, -n % 16)).reshape(-1, 16)
+    p = rows.clone()
+    for j in range(1, p.shape[1]):
+        p[:, j] = p[:, j - 1] + rows[:, j]
+    if n <= 16:
+        return p[0]
+    totals = _scan16(p[:, -1].contiguous())
+    carry = torch.cat([totals.new_zeros(1), totals[:-1]])
+    return (p + carry[:, None]).reshape(-1)[:n]
+
+
+def _sum32(x: torch.Tensor) -> torch.Tensor:
+    """The float32 sum in XLA's CPU order: blocks of 32 summed left to
+    right, again until at most 32 partial sums remain, those left to
+    right."""
+    while x.shape[0] > 32:
+        blocks = torch.nn.functional.pad(x, (0, -x.shape[0] % 32)).reshape(
+            -1, 32)
+        x = blocks[:, 0].clone()
+        for j in range(1, 32):
+            x = x + blocks[:, j]
+    acc = x.new_zeros(())
+    for v in x:
+        acc = acc + v
+    return acc
+
+
+def zipf_cdf(n_clusters: int, zipf_a: float, device) -> torch.Tensor:
+    """The cluster-mass CDF ``cumsum(w) / sum(w)``, ``w = (c + 1) **
+    -zipf_a``, float32, equal to the JAX package's bit for bit: the power
+    through float64 (XLA's is float32 powf, rounded alike in all but a few
+    weights whose last bit never reaches the CDF), the prefix sums and the
+    total in XLA's CPU summation orders.  A uniform draw picks its cluster
+    by this CDF, so one ulp here moves rows across a cluster boundary."""
+    x = torch.arange(1, n_clusters + 1, dtype=torch.float64, device=device)
+    w = torch.pow(x, float(np.float32(-zipf_a))).to(torch.float32)
+    return _scan16(w) / _sum32(w)
 
 
 class HardCorpus(NamedTuple):
@@ -70,38 +110,38 @@ def make_hard_corpus(
     dev = resolve_device(device)
     rank = rank or max(4, d // 4)
     tau = spectrum_tau or rank / 3.0
-    centers = torch.randn((n_clusters, d), generator=seeded_generator(
-        dev, seed, _CENTERS), device=dev) * center_scale
-    proj = torch.randn((rank, d), generator=seeded_generator(
-        dev, seed, _PROJ), device=dev) / np.sqrt(rank)
+    key = jr.key(seed)
+    k_c, k_p, k_b, _ = jr.split(key, 4)
+    centers = jr.normal(k_c, (n_clusters, d), scale=center_scale, device=dev)
+    proj = jr.normal(k_p, (rank, d), device=dev) / float(
+        np.float32(np.sqrt(rank)))
     lam = torch.exp(-torch.arange(rank, dtype=torch.float32, device=dev)
                     / tau)
     lam = lam * torch.sqrt(rank / torch.sum(lam * lam))
-    g_b = seeded_generator(dev, seed, _BANKS)
-    perms = torch.stack([torch.randperm(rank, generator=g_b, device=dev)
-                         for _ in range(n_banks)])
+    perms = torch.stack([jr.permutation(k, rank, device=dev)
+                         for k in jr.split(k_b, n_banks)])
     lam_bank = lam[perms]                               # (n_banks, rank)
-    w = (torch.arange(n_clusters, dtype=torch.float32, device=dev)
-         + 1.0) ** (-zipf_a)
-    cdf = torch.cumsum(w, 0) / torch.sum(w)
+    cdf = zipf_cdf(n_clusters, zipf_a, dev)
 
     @fp32_matmul()
-    def gen(g: torch.Generator) -> torch.Tensor:
-        u = torch.rand((GEN,), generator=g, device=dev)
+    def gen(k) -> torch.Tensor:
+        k1, k2, k3 = jr.split(k, 3)
+        u = jr.uniform(k1, (GEN,), device=dev)
         asg = torch.clamp(torch.searchsorted(cdf, u, side="left"),
                           max=n_clusters - 1)
-        z = torch.randn((GEN, rank), generator=g, device=dev)
+        z = jr.normal(k2, (GEN, rank), device=dev)
         z = z * lam_bank[asg % n_banks]
-        eps = torch.randn((GEN, d), generator=g, device=dev) * noise
+        eps = jr.normal(k3, (GEN, d), scale=noise, device=dev)
         return centers[asg] + torch.matmul(z, proj) + eps
 
     def make_draw(salt: int):
+        base = jr.fold_in(key, salt)
+
         def draw(s: int, c: int) -> torch.Tensor:
             if s % GEN or c % GEN or c <= 0:
                 raise ValueError(f"hard-mode draws must align to GEN={GEN} "
                                  f"rows; got ({s}, {c})")
-            parts = [gen(seeded_generator(dev, seed, _STREAM, salt, s + i))
-                     for i in range(0, c, GEN)]
+            parts = [gen(jr.fold_in(base, s + i)) for i in range(0, c, GEN)]
             return parts[0] if len(parts) == 1 else torch.cat(parts)
         return draw
 
@@ -112,15 +152,15 @@ def make_hard_corpus(
                 ) -> torch.Tensor:
         """Query set.  ``jitter < 0`` (default): independent draws from the
         same density (a fresh salted stream).  ``jitter >= 0``: corpus rows
-        of the first GEN, drawn without replacement, plus Gaussian noise of
-        ``jitter`` (the re-finding regime)."""
+        of the first GEN, chosen without replacement, plus Gaussian noise
+        of ``jitter`` (the re-finding regime)."""
         if not 0 < nq <= GEN:
             raise ValueError(f"nq={nq} must be in 1..GEN={GEN}")
         if jitter < 0:
             return make_draw(3 + salt)(0, GEN)[:nq]
-        g = seeded_generator(dev, seed, _QUERIES, salt)
-        idx = torch.randperm(GEN, generator=g, device=dev)[:nq]
-        eps = torch.randn((nq, d), generator=g, device=dev) * jitter
+        k_i, k_e = jr.split(jr.fold_in(key, salt))
+        idx = jr.choice(k_i, GEN, nq, device=dev)
+        eps = jr.normal(k_e, (nq, d), scale=jitter, device=dev)
         return draw_base(0, GEN)[idx] + eps
 
     return HardCorpus(

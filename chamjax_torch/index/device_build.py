@@ -19,8 +19,6 @@ Differences from the JAX package, kept on purpose:
 - ``.at[].add`` is ``index_add_``, an atomic add on a card: centroids and
   k-means statistics are not bit-reproducible from run to run there (they
   are on the CPU).
-- Seeds (the initial centroids, the empty-cell jitter) come from a
-  ``torch.Generator``; JAX's come from its PRNG.  Nothing else differs.
 - Every ``argsort`` is stable, as ``jnp.argsort`` is; ``lax.sort`` on
   (cell, dist) keys is a stable sort by dist, then a stable sort by cell.
 - The stage profile (``CHAMJAX_BUILD_PROFILE=1``, synchronising the device
@@ -41,7 +39,8 @@ import numpy as np
 import torch
 
 from chamjax_torch.config import IndexConfig
-from chamjax_torch.utils.device import as_f32, resolve_device, seeded_generator
+from chamjax_torch import random as jr
+from chamjax_torch.utils.device import as_f32, resolve_device
 from chamjax_torch.utils.precision import fp32_matmul
 
 DrawFn = Callable[[int, int], torch.Tensor]   # (start, count) -> (count, d)
@@ -132,11 +131,11 @@ def _counts(a: torch.Tensor, k: int) -> torch.Tensor:
 
 
 @fp32_matmul()
-def _lloyd_iter(xb: torch.Tensor, cent: torch.Tensor, key: torch.Generator,
+def _lloyd_iter(xb: torch.Tensor, cent: torch.Tensor, key: jr.Key,
                 block: int, cand: int):
     """One Lloyd iteration over every row (the n % block tail included):
     mean update, then empty cells reseeded at the heaviest cells'
-    centroids plus a jitter drawn from ``key``.  Returns (centroids,
+    centroids plus a jitter ``normal(key)``.  Returns (centroids,
     counts)."""
     k, d = cent.shape
     a = _assign_blocked(xb, cent, block=block, cand=cand).long()
@@ -151,7 +150,7 @@ def _lloyd_iter(xb: torch.Tensor, cent: torch.Tensor, key: torch.Generator,
     donor = heavy[rank % k]
     scale = torch.mean(torch.abs(new[donor]), dim=1,
                        keepdim=True) * 1e-3 + 1e-6
-    jitter = torch.randn((k, d), generator=key, device=xb.device) * scale
+    jitter = jr.normal(key, (k, d), device=xb.device) * scale
     new = torch.where(empty[:, None], new[donor] + jitter, new)
     return new, counts
 
@@ -175,8 +174,8 @@ def _update_from_assignment(x: torch.Tensor, a: torch.Tensor,
     ``cap · deadband`` get ``ceil(nat_count/cap) - 1`` extra centroids,
     respawned from the lightest cells (natural demand < cap/2) AT MEMBER
     POINTS of the donor spread over its distance-sorted run; empty cells
-    beyond the budget take the heavy-donor reseed.  ``key`` is unused (the
-    JAX package's signature).  Returns (centroids, counts)."""
+    beyond the budget take the heavy-donor reseed.  ``key`` is unused, as
+    in the JAX package.  Returns (centroids, counts)."""
     del key
     dev = x.device
     k, d = cent.shape
@@ -257,17 +256,17 @@ def lloyd_device(x: torch.Tensor, k: int, iters: int = 10, seed: int = 0,
     if n < k:
         raise ValueError(f"lloyd_device: {n} rows < {k} clusters")
     dev = x.device
-    gen = seeded_generator(dev, seed)
+    key = jr.key(seed)
     if init == "auto":
         init = "kmeans++" if k <= 4096 else "random"
     if init == "kmeans++":
         sample = x if n <= init_sample else x[
-            torch.randperm(n, generator=gen, device=dev)[:init_sample]]
-        cent = _kmeanspp_init(sample, k, gen)
+            jr.permutation(key, n, device=dev)[:init_sample]]
+        cent = _kmeanspp_init(sample, k, key)
     else:
-        cent = x[torch.randperm(n, generator=gen, device=dev)[:k]]
+        cent = x[jr.permutation(key, n, device=dev)[:k]]
     for it in range(iters):
-        cent, counts = _lloyd_iter(x, cent, seeded_generator(dev, seed, it),
+        cent, counts = _lloyd_iter(x, cent, jr.fold_in(key, it),
                                    block=block, cand=cand)
         if verbose:
             nz = int(torch.sum(counts > 0))
@@ -283,8 +282,8 @@ def lloyd_device(x: torch.Tensor, k: int, iters: int = 10, seed: int = 0,
             # validated centroid state, not freshly respawned twins
             split = float(it < balance_iters - 1)
             cent, counts = _update_from_assignment(
-                x, a, nat, cent, None, float(balance_cap), split,
-                float(balance_deadband))
+                x, a, nat, cent, jr.fold_in(key, 1000 + it),
+                float(balance_cap), split, float(balance_deadband))
             if verbose:
                 mx = int(torch.max(counts))
                 print(f"[lloyd] balance iter {it}: max cell {mx} "

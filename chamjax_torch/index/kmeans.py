@@ -2,10 +2,9 @@
 ``index_add_`` update (the port of ``chamjax/index/kmeans.py``).
 
 Data is streamed to the device in fixed-size chunks; empty clusters are
-re-seeded from heavy ones.  k-means++ seeding draws from a seeded
-``torch.Generator`` — the JAX package draws from the JAX PRNG, a stream
-torch cannot reproduce, so the two packages' centroids agree in quality,
-not in bits.
+re-seeded from heavy ones.  k-means++ seeding draws the JAX package's
+threefry streams (``chamjax_torch.random``), so both packages seed the same
+centroids from the same sample and seed.
 """
 
 from __future__ import annotations
@@ -16,6 +15,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from chamjax_torch import random as jr
 from chamjax_torch.utils.device import as_f32, resolve_device
 from chamjax_torch.utils.precision import fp32_matmul
 
@@ -152,21 +152,20 @@ def assign_balanced(
     return out
 
 
-def _kmeanspp_init(x: torch.Tensor, k: int,
-                   gen: torch.Generator) -> torch.Tensor:
-    """k-means++ (D²-sampling) seeding; the draws use the Gumbel-max trick
-    as the JAX package does, from ``gen``."""
+def _kmeanspp_init(x: torch.Tensor, k: int, key: jr.Key) -> torch.Tensor:
+    """k-means++ (D²-sampling) seeding, the JAX package's draws: the first
+    centre ``randint(key, (), 0, n)``, centre ``i`` the argmax of
+    ``log(D²) + gumbel(fold_in(key, i))`` (the Gumbel-max trick)."""
     n, d = x.shape
-    first = torch.randint(0, n, (1,), generator=gen, device=x.device)
-    c0 = x[first[0]]
+    first = jr.randint(key, (), 0, n, device=x.device)
+    c0 = x[first.long()]
     min_d = torch.sum((x - c0) ** 2, dim=1)
     cents = torch.empty((k, d), dtype=x.dtype, device=x.device)
     cents[0] = c0
     for i in range(1, k):
         logits = torch.log(torch.clamp(min_d, min=1e-30))
-        u = torch.rand(n, generator=gen, device=x.device)
-        gumbel = -torch.log(-torch.log(u.clamp(min=1e-20)))
-        c = x[torch.argmax(logits + gumbel)]
+        g = jr.gumbel(jr.fold_in(key, i), (n,), device=x.device)
+        c = x[torch.argmax(logits + g)]
         cents[i] = c
         min_d = torch.minimum(min_d, torch.sum((x - c) ** 2, dim=1))
     return cents
@@ -206,9 +205,7 @@ def kmeans(
             sel = np.sort(rng.choice(n, size=init_sample, replace=False))
             sample = as_f32(x[sel] if not isinstance(x, torch.Tensor)
                             else x[torch.from_numpy(sel).to(x.device)], dev)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
-        cent_dev = _kmeanspp_init(sample, k, gen)
+        cent_dev = _kmeanspp_init(sample, k, jr.key(seed))
 
     chunk = _cap_chunk(chunk, k)
     for it in range(iters):

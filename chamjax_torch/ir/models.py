@@ -22,8 +22,9 @@ vocabulary, trained with the losses of ``ir/train.py``:
 Both are ``nn.Module``s whose parameter names are the JAX package's
 (``embed``, ``q.w1`` …, ``head``), so ``models/convert.py`` carries its
 parameters across.  They live on ``device`` (``None`` means the card) and
-draw their initial values from a ``torch.Generator`` seeded with ``seed``
-(not JAX-PRNG: the values differ from the JAX package's).  ``fit`` trains
+draw their initial values from ``seed``'s threefry streams
+(``chamjax_torch.random``), the JAX package's, so a seed gives its initial
+parameters.  ``fit`` trains
 with autograd and ``torch.optim.Adam`` (optax's ``adam``: the same update,
 ``eps_root`` 0) with TF32 off; its minibatches are the reference's numpy
 ``default_rng(seed)`` draws, call for call, so both packages train on the
@@ -42,6 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from chamjax_torch import random as jr
 from chamjax_torch.ir.train import in_batch_nce, multiple_negatives_ranking_loss
 from chamjax_torch.utils.device import resolve_device
 from chamjax_torch.utils.precision import fp32_matmul
@@ -181,23 +183,19 @@ class DualEncoder(nn.Module):
         self.max_len = max_len
         self.shared = shared_towers
         dev = self.device
-        g = torch.Generator(device=dev)
-        g.manual_seed(seed)
-
-        def normal(shape, scale):
-            return torch.randn(shape, generator=g, device=dev) * scale
-
-        self.embed = nn.Parameter(normal((vocab, emb_dim), emb_dim ** -0.5))
+        ke, k1, k2 = jr.split(seed, 3)
+        self.embed = nn.Parameter(jr.normal(ke, (vocab, emb_dim),
+                                            scale=emb_dim ** -0.5, device=dev))
         self.q = _Tower(emb_dim, dim, dev)
         self.d = _Tower(emb_dim, dim, dev)
         with torch.no_grad():
-            self.q.w1.copy_(normal((emb_dim, dim), emb_dim ** -0.5))
-            self.q.w2.copy_(normal((dim, dim), dim ** -0.5))
-            if shared_towers:
-                self.d.load_state_dict(self.q.state_dict())
-            else:
-                self.d.w1.copy_(normal((emb_dim, dim), emb_dim ** -0.5))
-                self.d.w2.copy_(normal((dim, dim), dim ** -0.5))
+            for tower, key in ((self.q, k1),
+                               (self.d, k1 if shared_towers else k2)):
+                ka, kb = jr.split(key)
+                tower.w1.copy_(jr.normal(ka, (emb_dim, dim),
+                                         scale=emb_dim ** -0.5, device=dev))
+                tower.w2.copy_(jr.normal(kb, (dim, dim), scale=dim ** -0.5,
+                                         device=dev))
         # which branch each mine_hard_negatives call took, and its seconds
         self.mining: List[dict] = []
 
@@ -393,13 +391,12 @@ class SparseEncoder(nn.Module):
         self.n_buckets = n_buckets
         self.max_len = max_len
         self.max_expansion = max_expansion
-        g = torch.Generator(device=self.device)
-        g.manual_seed(seed)
-        self.embed = nn.Parameter(torch.randn(
-            (vocab, latent), generator=g, device=self.device) * latent ** -0.5)
-        self.head = nn.Parameter(torch.randn(
-            (latent, n_buckets), generator=g, device=self.device)
-            * latent ** -0.5)
+        ke, kh = jr.split(seed)
+        self.embed = nn.Parameter(jr.normal(
+            ke, (vocab, latent), scale=latent ** -0.5, device=self.device))
+        self.head = nn.Parameter(jr.normal(
+            kh, (latent, n_buckets), scale=latent ** -0.5,
+            device=self.device))
 
     def _activate(self, ids: torch.Tensor, mask: torch.Tensor
                   ) -> torch.Tensor:

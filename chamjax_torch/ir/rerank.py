@@ -181,12 +181,11 @@ class Seq2SeqReranker:
     (query, doc) pair as the "true"-vs-"false" first-token log-odds of a
     seq2seq model fed "Query: q Document: d Relevant:".  The model is the
     port's encoder-decoder (``encoder_forward``, ``build_cross_kv``,
-    ``decoder_step``; hash-tokenized, random weights from ``seed`` through
-    a ``torch.Generator``, or the JAX package's carried across by
-    ``models/convert.py``).  On the card each of the three is a captured
-    graph: one KV cache a batch size, emptied before each batch, owns the
-    decode step's.  Exposes the ``predict(pairs)`` contract, so it plugs
-    into ``Rerank``.
+    ``decoder_step``; hash-tokenized, random weights from ``seed``, the
+    JAX package's own from the same seed).  On the card each of the three
+    is a captured graph: one KV cache a batch size, emptied before each
+    batch, owns the decode step's.  Exposes the ``predict(pairs)``
+    contract, so it plugs into ``Rerank``.
     """
 
     TRUE_TOK, FALSE_TOK = 2, 3

@@ -24,12 +24,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from chamjax_torch import random as jr
 from chamjax_torch.config import ModelConfig
 from chamjax_torch.models.transformer import (Key, KVCache, TPParams,
                                               _embed, _param, _zero_cache,
                                               check_prompt, check_room,
                                               check_tp, dtype_of,
-                                              fill_prefix, generator, mm_f32,
+                                              fill_prefix, mm_f32,
                                               state_of, tp_call, tp_gather,
                                               tp_row, tp_sum, write_column)
 from chamjax_torch.utils import graphs
@@ -77,19 +78,22 @@ class LlamaParams(nn.Module):
 
 @torch.no_grad()
 def init_llama(key: Key, cfg: ModelConfig, device=None) -> LlamaParams:
-    """Random parameters, drawn at the target dtype (a 7B stack's f32
-    intermediates would double the init's transient memory)."""
+    """Random parameters drawn at the target dtype (a 7B stack's f32
+    intermediates would double the init's transient memory), the JAX
+    package's draws: ``split(key, 8)`` for the embeddings and the seven
+    layer weights, ``fold_in(key, 99)`` for the output projection, each
+    times its scale in that dtype."""
     dev = resolve_device(device)
     p = LlamaParams(cfg, device=dev, dtype=dtype_of(cfg))
-    g = generator(key, dev)
     d, f = cfg.embed_dim, cfg.ffn_embed_dim
-    for name, t in (("embed", p.embed), *p.layers.named_parameters(),
-                    ("out_proj", p.out_proj)):
-        if name.startswith("ln"):
-            continue
+    ks = jr.split(key, 8)
+    draws = [("embed", p.embed, ks[0])]
+    draws += [(name, getattr(p.layers, name), k) for name, k in zip(
+        ("wq", "wk", "wv", "wo", "w1", "w3", "w2"), ks[1:])]
+    draws.append(("out_proj", p.out_proj, jr.fold_in(key, 99)))
+    for name, t, k in draws:
         scale = f ** -0.5 if name == "w2" else d ** -0.5
-        t.copy_(torch.randn(t.shape, generator=g, device=dev,
-                            dtype=t.dtype) * scale)
+        t.copy_(jr.normal(k, t.shape, t.dtype, scale=scale, device=dev))
     return p
 
 

@@ -25,18 +25,19 @@ write silently; here the step raises.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple, Union
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from chamjax_torch import random as jr
 from chamjax_torch.config import ModelConfig
 from chamjax_torch.utils import graphs
 from chamjax_torch.utils.collectives import all_gather_to, all_reduce_sum
 from chamjax_torch.utils.device import resolve_device
 
-Key = Union[int, torch.Generator]
+Key = jr.Key       # a seed, or two uint32 words (``chamjax_torch.random``)
 
 
 class KVCache(NamedTuple):
@@ -197,72 +198,73 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def generator(key: Key, device: torch.device) -> torch.Generator:
-    """``key``: a seed, or a ``torch.Generator`` on ``device``."""
-    if isinstance(key, torch.Generator):
-        return key
-    g = torch.Generator(device=device)
-    g.manual_seed(int(key))
-    return g
-
-
 @torch.no_grad()
-def normal_(p: torch.Tensor, g: torch.Generator, scale: float) -> None:
-    """Fill ``p`` with N(0, 1)·scale drawn in f32, then cast (the JAX
-    package's init)."""
-    p.copy_(torch.randn(p.shape, generator=g, device=p.device,
-                        dtype=torch.float32) * scale)
+def normal_(p: torch.Tensor, key: Key, scale: float) -> None:
+    """Fill ``p`` with ``normal(key)·scale`` drawn in f32, then cast (the
+    JAX package's init: the same draw from the same key)."""
+    p.copy_(jr.normal(key, p.shape, scale=scale, device=p.device))
 
 
-def _init_stack(stack: nn.Module, g: torch.Generator, cfg: ModelConfig
-                ) -> None:
+def _init_stack(stack: nn.Module, key: Key, cfg: ModelConfig,
+                names: Tuple[str, ...]) -> None:
+    """The stack's weights ``names`` from ``split(key, 6)`` (self-attention
+    and FFN) or ``split(key, 4)`` (cross-attention), in the JAX package's
+    order: ``w2`` at ``ffn_embed_dim ** -0.5``, the rest at ``embed_dim **
+    -0.5``."""
+    keys = jr.split(key, 6 if "w1" in names else 4)
     d, f = cfg.embed_dim, cfg.ffn_embed_dim
-    scales = {"wqkv": d ** -0.5, "wo": d ** -0.5, "w1": d ** -0.5,
-              "w2": f ** -0.5, "wq": d ** -0.5, "wkv": d ** -0.5}
-    for name, p in stack.named_parameters():
-        if name in scales:
-            normal_(p, g, scales[name])
+    for k, name in zip(keys, names):
+        normal_(getattr(stack, name), k, f ** -0.5 if name == "w2"
+                else d ** -0.5)
 
 
-def _init_params(params: TransformerParams, g: torch.Generator,
-                 cfg: ModelConfig, out_proj: bool) -> TransformerParams:
-    d = cfg.embed_dim
-    normal_(params.embed, g, d ** -0.5)
-    normal_(params.pos, g, 0.02)
-    _init_stack(params.layers, g, cfg)
-    if out_proj:
-        normal_(params.out_proj, g, d ** -0.5)
-    if params.cross_layers is not None:
-        _init_stack(params.cross_layers, g, cfg)
-    return params
+_SELF = ("wqkv", "wo", "w1", "w2")
+_CROSS = ("wq", "wkv", "wo")
 
 
 def init_decoder(key: Key, cfg: ModelConfig, cross_attention: bool = False,
                  device=None) -> TransformerParams:
-    """Random decoder parameters from ``key`` (a seed or a generator) on
-    ``device`` (the card unless given ``"cpu"``)."""
+    """Random decoder parameters from ``key`` (a seed or a key) on
+    ``device`` (the card unless given ``"cpu"``): ``split(key, 5)`` gives
+    the embeddings, positions, layers, output projection and cross
+    layers, as in the JAX package, so a seed gives its parameters."""
     dev = resolve_device(device)
     params = TransformerParams(cfg, n_layers=cfg.layers,
                                n_out=cfg.vocab_size,
                                cross_attention=cross_attention, device=dev,
                                dtype=dtype_of(cfg))
-    return _init_params(params, generator(key, dev), cfg, out_proj=True)
+    d = cfg.embed_dim
+    k1, k2, k3, k4, k5 = jr.split(key, 5)
+    normal_(params.embed, k1, d ** -0.5)
+    normal_(params.pos, k2, 0.02)
+    _init_stack(params.layers, k3, cfg, _SELF)
+    normal_(params.out_proj, k4, d ** -0.5)
+    if cross_attention:
+        _init_stack(params.cross_layers, k5, cfg, _CROSS)
+    return params
 
 
 def init_encoder(key: Key, cfg: ModelConfig, device=None
                  ) -> TransformerParams:
+    """Encoder parameters from ``split(key, 3)`` (embeddings, positions,
+    layers); the output projection stays zero."""
     dev = resolve_device(device)
     params = TransformerParams(cfg, n_layers=cfg.encoder_layers, n_out=1,
                                device=dev, dtype=dtype_of(cfg))
-    return _init_params(params, generator(key, dev), cfg, out_proj=False)
+    d = cfg.embed_dim
+    k1, k2, k3 = jr.split(key, 3)
+    normal_(params.embed, k1, d ** -0.5)
+    normal_(params.pos, k2, 0.02)
+    _init_stack(params.layers, k3, cfg, _SELF)
+    return params
 
 
 def init_encoder_decoder(key: Key, cfg: ModelConfig, device=None
                          ) -> Tuple[TransformerParams, TransformerParams]:
     dev = resolve_device(device)
-    g = generator(key, dev)
-    return (init_encoder(g, cfg, device=dev),
-            init_decoder(g, cfg, cross_attention=True, device=dev))
+    k1, k2 = jr.split(key)
+    return (init_encoder(k1, cfg, device=dev),
+            init_decoder(k2, cfg, cross_attention=True, device=dev))
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int,

@@ -26,6 +26,10 @@ class GpuSpec:
     hbm_gbps: float = 3350.0       # HBM bandwidth, GB/s
     bf16_tflops: float = 989.0     # tensor cores, bf16
     f32_tflops: float = 67.0       # fp32 outside the tensor cores
+    # 32-bit integer add, logic and shift, and the FMA pipe's IMAD: 64
+    # lanes an SM a clock each (half the fp32 lanes), 132 SMs at the
+    # 1.98 GHz of the fp32 figure
+    int32_tops: float = 16.73
     smem_kb: float = 227.0         # shared memory one block can use
     nvlink_gbps: float = 450.0     # NVLink, each way
 

@@ -28,11 +28,13 @@ from typing import Dict, Iterable
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-SOURCES = ("adc_scan_tiles", "adc_scan_flat", "adc_scan_variants")
+SOURCES = ("adc_scan_tiles", "adc_scan_flat", "adc_scan_variants",
+           "threefry")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _VP, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_U32, _U64, _F = ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_float
 # (argtypes, restype) of each library's C entry points
 SIGNATURES = {
     "adc_scan_tiles": {
@@ -50,6 +52,10 @@ SIGNATURES = {
         "chamjax_run_variant": ([_VP, _I64] + [_VP] * 4 + [_I] * 5 + [_VP],
                                 _I),
         "chamjax_run_block_variant": ([_VP] * 5 + [_I] * 4 + [_VP], _I),
+    },
+    "threefry": {
+        "chamjax_threefry": (
+            [_VP, _I64, _U64, _U32, _U32, _I, _F, _F, _F, _VP], _I),
     },
 }
 

@@ -34,19 +34,6 @@ def as_f32(x, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def seeded_generator(device, *words: int) -> torch.Generator:
-    """A ``torch.Generator`` on ``device`` seeded from the non-negative
-    integers ``words`` (numpy's ``SeedSequence`` mixes them), the port's
-    counterpart of ``jax.random.fold_in`` chains.  Its stream is torch's
-    (MT19937 on the CPU, Philox on a card): a CPU draw differs from a card
-    draw and neither is JAX-PRNG."""
-    seed = int(np.random.SeedSequence([int(w) for w in words])
-               .generate_state(1, np.uint64)[0]) >> 1
-    g = torch.Generator(device=torch.device(device))
-    g.manual_seed(seed)
-    return g
-
-
 def card_description() -> str:
     """The first card's name and power limit as ``nvidia-smi
     --query-gpu=name,power.limit --format=csv,noheader`` prints them, e.g.

@@ -42,11 +42,28 @@ Phases (any failure exits non-zero and prints no result):
      kernel_variants.py``: ``run_variant`` for each of its 17 variants and
      ``run_block_variant``, at m=16 over a 16 x 2^20 u8 slab, bW=4096,
      seg 512 and 2048 (exact where the output is a code, an integer sum or
-     one LUT entry; else rtol 1e-5).
-3. The main path: ``synthetic_dataset`` (1M x 128, 4096 clusters, seed 42)
+     one LUT entry; else rtol 1e-5);
+   - ``threefry`` (``csrc/threefry.cu``, the JAX PRNG): every form (raw
+     bits at 32/16/8, float32 and bfloat16 uniforms and normals, the
+     gumbel) over 2^26 outputs whose counters start above 2^32, bit for
+     bit against its plain version (the ulp bar of the float32 normal and
+     gumbel is 0), its bound from the integer operations the hash needs
+     (the compiler's SASS counts beside it), beside ``torch.randint`` /
+     ``rand`` / ``randn`` of the same shape; ``randint``, ``permutation`` (two and three sort rounds) and
+     ``choice`` on the card equal to the CPU's plain draws; each launch of
+     the flagship's xb draw at its shape.
+3. The main path: ``synthetic_dataset_device`` (1M x 128, 4096 clusters,
+   seed 42) drawn on the card by the threefry kernel and held to
+   ``FLAGSHIP_FINGERPRINT`` (the JAX package's own draw of it: shapes,
+   float64 sums within 1e-6 of the sum of |x|, the first and last 4 rows
+   within 1e-4), then pulled to the host; the counts set to 0 just before
+   the draw and read after the build (``threefry`` must launch)
    → ``build_ivfpq`` (OPQ16 + IVF4096 + PQ16, hard-balanced) →
    ``compute_ground_truth`` (256 queries) → ``IVFSearcher.search``
-   (seg=512, group=8, nprobe=32, k=100, packed-bf16 LUTs).  Recall is
+   (seg=512, group=8, nprobe=32, k=100, packed-bf16 LUTs).  R@1/10/100,
+   the points that overflowed every candidate cell and ``n_pad`` are
+   printed beside ``BENCH_r05.json``'s record of the reference on the
+   same corpus (a TPU run; not gated on).  Recall is
    checked against the same index searched by the plain ``xla`` backend;
    the kernel's launch count must rise during the search.  Times a
    b=128 and a b=1 search and the stages of a b=128 search, and traces
@@ -91,13 +108,17 @@ Phases (any failure exits non-zero and prints no result):
    ``seg_f32 seg_bf16 block_f32 block_bf16 block_bf16copy
    block_bf16nogather`` at seg 1024 and 2048, runlen 0 and 8; each
    configuration's first output is held against its plain version at
-   that shape before it is timed.
+   that shape before it is timed.  Then the library column of the two
+   measurement kernels at that width: ``embedding_bag`` over every window
+   row of ``f32`` and ``block_bf16t`` at seg 2048, held to the kernel.
 6. The RALM serving path (``chamjax_torch.benchmarks.ralm_device_bench``,
-   its non-streamed leg): ``synthetic_dataset`` (1M x 512, 4096 clusters,
-   seed 11) → ``build_ivfpq`` (IVF4096 + PQ16, balanced 1.3, 8 k-means and
-   8 PQ iterations) behind one ``LocalRetriever`` (nprobe 32, k 10: the
+   its non-streamed leg): ``synthetic_dataset_device`` (1M x 512, 4096
+   clusters, seed 11, drawn on the card) → ``build_ivfpq`` (IVF4096 +
+   PQ16, balanced 1.3, 8 k-means and 8 PQ iterations) behind one
+   ``LocalRetriever`` (nprobe 32, k 10: the
    tiled kernel); Dec-S and Llama-S at retrieval interval 1 and EncDec-S at
-   its preset interval 8, full width in bf16 (random weights, seed 0),
+   its preset interval 8, full width in bf16 (random weights from key 0,
+   the reference bench's),
    batch 64, 8 warmup and 128 timed steps.  The timed steps run under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync) with the
    launch counts set to 0 just before and read just after
@@ -150,7 +171,8 @@ Phases (any failure exits non-zero and prints no result):
    bench_large.py``'s configuration with ``--hard --n-clusters 262144
    --opq --balance 1.30 --balance-deadband 1.25 --balance-iters 12``, cut
    in depth to 16·2^20 rows: the hard-mode corpus (d 128, seed 42) drawn
-   on the card → ``build_ivfpq_device`` (OPQ16, IVF65536, PQ16, 2M
+   on the card (the JAX package's threefry streams, so its rows are the
+   reference's) → ``build_ivfpq_device`` (OPQ16, IVF65536, PQ16, 2M
    training rows, 8 k-means and 10 PQ iterations, 12 balanced ones, chunks
    of 4·2^20, blocks of 4096; tiled at the seg ``auto_seg`` picks for the
    expected lengths, both twins; stage seconds, peak memory, stragglers;
@@ -242,14 +264,653 @@ import contextlib
 import dataclasses
 import itertools
 import json
+import math
+import re
 import socket
 import subprocess
 import sys
 import threading
 import time
+import warnings
 
 FLAGSHIP = dict(nb=1_000_000, nq=128 * 65 + 256, nt=100_000, d=128, seed=42,
                 n_clusters=4096)
+# bench.py's own record of the reference on this corpus (BENCH_r05.json, a
+# TPU run): printed beside the card's, not gated on
+BENCH_R05 = dict(recall_at_1=0.6641, recall_at_10=0.9062,
+                 recall_at_100=0.9883, overflowed=15909, n_pad=1189504)
+# chamjax's own synthetic_dataset_device(**FLAGSHIP) on the CPU (the test
+# tests/test_torch_random.py::test_flagship_fingerprint_is_chamjax_draw
+# draws it and holds it to these): each split's shape, float64 sum, sum of
+# |x| and sum of squares, and its first and last 4 rows (5 decimals)
+FLAGSHIP_FINGERPRINT = {
+    "xb": dict(
+        shape=[1000000, 128], sum=-589205.6272651453,
+        sum_abs=420953302.4020745, sumsq=2174383614.8237095,
+        head=[
+            [
+                2.45712, 5.15015, -3.31232, -0.24747, -2.80815, 8.08659,
+                -5.26067, -6.94478, -2.13996, 2.92802, 4.70171, 2.91769,
+                -1.37007, 6.81709, -2.86057, -3.03606, 4.61981, -1.20028,
+                5.42448, 2.06706, 6.52969, 1.60749, 1.86378, 4.51189,
+                0.57019, -2.79006, -5.43758, -1.65486, -0.03629, -3.29140,
+                0.23896, 3.64360, 2.69769, -0.87753, 5.61982, -4.70812,
+                -4.25216, 4.37925, -1.72800, 1.06109, -3.58999, -4.63215,
+                -0.22927, 1.18989, 0.91684, -7.13925, 3.19695, 2.84024,
+                1.94021, -4.69416, 1.26199, 1.85066, 1.11964, -2.67071,
+                1.29368, -1.61309, 8.29106, -2.29342, 4.93089, -4.05627,
+                4.38826, 1.75802, 3.06171, 2.07564, -1.73147, -2.46938,
+                3.50556, -0.85393, 1.39979, 4.54129, 2.82271, -1.64041,
+                -1.06760, -1.12067, -5.18273, 1.80549, -6.32981, -1.05634,
+                -2.29504, 8.97687, -3.79412, -4.03485, 3.88320, -5.33942,
+                -9.30791, 5.44165, -3.50006, 6.86428, -1.87222, -2.05490,
+                2.03240, -1.21704, 2.59658, -2.54211, -1.71969, -4.36199,
+                -1.12821, 6.16665, -1.79645, -1.88028, 0.93415, -0.70802,
+                7.22502, 3.07517, -4.79200, -2.77786, -8.18687, -2.94246,
+                4.63742, -0.99806, -3.05060, 2.01909, 1.07956, -0.13507,
+                3.77076, -2.57735, 5.42920, 2.83595, 3.23737, -1.09667,
+                -8.60215, -1.74928, 5.66729, 6.75181, -3.16256, 5.48012,
+                -7.48036, -2.01262,
+            ],
+            [
+                -3.20402, -0.50895, -3.00792, 2.77650, 2.56619, 5.10953,
+                -4.05769, -4.72374, 1.03793, -2.86939, 11.85895, -3.26071,
+                -1.18804, -3.59954, -3.95229, -0.62453, 2.16165, 1.32092,
+                -1.71883, 2.02087, -1.28539, 4.14975, -1.12528, 0.05165,
+                -0.23685, -1.58155, 6.98676, 8.66616, 2.63964, 3.78398,
+                1.56140, -0.27272, -4.56382, 2.84032, 2.19492, 2.00554,
+                -3.98981, 4.38184, 4.09473, -8.39445, 3.75402, -1.74541,
+                0.45436, -0.34226, -5.47712, 4.00947, -2.29470, -3.91412,
+                4.73167, 4.19937, -0.53296, -2.90858, -9.53812, 5.40536,
+                -3.76497, -4.50664, 0.21026, 1.47693, 3.26076, -3.34434,
+                -7.27024, 0.82894, 6.11885, -1.01520, -4.15321, -2.12425,
+                -0.87648, -8.03921, -1.58652, -4.28773, 0.24921, 9.54709,
+                6.40464, -0.16670, 0.84650, 5.14704, -5.93021, 4.91648,
+                -2.12142, 1.55097, 6.53597, 3.80108, 1.60512, -3.06416,
+                3.57909, 4.70052, 6.21786, -8.25849, 6.09056, 1.70253,
+                5.59373, 6.46985, -3.04237, 2.97635, 0.44158, -7.01264,
+                -4.44825, -1.78513, -1.61926, 4.09832, 3.70080, -2.94022,
+                -2.41347, -0.42535, 1.28016, 0.71091, -2.88508, 4.91942,
+                -0.05221, 6.46845, 0.89534, 2.72944, 5.23063, 2.21100,
+                -1.59328, -0.32387, 6.32672, -2.31489, 3.22842, 3.01760,
+                -0.45754, 2.92868, 4.06844, -4.03005, -1.09064, 4.69176,
+                -0.29020, -5.39557,
+            ],
+            [
+                -0.45882, -5.48490, -0.45505, -7.22118, 10.03035, 7.32970,
+                1.46883, -1.74118, -1.95024, 3.35666, -1.69893, 6.42960,
+                -2.26935, 2.43016, 1.17237, 5.16494, -4.63020, 2.35507,
+                -7.03557, -2.60831, -2.78061, 1.33080, -2.02676, 1.86416,
+                -7.53709, 3.23788, -2.75872, 3.11154, -2.46271, -4.53498,
+                12.17389, -0.92780, 4.65920, -2.57946, 3.72127, 2.68105,
+                4.05282, -4.02574, -1.88597, -1.05941, -0.54848, 4.48759,
+                -6.59332, -1.23714, 0.32543, 2.90837, 6.71894, -1.41446,
+                2.12239, -5.90007, 3.79280, -4.27514, -4.63382, -3.07622,
+                -1.44940, -3.73751, -2.17684, -0.98914, -9.92172, 0.24377,
+                2.62162, 1.25503, 4.45956, -4.30876, -0.71674, -0.79321,
+                -2.34146, -2.58446, 0.85292, -2.02685, 4.46844, 3.81893,
+                -5.50949, -2.86238, -4.81320, -0.86972, 11.95164, -1.59972,
+                -1.65636, -6.88665, 1.02311, 2.69150, -2.43401, -0.75721,
+                -4.90841, -1.91412, -6.10450, -3.35769, 3.76129, 7.87694,
+                2.24140, 3.23206, -6.35418, 1.14293, 2.53857, 2.92706,
+                1.91550, 1.12027, -3.00968, -3.73919, -7.91285, 3.98409,
+                -2.74039, -5.25675, 4.67710, 1.57773, 4.34586, -3.30286,
+                2.95068, -0.72720, 6.37833, -2.68368, -4.68297, 1.29119,
+                2.10185, 0.01217, 2.51501, -4.61296, -0.66246, 2.85594,
+                -6.97832, 3.99622, -0.97046, 3.94896, 7.87406, -3.92193,
+                3.01196, -8.60384,
+            ],
+            [
+                0.08977, -2.43856, 1.59703, -0.86737, 10.98572, 3.99782,
+                -6.03248, 2.98850, 0.39892, 6.58113, -3.25563, 2.84568,
+                0.18857, -4.16416, 2.13796, 5.05669, 1.04595, 10.86169,
+                -0.30791, 2.49783, -0.14160, -0.57988, 1.15386, 0.00133,
+                1.05816, -2.32862, -6.69478, 1.59493, -6.40206, 0.29290,
+                -1.69122, -5.69587, 2.06638, 4.26044, -4.04603, 1.93853,
+                -3.27637, 3.33858, -1.21073, -5.45788, -0.07203, -2.30680,
+                -2.23398, 1.52290, -6.73345, -3.98903, 3.69037, -5.85327,
+                0.31222, 2.30937, 0.52607, 1.42029, -1.55954, 1.22494,
+                -0.81174, -3.65145, 3.22353, 6.53773, 4.61760, -0.44003,
+                -1.63867, -2.68925, 1.85422, -5.74422, -3.48727, -2.00456,
+                5.05208, 9.55158, 9.85866, 1.37893, 4.11702, -0.13011,
+                -7.17510, -5.57574, -2.87538, -2.47643, -5.95342, -2.24474,
+                0.57933, -7.67006, 0.92018, -4.96328, -4.00299, 7.65540,
+                -0.00264, 8.78866, 2.20407, -6.64767, -2.86347, -0.80056,
+                -0.83093, -4.21345, 0.23588, 5.85696, 2.63838, -10.21548,
+                -2.63331, 0.10786, -5.68327, -6.38370, 4.07871, -2.15277,
+                -0.54501, 3.76802, 1.66371, 7.88536, -4.59828, -6.44515,
+                2.12957, 3.25072, 0.86413, 0.93387, 0.47722, -5.90345,
+                -1.32717, -1.21000, -4.57896, 2.23088, 3.46094, 8.52486,
+                4.87954, -4.78008, 1.88178, -4.98628, 3.94223, -2.79083,
+                -0.99953, -4.66678,
+            ],
+        ],
+        tail=[
+            [
+                -4.19765, -6.12573, -3.57760, -0.24939, 3.42200, -9.40129,
+                2.09704, 2.84108, 4.24552, -0.43816, 0.83394, -4.76315,
+                -5.91684, 5.02961, -1.82687, 1.75260, 1.36458, 10.06196,
+                -7.20498, 7.02993, 2.14345, 2.15710, 5.27955, -3.75344,
+                4.15767, 1.37595, -0.54720, -1.61506, -2.73519, 5.42962,
+                3.14673, 4.82285, 6.66301, 5.66109, -0.67365, -0.53498,
+                4.50201, -3.24092, -4.26144, 6.55017, -4.81397, 1.97280,
+                -0.42715, -0.64541, -3.80318, -3.33441, -3.42264, 6.08789,
+                -2.27389, 0.39450, 2.03282, 0.82072, 3.27336, -1.11605,
+                3.43127, -6.90209, -1.70653, -0.67749, 1.93814, -2.75936,
+                -1.41556, 0.20392, -2.17412, 0.00490, 0.97505, -2.52611,
+                3.80011, -5.22077, 7.83747, -2.35055, 0.97262, -2.29513,
+                -8.72740, 0.64430, -4.54060, -0.55369, 3.05032, -4.78991,
+                9.20391, 3.88699, -1.53038, 1.74090, 1.06178, 7.85145,
+                0.25931, -7.63999, -1.43121, -2.96410, -7.16287, -4.18307,
+                -1.66029, -0.01182, -0.84731, -8.79111, -1.49606, 0.50645,
+                0.82873, -4.74258, -2.88907, 2.07248, 4.57047, -0.43185,
+                -0.16821, 8.50714, -1.71626, 3.53867, 3.07865, 1.54296,
+                -3.78773, -4.30690, 3.97915, -3.97935, 1.07282, 1.76907,
+                5.01424, -5.81299, -1.08557, -0.50174, 1.36655, -7.96569,
+                -4.79120, 1.22208, -3.56925, -4.51273, -0.60736, 1.06331,
+                -1.57068, -8.70591,
+            ],
+            [
+                0.32400, 4.07366, 3.47131, 1.83984, 2.75456, -1.93388,
+                -2.01970, 6.30374, -2.49503, -2.14954, 1.04739, 4.25234,
+                4.50394, -9.79631, -4.38075, 3.70569, 1.43023, 0.13219,
+                -1.51393, -1.62082, -5.57252, -0.66653, 1.62662, 2.93246,
+                -3.17666, 7.18597, -5.81153, 3.06582, -2.15500, 3.75098,
+                3.92689, 0.25358, 0.16532, -5.25478, -0.10532, -3.03801,
+                -5.57054, -1.86306, -4.69696, 6.02448, 8.85535, 4.00177,
+                5.79675, -3.05721, 5.78756, 3.02128, 6.99782, 4.51725,
+                0.99837, 1.11166, 1.58633, 2.02634, 3.45390, 0.88695,
+                1.07194, -1.62385, 4.03081, 3.24077, 2.49595, -2.39092,
+                -0.37132, 7.40071, -4.45550, -4.61509, 2.55628, -3.39512,
+                5.21897, -2.63956, 2.31313, 1.73774, 0.01657, -6.75046,
+                2.54429, -3.42352, 3.52416, 3.07598, 0.97995, -0.18493,
+                2.28314, -1.43000, -3.46262, -2.53680, 8.08228, -4.30154,
+                -2.98158, 3.22389, 0.20673, -0.12038, -0.03635, 2.96665,
+                -6.67114, -2.09802, 1.40653, -5.80629, -0.18981, -1.85699,
+                -1.94007, 4.69234, 1.48501, -0.97499, -4.75564, 2.70813,
+                -0.61245, -2.82794, -0.76078, -0.13411, 1.37315, -4.72363,
+                1.78797, 6.32119, -1.52307, 5.70079, -8.38544, -5.93261,
+                0.40252, -1.41822, -0.66388, -3.34261, 1.27526, 1.15384,
+                -9.88391, -1.43092, -0.02608, -9.62245, -5.64576, 3.69982,
+                -0.76512, 7.08666,
+            ],
+            [
+                -2.09563, -2.66428, 6.07287, -3.71045, 3.57646, 3.84134,
+                6.03577, -1.68691, 4.98838, 5.06335, 1.01990, -4.94259,
+                5.60274, 3.21286, 0.67376, 0.38332, 0.31577, 6.87441,
+                -3.28146, 2.92802, -2.38431, 7.04087, -5.20994, 0.21787,
+                -2.64896, -2.09200, 6.28677, 2.33384, -7.85401, 1.69741,
+                7.43379, 4.32719, 1.69973, 1.18238, -5.38704, -0.14037,
+                -7.15464, -5.13700, 4.49171, -1.87172, 4.82790, -3.30148,
+                -0.50730, 1.87840, 5.91509, -2.68392, -4.14090, 1.34733,
+                2.18036, -0.22585, 1.07768, 3.83371, -0.09096, -2.24250,
+                8.39877, -4.34938, -1.84821, 7.46322, 3.81772, -0.76979,
+                4.73794, 7.73463, -0.88324, 4.47712, -4.84608, 6.70804,
+                4.84599, -5.85199, 0.93915, 0.47270, -8.37246, 0.14008,
+                -3.26089, -3.57223, 3.86361, -1.21259, 4.95038, 4.78036,
+                1.53617, -6.82678, 4.19781, -4.42622, -10.16458, -1.69725,
+                7.96498, 5.66124, 3.98340, -2.37068, 2.79085, -0.97709,
+                7.12502, -3.56075, -2.82834, -1.14364, 5.68002, 5.48511,
+                -1.07328, 3.77235, 3.64670, -0.30871, 8.28022, 2.87424,
+                -4.46180, -0.78069, -0.63364, 0.96589, 1.36168, -3.71217,
+                3.58657, -2.54172, 4.80093, 4.33144, -2.08767, 1.23852,
+                2.21754, -2.40170, 0.88132, -7.94267, -2.16057, 6.46625,
+                -0.55476, 5.84401, -2.89806, 0.87274, 4.48336, 10.59086,
+                -3.33778, 0.36467,
+            ],
+            [
+                1.42134, -4.72355, -3.05888, 7.06536, -2.23759, -1.98103,
+                4.54155, -2.09119, 1.85399, -0.87134, -1.47119, 1.92638,
+                5.91470, -1.63586, 3.40363, -4.18316, -2.58308, -2.22585,
+                1.21098, 2.60403, -6.88856, -10.95021, 2.52675, -3.82045,
+                0.60172, 4.62359, -4.49592, 5.63032, -4.63907, 3.88157,
+                -2.92896, -2.55125, -1.91852, -4.40501, -0.71749, 0.17682,
+                -3.54900, -0.25547, 8.45155, -1.97741, 3.62211, 0.30723,
+                0.44358, 4.74755, -1.61503, 10.05920, -2.17278, -6.13817,
+                0.67431, -1.16403, 0.92249, -4.79440, 2.24960, 8.22114,
+                3.62035, -8.72775, -4.14878, 0.45688, -0.50664, 2.08044,
+                -1.94473, 0.73393, -2.24202, 3.15512, -5.75507, -3.30839,
+                -1.02362, 6.91707, 8.32956, 6.98165, -6.89663, 1.40320,
+                -2.83359, -4.05591, 8.83636, 3.85518, -2.40909, -1.35442,
+                2.74536, 6.29103, -2.23944, -2.61150, -1.67884, 5.62333,
+                3.14720, 0.04231, 1.76854, 7.84371, 2.57906, 2.68488,
+                -3.59141, 3.33718, -3.15534, 0.55238, 0.18588, 8.40726,
+                0.85119, -6.20273, -4.70902, 5.10523, 0.72761, 1.28669,
+                -6.22489, -2.76628, -4.73653, -2.19996, -1.50066, -1.51401,
+                -10.64505, 0.23532, -1.75596, 0.74127, 0.98573, -4.91151,
+                -1.57843, 0.05048, -3.72705, -1.84452, -2.88237, 5.17708,
+                -4.58439, -5.74107, -6.46531, -1.07882, 3.45099, 6.66593,
+                4.47339, -1.06602,
+            ],
+        ],
+    ),
+    "xt": dict(
+        shape=[100000, 128], sum=-38643.15148999033,
+        sum_abs=42111894.91771828, sumsq=217600532.6150698,
+        head=[
+            [
+                2.92068, -4.79266, -0.64829, -3.10888, -11.10872, -4.67017,
+                7.06577, 6.99343, 0.79462, 1.80626, 7.06418, 3.19859,
+                1.26311, -1.12575, 1.53729, -1.80709, 1.05155, -1.53869,
+                -4.14464, 8.17653, 0.50247, 1.92236, 6.47918, 7.30815,
+                5.58735, -9.05602, -7.19230, 3.24918, 4.61595, 4.44321,
+                -6.37121, -2.12061, -2.42878, 5.09106, 6.44320, 2.68156,
+                4.02383, 0.15521, 1.77613, 2.22915, -0.73753, -6.84621,
+                -2.75154, 4.94368, 4.70622, 2.97187, -6.17419, -5.90767,
+                -1.93201, -2.30228, -1.50496, 0.99062, -4.14216, 0.31657,
+                -5.20328, 2.44680, 2.93165, -1.70870, 14.86884, -1.37999,
+                0.68732, -2.86286, -7.56828, 2.59557, 0.59777, -9.75571,
+                -3.86176, -5.16946, 1.16029, 8.84461, -3.67690, 0.12430,
+                3.95503, -0.61769, -4.03781, -1.81574, -8.53043, 4.28563,
+                4.25910, 2.16698, 0.76994, 6.19233, -5.10946, -4.24114,
+                8.95612, 0.72055, -6.59536, 2.53913, 2.63029, -1.80207,
+                -5.66450, -10.00470, 0.02671, -4.76844, 4.21210, -4.92487,
+                3.56548, 5.12940, -6.37124, -6.68878, 0.58184, 3.43010,
+                2.67675, -0.36909, -2.25868, -3.33615, -1.50422, -1.34344,
+                5.97306, 2.80083, 0.72046, -3.97493, -1.51946, -0.54147,
+                -0.10838, 5.90970, 2.27309, 8.65839, 3.41238, 3.89037,
+                -7.69888, 6.03291, 0.98757, 3.66117, -4.77369, 4.94757,
+                -1.66620, 3.45160,
+            ],
+            [
+                1.64814, -1.13295, -1.94094, 3.70365, 9.62263, -0.59051,
+                -1.90851, 1.89050, -0.55908, 1.97307, 5.18123, 3.33726,
+                -0.48495, 0.64026, 0.56865, -4.13684, -2.10036, -1.66164,
+                -2.95644, -0.61155, -6.47298, 6.58621, 7.63058, 8.76960,
+                -3.31808, 0.26521, 4.40128, -1.49127, -2.71995, -3.61056,
+                4.83730, 2.88786, -3.71925, 1.52418, 2.01513, -5.15742,
+                0.77716, 5.67644, -0.29902, -1.12476, 0.52695, -1.99087,
+                -4.60689, -8.70669, 0.12150, 1.24596, -3.15557, 2.64404,
+                -6.54951, 7.55474, -5.07653, -0.52674, 5.63924, 4.76796,
+                0.47554, 5.58261, 2.59094, 0.15158, -5.25037, 1.06403,
+                -1.15063, -4.01366, -1.54394, 3.03141, 3.06442, 0.47256,
+                5.08750, 6.49696, -9.16100, 0.44964, -2.84326, -2.84098,
+                4.45376, 2.92801, 1.06393, -1.10581, 7.48860, 3.87366,
+                2.10481, 12.01983, 3.48031, 1.30360, -0.00331, 4.50503,
+                0.85491, -2.71862, -10.51751, -1.09855, -4.34475, 1.18043,
+                -4.90557, -5.89177, -5.33237, 1.55171, 3.83501, 1.55346,
+                -1.57732, -4.41937, 5.32880, 3.81902, 1.61351, -4.95760,
+                -2.01349, -7.99692, -3.56418, -6.65480, 2.42036, -4.87944,
+                -6.61396, 0.47662, 2.67444, 4.04379, -3.53541, 0.61157,
+                -1.24611, 4.64520, 1.39293, -1.87821, 0.71323, 1.41606,
+                6.02713, -0.12770, -2.46458, 4.84617, 4.11286, 3.89156,
+                0.04667, 2.66323,
+            ],
+            [
+                0.75641, 0.59240, 4.13492, -2.36713, 3.38544, -1.88950,
+                3.82429, 4.86366, 4.82874, -2.01045, 2.15002, 7.30365,
+                -1.99476, -5.15274, 0.71140, -2.57975, 4.55807, 4.14100,
+                7.77020, -2.41118, 0.95469, -4.43468, -3.61196, -4.59238,
+                0.04643, -3.80808, -0.67651, -1.17484, 2.52752, 0.01429,
+                -1.13909, 6.26512, -3.75298, 4.16706, -6.49547, -2.78027,
+                2.33628, -2.77167, -7.06306, -0.03896, 4.21544, -0.79168,
+                -0.34809, 1.61084, 3.97522, 4.00806, -0.95662, 4.13419,
+                -3.27370, 3.15269, -2.48762, 0.29335, 5.38371, -0.42830,
+                -8.11411, 2.50268, 4.26490, -2.76140, -5.04449, 0.27526,
+                -3.74623, -4.31841, -3.23815, -1.15818, -7.73920, 0.14370,
+                -0.95275, 0.50830, -1.23645, -0.69038, -7.12283, -1.38176,
+                -2.85383, -0.53552, -1.28918, -1.65989, -0.81377, -1.90708,
+                3.42174, -8.54505, -4.87953, 1.14709, -3.89841, 3.05216,
+                2.15716, 0.35109, -1.03437, 5.66737, 2.93827, 2.30795,
+                1.19961, 6.36878, -3.58482, -2.32933, -0.42633, -2.13604,
+                -1.78236, -0.31003, 0.89696, -8.03278, -3.45113, 0.92049,
+                -0.12408, 1.71865, 5.03726, -6.59281, 6.17557, -4.20047,
+                2.14662, -0.79130, 6.38111, -9.63486, 1.38133, -0.82660,
+                -6.98543, 5.76694, 2.81390, 4.56290, 6.06408, 1.72423,
+                4.58192, 5.75869, -2.47228, -2.15426, -0.91748, 8.70867,
+                2.02116, -4.15837,
+            ],
+            [
+                0.95305, -6.30713, -8.90977, -0.97633, -4.22919, -4.59470,
+                -8.04655, -1.14779, -1.95886, -5.49575, 8.00103, 4.76246,
+                -4.36383, 4.91433, -12.09068, 6.15271, -2.28768, 4.60342,
+                2.81180, 2.93244, -7.62239, 7.04022, 0.48360, -3.43225,
+                0.34035, 3.72361, -4.99390, -3.02200, 1.69063, 0.51378,
+                3.76087, -0.12661, 0.49687, 7.67103, 3.32930, -4.76694,
+                -2.79140, 1.22159, 0.40675, 2.13742, -7.85973, 4.11351,
+                1.00980, 1.06723, 3.16563, 0.57315, -7.89633, -1.52209,
+                1.34385, 3.60104, 0.45197, 0.03802, 0.70927, -0.48106,
+                3.21542, -1.36695, 4.65352, 4.72665, 1.69040, 8.32201,
+                5.46383, 2.21915, -1.87830, 2.62321, 3.12244, 3.64692,
+                -1.51911, 1.77343, -10.22558, -1.81010, 9.70737, -7.01653,
+                0.40163, -5.20955, 3.19084, -5.20124, -5.17890, 6.98246,
+                -0.01121, 4.82191, -10.52272, -5.30634, -1.09896, -0.76968,
+                3.70651, 7.13866, 0.21519, -3.06835, 7.67431, -3.43847,
+                1.12282, 2.65526, 0.09902, 4.49698, 0.15383, -0.41467,
+                -6.67368, -3.45124, -2.52142, 2.91380, -3.40124, -1.95790,
+                -0.97554, 9.87787, -4.72749, -10.18646, -5.00790, 4.53923,
+                -4.77372, 4.86669, -1.52546, -4.39554, 4.79899, -0.57784,
+                4.02485, -6.92554, 5.77135, 1.85214, 2.92294, 1.63864,
+                -5.86662, 7.49443, 5.51219, -6.78293, -4.48101, -1.88655,
+                -2.68488, -1.75226,
+            ],
+        ],
+        tail=[
+            [
+                -0.43440, 0.75755, 1.73570, -7.02285, 1.63666, 1.43273,
+                -0.25944, 0.17643, -3.22096, -3.19568, 4.45265, 5.68963,
+                3.57776, -2.46749, -4.21884, -2.49262, -1.65632, 5.11770,
+                -8.10390, 1.12351, 2.93438, 1.83668, 3.94407, 3.04505,
+                5.30664, 0.95193, -3.06930, 1.03800, 4.55550, -4.07207,
+                7.56587, -1.47642, -4.66332, -0.75681, 1.12079, 3.99091,
+                -0.17692, -8.39338, 0.84224, 3.10719, 4.36171, 4.04278,
+                -4.31372, -3.49921, -0.46974, -1.27056, 4.29519, -5.18832,
+                -6.54446, 1.72739, 7.68323, 4.09832, -0.29516, -4.81485,
+                -0.87028, 3.96066, -1.53193, -0.24439, -3.38073, 1.20121,
+                7.59296, -7.12763, -3.68671, 0.77818, 7.28062, 3.31296,
+                -2.93601, -2.29990, 7.55216, -1.76328, -3.48500, 3.15611,
+                1.96447, 2.00768, -5.48815, 0.00533, 4.96069, -4.44583,
+                -2.30077, 0.82521, -4.55888, 0.75960, -10.47626, -6.62687,
+                -1.71022, 2.43897, -2.54734, 3.38743, 0.00252, -5.25756,
+                4.32300, 4.42980, -0.27996, 1.76103, -2.52227, 0.30498,
+                2.78974, 3.18856, 0.83503, -5.53770, -10.58333, -3.14941,
+                1.77438, -4.17452, 6.85935, 5.17493, -2.00925, 0.84011,
+                0.51692, 3.38504, 7.57434, 3.59933, 4.46071, -3.17861,
+                -3.32786, -1.73468, 2.51957, -5.73758, -8.33220, 3.18986,
+                -0.35221, 10.84847, 1.89346, -2.27260, -0.68982, -4.83233,
+                -6.06696, -2.94834,
+            ],
+            [
+                6.11730, -1.97082, -6.96261, 5.48206, -2.38507, 5.72659,
+                -2.34222, -3.83269, 1.66067, -0.59976, 7.12463, -0.95353,
+                -0.66235, 0.80232, -4.93725, -2.37266, 4.44538, 1.62894,
+                -6.81728, 7.19326, -4.43392, -1.92279, 7.01106, 1.73890,
+                -0.13904, 6.94719, -6.62508, 1.62975, 1.37276, 6.19461,
+                -6.92997, -2.24870, 3.49900, -4.09742, -0.49381, 2.91085,
+                -5.52858, -0.61169, -0.74566, 1.64292, 0.19700, -0.63805,
+                -1.03168, -2.06470, 0.04446, 1.27741, 1.89821, 1.25442,
+                -8.65307, -3.94525, 0.80269, 11.20170, -2.52781, -0.47963,
+                -4.62106, 9.14794, -9.58775, 7.25355, -6.25904, -0.87763,
+                1.23793, -2.64485, 0.91796, 1.88245, -5.21893, 6.80463,
+                3.09704, 3.33942, 2.52648, 1.45606, 0.18727, -0.54128,
+                -2.59670, -5.14540, 1.79578, -2.05660, -0.52451, 0.28709,
+                -3.19507, -4.08217, 1.53524, 0.53818, -0.57438, -1.63295,
+                2.17750, 2.53594, -3.88977, 2.48479, 0.29838, 0.66314,
+                0.47659, 4.17417, 2.55872, 3.40958, 6.64100, 9.08680,
+                0.89311, -0.50398, 2.95028, -3.65826, -3.20600, 4.59152,
+                1.99670, -1.87247, -9.29223, -2.08794, -0.95181, 0.50958,
+                -0.17131, -3.15450, -7.99460, -1.17511, 5.58462, 1.62125,
+                -3.86729, -3.55032, -3.71734, -7.05400, -6.99732, -0.05558,
+                0.17329, 0.68367, 5.15594, -7.46782, -4.26216, 8.84677,
+                -4.40555, -1.69932,
+            ],
+            [
+                -5.68269, -8.01463, 2.17985, -2.73457, 2.85857, -5.33418,
+                8.47903, -4.52902, 0.89347, -3.07563, 4.84707, 3.16158,
+                -2.59928, 3.46679, -2.59024, 7.06601, 8.98652, -2.12199,
+                -9.65839, -1.00979, 6.24338, 3.48451, 1.65740, -3.27106,
+                -1.23011, -2.05799, -1.06484, 3.72581, 6.97142, 4.99375,
+                -1.96243, 1.87250, 1.65005, 1.89178, -4.02609, -7.97683,
+                6.57376, -5.12983, 3.46176, -4.09978, 7.05244, -0.55590,
+                -2.61351, -0.00809, -3.21089, 0.21589, -0.73385, 2.96354,
+                -3.40834, 8.06926, -1.77176, -3.80353, -0.14574, 1.89999,
+                -7.18162, 2.28177, 5.93749, 2.79596, 5.35958, -4.38856,
+                0.55747, 3.16618, -6.58455, 1.87099, -2.88019, 3.63424,
+                -6.41920, 1.08887, 0.13136, -2.75807, -1.67786, 0.53235,
+                -4.70947, 5.43349, 6.35148, -3.84404, -2.00680, -3.78433,
+                3.84297, 4.17811, 5.59824, 2.23156, 2.44335, 3.70908,
+                -2.04002, -0.09814, 0.36158, -1.82560, 0.58832, 2.21631,
+                2.90009, 2.88703, -0.30014, 1.77044, 3.53763, -2.63020,
+                -0.30861, 4.12608, -1.82425, 2.79148, -1.21450, -3.45956,
+                -4.49770, 4.41390, 4.75777, -4.53148, -5.56246, -0.21692,
+                -0.97081, -0.22420, 7.49932, -0.44383, -2.49149, -0.87750,
+                7.27808, 1.78609, -2.63042, 3.07882, 1.27541, 4.70924,
+                -0.82810, -8.18773, -6.55746, 6.20812, -0.93933, -2.14318,
+                -6.31380, -5.78516,
+            ],
+            [
+                0.33516, 6.28994, 3.52717, 8.67678, -0.02472, -5.01770,
+                1.87225, -4.42136, 2.39733, 1.92795, 0.28908, 7.29936,
+                -0.48307, -2.79713, -4.37933, -7.83633, -2.09945, -1.89561,
+                2.78475, 3.27640, 2.04481, 1.23893, -4.59277, -4.28135,
+                2.86607, -4.62303, 1.17632, 3.45476, -4.19231, 2.29992,
+                2.95348, 5.98421, -2.90366, 5.39933, 1.36512, 3.70425,
+                3.57208, -2.32082, 4.37084, 4.40787, -2.76940, -4.58602,
+                1.86191, -4.87968, 3.61099, -1.17013, 0.69731, -3.05187,
+                -1.90346, 10.14301, -1.66992, 2.33648, -3.87933, -2.54261,
+                -5.85535, 4.85927, -6.51123, -7.54879, 2.65171, 0.69196,
+                0.34558, -0.80249, 2.90214, 1.47577, 1.60829, -7.55328,
+                1.97406, -4.45855, 1.81934, -0.69624, -3.27010, -6.44973,
+                -1.30982, -5.09556, 0.76515, -0.17042, 6.41357, 1.96254,
+                -4.94103, -1.73128, -2.23553, -4.40466, -3.24327, -0.82346,
+                -3.11756, -8.10209, -3.94877, 6.45936, 0.92117, 3.13517,
+                -3.09010, 5.61813, 8.39154, 5.77726, 0.41591, -6.93171,
+                2.98411, 7.95162, -3.61709, -3.71511, -6.86413, -2.64417,
+                2.57247, -0.50485, -0.94479, 8.08266, 3.29894, 3.48842,
+                2.97118, -1.02224, -5.60984, 6.55740, -0.54865, 0.98654,
+                -1.36668, -5.98129, 5.74406, -0.20264, -1.80481, 4.93846,
+                9.06250, -3.83450, 1.45008, -2.99552, 2.75094, -2.92664,
+                -3.25523, -2.81362,
+            ],
+        ],
+    ),
+    "xq": dict(
+        shape=[8576, 128], sum=56.46475185451618,
+        sum_abs=3609160.0236733123, sumsq=18634827.550208203,
+        head=[
+            [
+                -0.49783, -1.05164, 6.26439, -2.51540, -5.83040, 2.09139,
+                -1.30716, -2.08654, -1.96885, -4.48038, 3.40530, -3.81621,
+                7.72671, -2.46237, 3.81387, 2.08688, 0.21948, 4.71396,
+                4.82486, -3.12624, 1.29354, 7.44130, 1.43363, 3.00839,
+                -2.70803, -0.93442, 0.44227, 2.73689, 3.08257, -3.59283,
+                0.17944, -1.15261, -0.58858, -5.04213, 8.51987, 0.80652,
+                5.42850, -4.41111, -5.33933, -1.07352, 0.34198, -2.95446,
+                7.00230, 9.00396, 0.33954, -5.17892, -0.11478, -0.69996,
+                2.50814, 0.66501, -5.99858, -3.61316, -3.46789, 4.66791,
+                -0.56215, 2.30240, -0.74370, 0.86841, 2.97246, 1.35952,
+                6.61554, -4.42928, -1.47428, -5.14168, -6.03273, 0.00913,
+                -5.25292, -3.52781, 2.06372, 3.05761, -3.76724, 3.42295,
+                -7.89362, -3.59593, 7.58065, 7.28055, 8.91826, -0.44631,
+                1.14827, -6.39590, 8.64526, -0.62243, -1.15859, -3.24769,
+                4.28225, 2.43324, 1.59089, 0.96795, -1.43335, -5.73666,
+                -1.12677, -6.49420, -3.02220, -1.34765, -2.23284, 2.40393,
+                -5.89709, -4.71437, 1.44717, 4.24161, 2.32232, -0.98350,
+                6.23197, 0.24079, -1.00805, -1.12012, -0.25509, -1.82938,
+                -5.01702, -0.97700, -0.72417, 0.16293, 2.79298, 3.47704,
+                -5.25746, 2.29403, 5.07793, 2.04419, 0.91760, 4.29429,
+                -2.60634, 0.88230, 6.54730, -10.69581, -4.72879, 3.07528,
+                -4.59915, -1.09737,
+            ],
+            [
+                -2.57967, 0.84259, 6.11202, 6.18268, -9.15894, 2.50258,
+                -6.32209, 2.30625, -1.95046, -3.76312, 8.29914, 1.91447,
+                -1.35063, -1.37039, -8.57120, 9.12282, -4.13262, -3.47349,
+                7.25076, 2.99906, -1.31996, 2.30888, 0.12601, -1.14630,
+                -6.57642, 4.19920, -0.00289, -1.97204, 2.25091, -4.58920,
+                -0.29489, -3.99178, -6.16859, 3.72308, 5.16295, 0.39083,
+                3.60727, -2.93289, 1.90471, 5.06510, -5.48860, -3.36635,
+                -7.61737, 2.36050, 0.16481, -4.01025, -1.99329, 1.21916,
+                -0.89672, 1.27437, -5.22713, -2.71088, -10.01216, 7.96832,
+                -8.72752, 8.39518, -1.66093, -1.82287, 4.39612, 1.28703,
+                -0.03564, -4.00099, -0.75928, -3.71502, 3.94656, 2.79973,
+                -1.16927, 4.27237, -3.98746, 2.37180, 2.92346, -2.09361,
+                -4.78804, -2.15839, 1.96338, -1.75078, -2.42062, -4.62587,
+                -0.54881, 4.17422, -4.15993, 6.10369, -1.13482, 3.08127,
+                -0.07624, 6.46919, -5.94758, -1.77359, 8.76504, -6.06442,
+                5.11401, -2.04117, -2.01544, -1.92407, -7.58750, 2.14617,
+                1.37438, 0.08623, -0.28306, -0.54295, -1.89471, -7.95206,
+                -2.25725, 2.98535, 1.03170, 5.57784, 6.75122, 1.13109,
+                6.53487, 4.12844, 1.90256, 1.41771, -8.63673, -0.68738,
+                0.31507, -3.56481, 7.74226, -4.35803, 4.54143, 5.53367,
+                3.18297, 1.30582, 2.46536, 1.54184, -1.92306, -4.49913,
+                -2.58254, 3.88008,
+            ],
+            [
+                -2.99537, 1.90059, 13.59341, 1.06253, 7.99903, -4.15886,
+                3.04514, 6.47319, -3.81703, 3.73424, 10.72563, -10.05940,
+                0.13221, 11.71317, -1.40585, 1.91403, -3.27501, -2.07247,
+                0.28481, -1.25954, 5.76679, 3.05262, -2.18505, 9.26355,
+                -3.68381, -0.21277, -6.40792, -9.67086, -3.11241, 1.69911,
+                -3.24645, -7.73350, -5.86535, -0.53091, 1.27792, -0.83913,
+                1.98170, 4.61367, -0.84039, -2.92347, -7.82657, 7.33609,
+                -3.81544, 1.95170, -2.79820, -1.14169, 8.55773, 9.46148,
+                5.34739, 1.10101, -2.83775, 1.45617, 2.43461, 6.07581,
+                0.06454, -1.24392, -0.16973, 0.17520, -10.81436, 3.67551,
+                4.32795, -3.87799, -5.45622, 7.69495, -4.55601, -4.76970,
+                -2.87974, 1.00981, 0.70002, 0.96376, -1.87008, 1.12308,
+                2.38769, -2.32376, 5.28305, 1.16700, -8.33043, -4.92044,
+                3.72026, 3.30448, -5.54394, 3.31437, -9.98170, -7.13867,
+                -1.16661, -0.43822, -5.93501, 2.26674, -2.37699, 1.92555,
+                -7.39020, 5.57729, 1.41337, 2.42220, 3.67730, -0.08598,
+                8.93445, 3.93330, 5.48787, -1.89818, -8.05818, 1.62473,
+                1.09715, -1.14127, 11.94235, -0.66360, -11.75284, -3.42587,
+                -4.84558, 3.88868, -3.83090, -5.91550, -4.19914, 1.77657,
+                0.75867, 0.13521, -5.39319, -4.56186, 0.25102, -5.33617,
+                -5.08295, -1.69339, 1.70309, 1.92627, 0.49223, 4.20735,
+                -1.46147, 4.89673,
+            ],
+            [
+                -1.89344, 3.45304, 2.75346, -2.22677, -2.99487, 0.29776,
+                7.37579, 0.61013, 1.46373, 0.65318, -3.79718, -2.61425,
+                3.74238, -4.89546, -0.24755, -2.21281, 3.70264, -2.30288,
+                6.59947, 6.50483, 1.49312, -2.09225, 0.37282, -4.80245,
+                -5.05312, 2.51136, -2.03167, -1.36066, 2.82453, -1.16564,
+                5.66798, -0.23880, -0.13873, 2.98663, -6.97885, -11.03052,
+                -0.25253, -2.88226, -5.97336, -8.30753, -0.16843, -5.58388,
+                5.79521, 12.38239, 0.55730, -1.15866, -0.29054, 3.36090,
+                4.19281, -4.42756, 1.21762, -4.77961, 2.82535, -0.31764,
+                -1.76205, 2.35314, 0.88507, 3.25411, -2.52036, 2.17020,
+                -2.11168, -6.55799, -4.02898, -7.83710, 0.00637, -3.99956,
+                -6.22236, 3.84769, -9.67524, 3.87508, -4.50036, -2.73089,
+                3.14046, 0.88625, 7.85202, 4.32255, -0.89172, -5.80658,
+                0.41991, -3.37311, 5.43119, -2.58013, -0.98754, 1.38361,
+                0.11367, -0.12220, 1.33130, 2.77494, 1.66162, 2.09414,
+                0.20673, -0.78004, -3.71640, 2.12092, -2.66593, 5.90443,
+                4.48687, 1.84523, -2.67967, -0.58248, 7.94696, -3.50345,
+                4.80488, -0.69508, 3.83276, -1.07694, -6.76066, 1.74989,
+                5.06920, 7.43240, -1.62910, -2.34651, 2.74127, -6.24549,
+                4.55440, -9.94600, 4.72531, 0.13771, -0.84306, -6.77497,
+                5.40737, 2.42554, 2.37754, -5.02293, 1.78892, -0.87926,
+                1.34108, 5.51531,
+            ],
+        ],
+        tail=[
+            [
+                -1.87631, -4.47014, 5.06295, 2.89384, -0.36314, -3.35141,
+                -2.97510, -0.09868, 6.80072, -2.00177, 3.92863, -1.21575,
+                -1.56653, -2.22269, 0.96850, -1.81930, 2.12758, -4.32498,
+                11.18684, -4.99407, 3.27568, -4.23906, -3.27693, -1.60842,
+                -0.98304, -1.71683, 1.92802, 4.89299, -5.88883, -2.57348,
+                -2.62848, 3.39223, -0.84995, 5.36506, 4.41922, -3.17844,
+                0.99603, -1.04326, 0.49687, -4.71706, -6.74928, 0.42717,
+                -1.09548, -0.93530, -2.76054, 0.97809, -1.44688, -4.32945,
+                0.95907, -3.56778, -3.44573, -6.40937, -2.33758, 1.78706,
+                -0.09749, 5.88114, -4.30961, 3.67602, -4.17095, -1.82421,
+                -3.34996, 1.91443, -4.20904, 0.87358, 0.88967, -1.11396,
+                -4.26223, 2.27115, -4.74973, 1.56066, -5.70538, 1.66608,
+                0.25437, -5.81409, -8.94244, 2.07237, -1.59200, 6.29075,
+                -3.26586, 3.55434, -4.20377, -4.56864, -5.70865, -4.79778,
+                -3.83716, -2.79490, 9.22850, -2.83161, -2.85772, 0.87355,
+                2.62654, -0.04674, 4.99991, -6.76652, -0.94042, -1.77297,
+                0.83920, 2.71330, -4.21748, -7.31544, 0.80206, 0.62400,
+                -2.22703, -5.38385, 2.67618, 1.32421, -4.01928, 4.95723,
+                4.74351, 3.00946, -1.85879, -6.70116, -1.32770, 2.70699,
+                -2.79394, 9.63445, 10.76931, -2.42949, 2.12880, -1.40057,
+                6.87937, 9.77968, 3.91445, 1.48118, 0.69164, 7.10052,
+                -1.00057, -0.74908,
+            ],
+            [
+                -2.54183, 1.79569, -3.44795, 6.06005, 0.36233, 1.07852,
+                -7.39569, -2.27971, -1.47700, 1.88050, 1.21740, -2.30372,
+                -2.02400, -0.53254, -5.21972, -0.77418, 3.68415, 5.15074,
+                0.91631, 5.06443, -5.56288, 0.82159, 0.48449, -3.26668,
+                6.04223, -1.01724, -4.12941, -3.41010, 1.94295, 2.73836,
+                -5.52750, 3.67279, -2.51559, -5.21846, -0.81605, 6.20549,
+                -3.31648, -2.35058, -0.28592, -5.24105, -0.68526, -8.50239,
+                0.79910, 0.11534, 3.45289, 2.02770, 8.10406, 1.70593,
+                -0.71584, -0.58945, -3.29211, 0.96522, -1.24112, -2.16744,
+                3.07404, -4.37435, 7.96217, -3.08551, -1.03982, 2.99457,
+                -5.40299, 0.67023, -3.58139, -3.06866, -4.11264, -7.65289,
+                -0.29635, 3.96973, 7.31653, -0.37429, -2.63932, -0.86886,
+                8.60386, 0.18724, 3.87248, 1.12918, -6.49777, 2.93497,
+                -3.30872, 6.12980, -1.03386, 1.40843, 2.31040, -0.54379,
+                1.19601, 4.73422, 3.22862, -12.31886, 9.09907, 1.95349,
+                10.43696, -2.88687, 0.61442, 1.87511, 0.90299, 3.13513,
+                3.87854, -4.72222, -3.74534, 3.98091, 4.59177, 3.54865,
+                0.94375, -6.26996, -1.81213, -2.63368, -2.94237, -0.77603,
+                2.02619, 1.70235, 3.67129, 5.22713, -0.50588, 1.28218,
+                12.19958, -3.03963, -0.05860, -2.57525, 1.58560, 2.66529,
+                0.95263, 4.95914, 0.97644, 0.16608, 3.63754, -8.26850,
+                -4.36746, -3.50297,
+            ],
+            [
+                -3.21635, 3.45301, -0.43711, -0.20147, -6.42914, -2.93305,
+                -1.22352, -5.85516, 2.53803, 2.78162, -1.47525, -4.18037,
+                1.55635, 5.85264, -3.16058, -6.85771, -4.87915, 4.13455,
+                1.27593, 0.50637, 1.70697, 3.31555, -3.09402, -0.57399,
+                7.74527, -5.17076, 4.32810, -6.51695, -3.73296, 7.58617,
+                5.31585, -2.08934, 1.94307, -3.91156, 1.12764, 8.76962,
+                2.96349, 3.81951, -4.79649, -9.18254, 0.39608, -3.71315,
+                8.37894, -1.13509, 2.93571, -5.34443, 0.60862, -1.34485,
+                -3.81399, -0.43915, 7.31947, -4.26052, -1.31039, -1.33386,
+                1.82462, -2.42797, 7.53844, -0.93572, -9.69295, 9.59598,
+                5.11192, -6.37377, -5.25325, -9.76741, -3.06880, 0.27957,
+                8.90297, 0.29151, -2.14295, -1.91957, 3.88029, -4.43254,
+                -5.67276, 8.36146, -1.47492, -4.34414, 0.50491, 2.32768,
+                -5.61821, 7.25002, -0.34039, 4.86299, -6.46899, -7.68636,
+                -0.45662, -1.30292, 3.30546, 0.72795, 5.00926, -0.47108,
+                -1.14655, -0.55059, -7.11489, -4.82176, 2.79655, 2.44743,
+                -1.80272, -6.53754, 2.53964, -0.24594, -3.81138, -1.22292,
+                1.22179, 3.35829, -4.22561, -2.17933, -4.64766, 0.20643,
+                -4.68608, 0.19728, 4.14211, 1.79688, -1.57142, 4.52311,
+                -1.00624, 0.32100, 6.11555, -0.03182, 1.77753, -2.50193,
+                -4.81230, -1.07248, 5.35403, 2.42179, -2.72183, -4.83091,
+                1.41978, 1.07020,
+            ],
+            [
+                2.10414, -6.23672, 1.74616, -6.23763, 0.24795, 7.54640,
+                6.24453, 1.40754, -4.46349, -4.19749, -2.58480, -3.52942,
+                -4.43590, 1.31031, -5.93268, 3.16341, -3.05267, 0.91742,
+                -0.80818, 3.67740, 8.72464, 2.65196, 1.01626, -3.22393,
+                -7.41276, -2.49220, 1.17784, -4.83780, -4.14938, -2.56619,
+                0.84066, -1.11390, -2.75394, 3.41204, 2.73415, 5.57554,
+                -7.99287, 2.99498, -3.45072, -0.97185, -1.67715, -8.37605,
+                -0.35641, -7.02183, 6.63321, -0.17192, -0.45894, -5.80690,
+                -1.85657, -4.13159, -3.05356, 7.70546, 6.01778, -0.99839,
+                -5.51617, -1.02342, -6.65758, 5.29493, 0.95266, 0.11295,
+                -1.89542, 1.05319, -2.04327, 4.04314, -2.22553, -7.26684,
+                -2.63477, -10.84939, 5.92059, -1.73592, 4.17431, -1.53985,
+                -4.04438, 6.98800, -1.91954, -3.01422, 0.68428, 0.85963,
+                6.93635, -1.60746, -0.87890, 5.60002, 2.46519, 0.64446,
+                -1.41887, -4.38130, 2.03570, -4.54941, 3.90171, -2.85537,
+                3.14443, 5.09492, -0.05067, -1.44795, 0.49267, 4.29004,
+                1.69615, -0.71327, -7.70586, -5.68206, -10.97542, -10.25308,
+                2.95203, 0.90795, 8.11172, 4.15300, -3.70066, 0.20325,
+                -0.24549, -2.50372, -1.55105, -0.54181, -5.16238, 3.26594,
+                2.06897, 1.29054, -4.05536, -2.00342, -2.17887, 3.20382,
+                -4.57048, 0.38883, 2.71587, -1.68872, -0.28824, 0.73088,
+                -1.16223, 4.46821,
+            ],
+        ],
+    ),
+}
+
+
+def fingerprint_errors(fp: dict) -> list:
+    """What in ``fp`` (a split's ``shape``, ``sum``, ``sum_abs``,
+    ``sumsq``, ``head`` and ``tail`` rows) differs from
+    ``FLAGSHIP_FINGERPRINT``: the sums by more than 1e-6 of the sum of |x|
+    (the sum of squares of itself), a row entry by more than 1e-4."""
+    errors = []
+    for part, want in FLAGSHIP_FINGERPRINT.items():
+        got = fp[part]
+        if list(got["shape"]) != want["shape"]:
+            errors.append(f"{part} shape {got['shape']}")
+            continue
+        for name, scale in (("sum", want["sum_abs"]),
+                            ("sum_abs", want["sum_abs"]),
+                            ("sumsq", want["sumsq"])):
+            if not abs(float(got[name]) - want[name]) <= 1e-6 * scale:
+                errors.append(f"{part} {name} {got[name]} vs {want[name]}")
+        for name in ("head", "tail"):
+            err = max(abs(float(g) - w)
+                      for grow, wrow in zip(got[name], want[name])
+                      for g, w in zip(grow, wrow))
+            if not err <= 1e-4:
+                errors.append(f"{part} {name} rows off by {err}")
+    return errors
+
 BATCH, NPROBE, K, SEG, GROUP = 128, 32, 100, 512, 8
 N_GT = 256
 MIN_R10 = 0.85
@@ -670,12 +1331,41 @@ def tiles_on_queries(name, s, q, nprobe, library: bool = False):
                 args=args, kw=kw)
 
 
+def device_fingerprint(ds) -> dict:
+    """``fingerprint_errors``' view of a draw whose splits are tensors:
+    the sums in float64 on their device, the first and last 4 rows."""
+    out = {}
+    for part in ("xb", "xt", "xq"):
+        x = getattr(ds, part).double()
+        out[part] = dict(shape=list(x.shape), sum=float(x.sum()),
+                         sum_abs=float(x.abs().sum()),
+                         sumsq=float((x * x).sum()),
+                         head=x[:4].cpu().tolist(),
+                         tail=x[-4:].cpu().tolist())
+        del x
+    return out
+
+
+def overflowed(caught) -> int:
+    """The points ``assign_balanced(hard=True)`` reports as having
+    overflowed every candidate cell (its warning), 0 without one (it warns
+    above n/200)."""
+    for w in caught:
+        m = re.search(r"(\d+)/\d+ points .*overflowed", str(w.message))
+        if m:
+            return int(m.group(1))
+    return 0
+
+
 def main_path(dev):
-    """Phase 3: the port's IVF-PQ query path at the 1M flagship."""
+    """Phase 3: the port's IVF-PQ query path at the 1M flagship, its corpus
+    drawn on the card by ``synthetic_dataset_device`` (the threefry
+    kernel) and held to ``FLAGSHIP_FINGERPRINT``."""
     import numpy as np
     import torch
     from chamjax_torch.config import IndexConfig, SearchConfig
-    from chamjax_torch.data import compute_ground_truth, synthetic_dataset
+    from chamjax_torch.data import (Dataset, compute_ground_truth,
+                                    synthetic_dataset_device)
     from chamjax_torch.eval import recall_at_k
     from chamjax_torch.index import build_ivfpq
     from chamjax_torch.ops.coarse import select_probes
@@ -686,22 +1376,45 @@ def main_path(dev):
     from chamjax_torch.searcher import IVFSearcher, _rotate
     from chamjax_torch.utils import cuda_lib, graphs
 
+    # counts from 0: the draw and the build launch the threefry kernel
+    cuda_lib.launch_counts.clear()
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ds = synthetic_dataset(**FLAGSHIP)
+    drawn = synthetic_dataset_device(**FLAGSHIP, to_host=False, device=dev)
+    torch.cuda.synchronize()
     t_data = time.perf_counter() - t0
+    fp_errors = fingerprint_errors(device_fingerprint(drawn))
+    if fp_errors:
+        raise AssertionError(f"the card's flagship draw is not chamjax's: "
+                             f"{fp_errors}")
+    t0 = time.perf_counter()
+    ds = Dataset(name="SYN", **{p: getattr(drawn, p).cpu().numpy()
+                                for p in ("xb", "xq", "xt")})
+    t_pull = time.perf_counter() - t0
+    del drawn
     nb, d, nlist, m = FLAGSHIP["nb"], FLAGSHIP["d"], 4096, 16
     cfg = IndexConfig(dim=d, nlist=nlist, m=m, list_pad=128, opq=True,
                       balanced=True, balance_hard=True,
                       balance_factor=512 * nlist / nb)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    idx = build_ivfpq(ds.xb, cfg, xt=ds.xt, kmeans_iters=10, pq_iters=10,
-                      device=dev)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        idx = build_ivfpq(ds.xb, cfg, xt=ds.xt, kmeans_iters=10,
+                          pq_iters=10, device=dev)
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
-    log(f"dataset {t_data:.1f} s, build {t_build:.1f} s, max list "
-        f"{int(idx.list_len.max())}, cap "
-        f"{int(np.ceil(nb / cfg.nlist * cfg.balance_factor))}")
+    draw_launches = dict(cuda_lib.launch_counts)
+    n_over = overflowed(caught)
+    log(f"dataset drawn on the card in {t_data:.2f} s (= chamjax's draw: "
+        f"FLAGSHIP_FINGERPRINT held), pulled to the host in {t_pull:.2f} s; "
+        f"build {t_build:.1f} s, max list {int(idx.list_len.max())}, cap "
+        f"{int(np.ceil(nb / cfg.nlist * cfg.balance_factor))}, overflowed "
+        f"{n_over}, n_pad {idx.n_pad}; threefry launches "
+        f"{draw_launches.get('threefry', 0)}")
+    if draw_launches.get("threefry", 0) < 1:
+        raise AssertionError(f"the flagship draw did not launch threefry: "
+                             f"{draw_launches}")
     if int(idx.list_len.sum()) != nb:
         raise AssertionError("index lost rows")
     t0 = time.perf_counter()
@@ -752,6 +1465,11 @@ def main_path(dev):
     r10_f32 = recall_at_k(res_f[1], gt, 10)
     log(f"recall {rec}, f32-LUT kernel path R@10 {r10_f32:.4f}, xla oracle "
         f"R@10 {r10_xla:.4f}, launches {launches}")
+    log(f"flagship on bench.py's corpus: R@1/10/100 "
+        f"{rec['recall_at_1']:.4f} / {rec['recall_at_10']:.4f} / "
+        f"{rec['recall_at_100']:.4f}, overflowed {n_over}, n_pad "
+        f"{idx.n_pad}; the reference's record (BENCH_r05.json, TPU, "
+        f"approximate top-k): {BENCH_R05}")
     if abs(r10_f32 - r10_xla) > 0.002:
         raise AssertionError(f"f32-LUT seg R@10 {r10_f32} vs xla oracle "
                              f"{r10_xla}")
@@ -804,6 +1522,7 @@ def main_path(dev):
                main_search=(s.dev, kw), searcher=s, searcher_f32=s_f)
     return dict(
         launches=launches, main_kernel=main_kernel, ctx=ctx,
+        draw_launches=draw_launches,
         line=dict(
             main_path="ivfpq_search 1M flagship (OPQ16,IVF4096,PQ16 hard-"
                       "balanced; seg=512 group=8 nprobe=32 k=100 lut_bf16)",
@@ -825,8 +1544,13 @@ def main_path(dev):
             host_enqueue_ms_b1_eager=te["host_b1"],
             launches=launches, launches_eager=launches_eager,
             captured_bit_equal_eager=equal, graphs=len(s.dev.graphs),
-            dataset_s=t_data, build_s=t_build, ground_truth_s=t_gt,
-            max_list_len=int(idx.list_len.max())))
+            dataset_s=t_data, dataset_pull_s=t_pull, build_s=t_build,
+            ground_truth_s=t_gt, max_list_len=int(idx.list_len.max()),
+            overflowed=n_over, n_pad=idx.n_pad,
+            corpus="synthetic_dataset_device(**FLAGSHIP) on the card = "
+                   "chamjax's (FLAGSHIP_FINGERPRINT)",
+            reference_record_bench_r05=BENCH_R05,
+            launches_draw_and_build=draw_launches))
 
 
 def diagnose(name, s, xq, gt, res):
@@ -1285,6 +2009,146 @@ def variants_phase(dev):
     return out
 
 
+THREEFRY_N = 1 << 26                 # phase 2's draws
+THREEFRY_START = (1 << 32) + 12345   # their counters: the hi word set
+# the samplers' sizes: the flagship's randint chunk, the hard corpus's
+# choice over 2^20 rows (two sort rounds), a permutation of three rounds
+THREEFRY_SAMPLER_N = (1_000_000, 1 << 20, 2_700_000)
+# the flagship's draw (synthetic_dataset_device(**FLAGSHIP)): an xb chunk
+# is two 32-bit draws (randint), the latent normal and the scaled noise
+FLAGSHIP_DRAWS = (("u32", (1_000_000,), 1.0),
+                  ("u32", (1_000_000,), 1.0),
+                  ("normal_f32", (1_000_000, 32), 1.0),
+                  ("normal_f32", (1_000_000, 128), 0.05))
+
+
+def threefry_library(form: str, shape, dev):
+    """The one PyTorch call that draws the same shape and type (another
+    stream, the same work): ``torch.randint``, ``rand`` or ``randn``; a
+    gumbel has none."""
+    import torch
+    calls = {
+        "u32": lambda: torch.randint(-2 ** 31, 2 ** 31, shape,
+                                     dtype=torch.int32, device=dev),
+        "u16": lambda: torch.randint(-2 ** 15, 2 ** 15, shape,
+                                     dtype=torch.int16, device=dev),
+        "u8": lambda: torch.randint(0, 256, shape, dtype=torch.uint8,
+                                    device=dev),
+        "uniform_f32": lambda: torch.rand(shape, device=dev),
+        "uniform_bf16": lambda: torch.rand(shape, dtype=torch.bfloat16,
+                                           device=dev),
+        "normal_f32": lambda: torch.randn(shape, device=dev),
+        "normal_bf16": lambda: torch.randn(shape, dtype=torch.bfloat16,
+                                           device=dev)}
+    return calls.get(form)
+
+
+def bit_view(t):
+    """A tensor's bits as integers of its width."""
+    import torch
+    return t.view({8: torch.int64, 4: torch.int32, 2: torch.int16,
+                   1: torch.uint8}[t.element_size()])
+
+
+def threefry_row(dev, form, n, *, start=0, scale=1.0, bounds=(0.0, 1.0)):
+    """One draw of ``n`` outputs in ``form``: the kernel held bit for bit
+    against its plain version on the card, both timed (``device_ms``; the
+    plain version, hundreds of launches, by ``time_ms``), beside the bound
+    and the library call of the same shape."""
+    import torch
+    from chamjax_torch import random as jr
+    from chamjax_torch.benchmarks.bounds import threefry_bound
+    key = jr.fold_in(jr.key(42), 7)
+    kw = jr.draw_params(form, *bounds, scale=scale)
+
+    def call():
+        return jr.threefry_draw(key, n, form, start=start, device=dev, **kw)
+
+    def plain():
+        return jr.threefry_draw_reference(key, n, form, start=start,
+                                          device=dev, **kw)
+    got = call()
+    torch.cuda.synchronize()
+    want = plain()
+    differ = int((bit_view(got) != bit_view(want)).sum())
+    err = float((got.double() - want.double()).abs().max()) if n else 0.0
+    if differ:
+        raise AssertionError(f"threefry {form}: {differ} of {n} outputs "
+                             f"differ from the plain version (max abs err "
+                             f"{err})")
+    out_bytes = got.numel() * got.element_size()
+    del got, want
+    ms = device_ms(call)
+    plain_ms = time_ms(plain, reps=5, warmup=1)
+    bound_ms, bound_by = threefry_bound(n, out_bytes)
+    lib = threefry_library(form, (n,), dev)
+    library_ms = device_ms(lib) if lib is not None else None
+    row = dict(form=form, n=n, start=start, scale=scale, differing=differ,
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=library_ms)
+    log(f"threefry {form} n={n} start={start}: bit-equal to the plain "
+        f"version; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}), library {library_ms} ms")
+    return row
+
+
+def threefry_phase(dev):
+    """Phase 2, the threefry kernel: every form over 2^26 outputs whose
+    counters start above 2^32, bit for bit against its plain version on
+    the card (float32 normal and gumbel too: the ulp bar is 0), timed
+    beside its bound (the integer operations the hash needs at the card's
+    integer rate, against the bytes written; the raw-bits kernel's SASS
+    counts by pipe beside it, as what the compiler emitted) and beside the
+    ``torch.randint`` / ``rand`` / ``randn`` call of the same shape; then
+    the samplers built on its bits (``randint`` at the flagship's chunk,
+    ``permutation`` in two and three rounds, ``choice``) on the card
+    against the plain versions on the CPU; then each launch of the
+    flagship's xb draw at its shape.  Returns the rows, or raises."""
+    import torch
+    from chamjax_torch import random as jr
+    from chamjax_torch.benchmarks.bounds import (THREEFRY_ADDS,
+                                                 THREEFRY_INT_ONLY)
+    from chamjax_torch.benchmarks.sass_report import library_pipe_counts
+    kernels = library_pipe_counts("threefry")
+    log(f"threefry SASS by pipe: {kernels}")
+    # the raw 32-bit form (kBits32 = 0): the hash and the store alone,
+    # its integer instructions an output against the bound's
+    bits32 = re.compile(r"threefry_kernel(?:ILi0E|<(?:\(int\))?0>)")
+    pipes = next(v for k, v in kernels.items() if bits32.search(k))
+    per_output = max(THREEFRY_INT_ONLY,
+                     (THREEFRY_INT_ONLY + THREEFRY_ADDS) / 2)
+    log(f"threefry raw bits: {pipes} instructions an output emitted, "
+        f"{per_output} on the busier pipe in the bound")
+    forms = [threefry_row(dev, form, THREEFRY_N, start=THREEFRY_START,
+                          bounds=(-3.0, 5.5) if form.startswith("uniform")
+                          else (0.0, 1.0))
+             for form in jr.FORMS]
+    samplers = {}
+    n1, n2, n3 = THREEFRY_SAMPLER_N
+    for name, draw in (
+            ("randint", lambda d: jr.randint(11, (n1,), 0, 4096, device=d)),
+            ("randint_u8", lambda d: jr.randint(11, (16, n2), 0, 256,
+                                                torch.uint8, device=d)),
+            ("permutation_2_rounds", lambda d: jr.permutation(11, n2,
+                                                              device=d)),
+            ("permutation_3_rounds", lambda d: jr.permutation(11, n3,
+                                                              device=d)),
+            ("choice", lambda d: jr.choice(11, n2, 8192, device=d))):
+        got = draw(dev)
+        torch.cuda.synchronize()
+        if not torch.equal(got.cpu(), draw("cpu")):
+            raise AssertionError(f"threefry sampler {name}: the card's draw "
+                                 f"differs from the CPU's")
+        samplers[name] = dict(n=got.numel(), equal_cpu=True,
+                              ms=time_ms(lambda: draw(dev), reps=5))
+        log(f"threefry sampler {name}: card = CPU, {samplers[name]['ms']:.3f}"
+            f" ms (host clock around the call)")
+    flagship = [threefry_row(dev, form, math.prod(shape), scale=scale)
+                for form, shape, scale in FLAGSHIP_DRAWS]
+    return dict(forms=forms, samplers=samplers, flagship=flagship,
+                sass_per_output=pipes, bound_ops_per_output=per_output)
+
+
 def device_events(prof, annotation: str):
     """The CUDA events of a ``tracing.trace`` window, less the
     annotation's own device-side range: ``(kernels, copies)``, copies being
@@ -1417,6 +2281,54 @@ def study_phase(dev, card):
                 roofline=[r for r in roof if "best" not in r],
                 best=roof[-1]["best"], launches=launches,
                 seconds=time.perf_counter() - t0)
+
+
+def variant_library(dev):
+    """The library column of the measurement kernels (rows 5 and 6 of the
+    kernels line) at the kernel study's full width (a 16M x m16 slab,
+    bW=4096, n_lut=4096, seg 2048, the windows ``kv.study`` draws): one
+    ``embedding_bag`` over the flat LUT indices of every window row
+    (``library_scan``), held against the kernel's output (rtol 1e-5) and
+    timed beside it, for each row's baseline body (``f32`` and
+    ``block_bf16t``).  The launches here compare; the study counted
+    before.  Returns {kernel: dict(ms=, library_ms=)}."""
+    import torch
+    from chamjax_torch.benchmarks import kernel_variants as kv
+    args = kv.parse_args(["--variants", "f32", kv.BLOCK_VARIANT])
+    data = kv.make_data(args, dev)
+    seg = args.segs[0]
+    starts = torch.randint(0, (args.n - seg) // 512, (args.bw,),
+                           generator=data["gen"], device=dev,
+                           dtype=torch.int32) * 512
+    lens = torch.full((args.bw,), seg, dtype=torch.int32, device=dev)
+    out = {}
+    for name, variant in (("run_variant", "f32"),
+                          ("run_block_variant", kv.BLOCK_VARIANT)):
+        cd, st = kv.inputs_for(data, variant, seg, starts)
+        packed = kv.packed(variant)
+        lt = data["luts_p"] if packed else data["luts"]
+        call = (cd, st, lens, data["lut_idx"], lt)
+        if variant == kv.BLOCK_VARIANT:
+            got = kv.run_block_variant(*call, seg=seg, group=GROUP)
+        else:
+            got = kv.run_variant(*call, seg=seg, group=GROUP,
+                                 variant=variant)
+        torch.cuda.synchronize()
+        codes = kv._window_codes(cd, st.long(), seg, variant)  # (bW, m, seg)
+        rows = codes.permute(0, 2, 1).reshape(-1, codes.shape[1])
+        del codes
+        w, c = scan_rows(lens, seg)
+        lut_row = data["lut_idx"].long()[w]
+        ms = device_ms(lambda: kv.launch(variant, cd, st, data["lut_idx"], lt,
+                                         seg=seg))
+        library_ms = library_scan(f"{name}[{variant}] full width", got, w, c,
+                                  rows, lut_row, lt, packed)
+        out[name] = dict(variant=variant, seg=seg, ms=ms,
+                         library_ms=library_ms)
+        log(f"{name}[{variant}] full width seg {seg}: kernel {ms:.4f} ms, "
+            f"embedding_bag {library_ms:.4f} ms")
+        del rows, w, c, lut_row, got
+    return out
 
 
 # The RALM serving path, through ralm_device_bench (its non-streamed leg):
@@ -3009,7 +3921,7 @@ def reassembled(sh, info, cfg):
 
 def mesh_build(dev, ctx, host_line):
     """Step 2: ``build_ivfpq_device_sharded`` at the flagship's
-    configuration over its 1M rows (the numpy corpus in memory),
+    configuration over its 1M rows (the flagship corpus in host memory),
     ``MESH_BUILD_SHARDS`` shards, tiled at seg 512: every id once, every
     list owned once with ``info["list_len"]``; searched through
     ``sharded_search`` (f32 LUTs, every window of the probed lists) equal
@@ -3741,6 +4653,7 @@ def run_smoke(t_smoke, dev, corpus_job) -> int:
         options = kernel_phase(dev)
         flat_options = flat_kernel_phase(dev)
         variant_options = variants_phase(dev)
+        threefry = threefry_phase(dev)
         main = main_path(dev)
         stages = stages_phase(dev, main["ctx"])
         traced = trace_phase(dev, main["ctx"])
@@ -3750,6 +4663,7 @@ def run_smoke(t_smoke, dev, corpus_job) -> int:
         streamed = streamed_phase(dev, main["ctx"],
                                   routes["results"]["flat_g8_bf16"])
         study = study_phase(dev, card)
+        study_library = variant_library(dev)
         ralm = ralm_phase(dev)
         tiktok = dict(fused=tiktok_fused(dev, ralm["rec"].inner),
                       host=tiktok_host(dev, ralm["rec"].inner))
@@ -3839,10 +4753,34 @@ def run_smoke(t_smoke, dev, corpus_job) -> int:
             replaces=replaces, launches=study["launches"][name],
             max_abs_err=max(r["max_abs_err"] for r in rows), ms=h["ms"],
             plain_ms=h["plain_ms"], bound_ms=h["bound_ms"],
-            bound_by=h["bound_by"], library_ms=None, path="kernel study",
+            bound_by=h["bound_by"],
+            library_ms=study_library[name]["library_ms"],
+            library="embedding_bag at full width (16M slab, seg 2048)",
+            library_kernel_ms=study_library[name]["ms"], path="kernel study",
             full_width_ms=fw["ms"], full_width_bound_ms=fw["bound_ms"],
             full_width_counterpart=fw["counterpart"],
             full_width_counterpart_ms=fw["counterpart_ms"], options=rows))
+    # the draws: no Pallas kernel on the TPU (XLA generates threefry2x32);
+    # the row's times are the flagship's largest draw (its 1M x 128 noise)
+    noise = threefry["flagship"][-1]
+    kernels.append(dict(
+        name="threefry", route="cuda",
+        source="chamjax_torch/csrc/threefry.cu",
+        replaces="jax/_src/prng.py:1184",
+        replaces_note="XLA's threefry2x32 and jax/_src/random.py's "
+                      "samplers; no pallas_call on the TPU",
+        launches=main["draw_launches"].get("threefry", 0),
+        max_abs_err=max(r["max_abs_err"]
+                        for r in threefry["forms"] + threefry["flagship"]),
+        ms=noise["ms"], plain_ms=noise["plain_ms"],
+        bound_ms=noise["bound_ms"], bound_by=noise["bound_by"],
+        library_ms=noise["library_ms"], library="torch.randn",
+        path="main path: the flagship draw and the build's k-means++",
+        flagship_xb_chunk_ms=sum(r["ms"] for r in threefry["flagship"]),
+        flagship_draws=threefry["flagship"], options=threefry["forms"],
+        samplers=threefry["samplers"],
+        sass_per_output=threefry["sass_per_output"],
+        bound_ops_per_output=threefry["bound_ops_per_output"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     # busy_share divides by the profiled window, which the profiler
     # stretches; busy_share_unprofiled divides the same kernel time a

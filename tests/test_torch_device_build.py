@@ -86,10 +86,10 @@ def test_assign_and_topc_blocked_match_jax():
 
 @pytest.mark.parametrize("empty", [False, True])
 def test_lloyd_iter_matches_jax(empty):
-    """One Lloyd iteration from the same centroids: centroids within rtol
-    1e-5 and counts equal; with a cell no row reaches, the same cells are
-    reseeded from the same donors (the jitters differ: JAX's PRNG against a
-    torch generator, ~1e-3 of the donor's scale)."""
+    """One Lloyd iteration from the same centroids and key: centroids
+    within rtol 1e-5 and counts equal; with a cell no row reaches, the
+    same cell is reseeded from the same donor with the same jitter
+    (``normal(key)`` in both packages)."""
     import jax
     rng = np.random.default_rng(2)
     x = clustered(rng, 2 * BLOCK + 100, 8, 16)
@@ -98,23 +98,12 @@ def test_lloyd_iter_matches_jax(empty):
         cent[5] = 1e3                  # nearest to no row
     c_j, n_j = jdb._lloyd_iter(jnp.asarray(x), jnp.asarray(cent),
                                jax.random.PRNGKey(0), block=BLOCK, cand=8)
-    c_t, n_t = tdb._lloyd_iter(t(x), t(cent), torch.Generator().manual_seed(0),
-                               block=BLOCK, cand=8)
+    c_t, n_t = tdb._lloyd_iter(t(x), t(cent), 0, block=BLOCK, cand=8)
     c_j, c_t = n(c_j), n(c_t)
     np.testing.assert_array_equal(n(n_t), n(n_j))
     full = n(n_j) > 0
     assert (~full).sum() == int(empty)
-    np.testing.assert_allclose(c_t[full], c_j[full], rtol=1e-5, atol=1e-5)
-    for e in np.flatnonzero(~full):
-        scale = np.abs(c_j[e]).mean() * 1e-3 + 1e-6
-        # both sit within a few jitter scales of the same donor centroid,
-        # and no other centroid is near
-        assert np.abs(c_t[e] - c_j[e]).max() < 12 * scale
-        dist_j = np.sort(np.abs(c_j[full] - c_j[e]).max(axis=1))
-        dist_t = np.abs(c_t[full] - c_t[e]).max(axis=1)
-        assert np.argmin(dist_t) == np.argmin(
-            np.abs(c_j[full] - c_j[e]).max(axis=1))
-        assert dist_j[0] < 12 * scale < 100 * scale < dist_j[1]
+    np.testing.assert_allclose(c_t, c_j, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("split", [1.0, 0.0])
@@ -334,38 +323,40 @@ def test_build_with_preset_quantizers_bit_equal(ds, quantizers, case):
 
 
 def test_trained_build_recall_matches_jax():
-    """OPQ + hard-balanced builds trained by each package reach mean R@10
-    (256 queries, build seeds 0-2, nprobe 16) within 0.02 of each other on
-    the same data.  The seeds draw differently (JAX's PRNG against torch
-    generators), and one k-means++ seed can merge two of the 64 clusters in
-    either package (R@10 0.94-1.0 a seed), so the bar is on the mean."""
+    """OPQ + hard-balanced builds trained by each package from seed 0 on
+    the same data (both draw the seed's threefry streams): coarse
+    centroids within atol 0.02 (the fp32 k-means statistics are summed in
+    other orders, which moves a centroid by up to 0.011 here, on data of
+    scale ~3), list lengths within 1% of the cap (equal here), and R@10
+    (256 queries, nprobe 16) within 0.005 (equal here)."""
     ds = synthetic_dataset(nb=20_000, nq=256, nt=6000, d=32, seed=3,
                            n_clusters=64)
     gt, _ = compute_ground_truth(ds.xb, ds.xq, k=10)
     cfg = IndexConfig(dim=32, nlist=64, m=8, list_pad=64, opq=True,
                       balanced=True, balance_hard=True, balance_factor=1.6)
     cap = int(np.ceil(ds.nb / cfg.nlist * cfg.balance_factor))
-    r_j, r_t = [], []
-    for seed in range(3):
-        kw = dict(kmeans_iters=6, pq_iters=6, chunk=8192, block=BLOCK,
-                  tile_seg=128, seed=seed)
-        d_j, i_j = jdb.build_ivfpq_device(j_draw(ds.xb), ds.nb, cfg,
-                                          jnp.asarray(ds.xt), **kw)
-        d_t, i_t = tdb.build_ivfpq_device(t_draw(ds.xb), ds.nb, tcfg(cfg),
-                                          t(ds.xt), device="cpu", **kw)
-        assert d_t.opq_R is not None
-        assert int(i_t["list_len"].max()) <= cap + i_t["stragglers"]
-        assert int(i_t["list_len"].sum()) == ds.nb
-        # each searched by its own plain (xla) scan over whole lists
-        s_kw = dict(nprobe=16, k=10, backend="xla", use_approx=False,
-                    scan_len=-(-int(max(i_j["list_len"].max(),
-                                        i_t["list_len"].max())) // 128) * 128)
-        _, ids_j = j_search(d_j, jnp.asarray(ds.xq), **s_kw)
-        _, ids_t = tsearcher.ivfpq_search(d_t, t(ds.xq), **s_kw)
-        r_j.append(recall_at_k(n(ids_j), gt, 10))
-        r_t.append(recall_at_k(n(ids_t), gt, 10))
-    assert min(r_t) > 0.9, r_t
-    assert abs(np.mean(r_t) - np.mean(r_j)) <= 0.02, (r_t, r_j)
+    kw = dict(kmeans_iters=6, pq_iters=6, chunk=8192, block=BLOCK,
+              tile_seg=128, seed=0)
+    d_j, i_j = jdb.build_ivfpq_device(j_draw(ds.xb), ds.nb, cfg,
+                                      jnp.asarray(ds.xt), **kw)
+    d_t, i_t = tdb.build_ivfpq_device(t_draw(ds.xb), ds.nb, tcfg(cfg),
+                                      t(ds.xt), device="cpu", **kw)
+    assert d_t.opq_R is not None
+    assert int(i_t["list_len"].max()) <= cap + i_t["stragglers"]
+    assert int(i_t["list_len"].sum()) == ds.nb
+    np.testing.assert_allclose(n(d_t.centroids), n(d_j.centroids),
+                               rtol=0, atol=0.02)
+    assert np.abs(n(i_t["list_len"]).astype(int)
+                  - n(i_j["list_len"]).astype(int)).max() <= 0.01 * cap
+    # each searched by its own plain (xla) scan over whole lists
+    s_kw = dict(nprobe=16, k=10, backend="xla", use_approx=False,
+                scan_len=-(-int(max(i_j["list_len"].max(),
+                                    i_t["list_len"].max())) // 128) * 128)
+    _, ids_j = j_search(d_j, jnp.asarray(ds.xq), **s_kw)
+    _, ids_t = tsearcher.ivfpq_search(d_t, t(ds.xq), **s_kw)
+    r_j, r_t = recall_at_k(n(ids_j), gt, 10), recall_at_k(n(ids_t), gt, 10)
+    assert r_t > 0.9, r_t
+    assert abs(r_t - r_j) <= 0.005, (r_t, r_j)
 
 
 def test_gt_streamed_matches_jax(ds):

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from chamjax_torch import random as jr
 from chamjax_torch.benchmarks import kernel_variants as kv
 from chamjax_torch.config import IndexConfig, SearchConfig
 from chamjax_torch.data import synthetic_dataset
@@ -1524,3 +1525,70 @@ def test_card_efficiency_reads_a_positive_power_limit(cuda_device):
     eff = card_efficiency(100_000.0)
     assert eff["card"] and eff["assumed_watts"] > 0
     assert eff["qps_per_watt"] == round(100_000.0 / eff["assumed_watts"], 3)
+
+
+# the threefry kernel (csrc/threefry.cu) against its plain version
+
+THREEFRY_BOUNDS = {"uniform_f32": (-3.0, 5.5), "uniform_bf16": (-3.0, 5.5),
+                   "normal_f32": (0.0, 1.0), "normal_bf16": (0.0, 1.0)}
+
+
+def _bitwise(t: torch.Tensor) -> torch.Tensor:
+    """The tensor's bits as a signed integer tensor of the same width."""
+    return t.view({8: torch.int64, 4: torch.int32, 2: torch.int16,
+                   1: torch.uint8}[t.element_size()])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("start", [0, (1 << 32) - 1000, 5 << 33])
+@pytest.mark.parametrize("form", jr.FORMS)
+def test_threefry_kernel_matches_plain_on_card(cuda_device, form, start):
+    """Every form, bit-equal to the plain version, over counters that start
+    at 0, cross 2**32 (the hi word) and start above it; a scaled normal
+    too."""
+    lo, hi = THREEFRY_BOUNDS.get(form, (0.0, 1.0))
+    kw = jr.draw_params(form, lo, hi, scale=0.02 if "normal" in form
+                        else 1.0)
+    n = (1 << 20) + 3
+    key = jr.fold_in(7, 11)
+    cuda_lib.launch_counts.clear()
+    got = jr.threefry_draw(key, n, form, start=start, device=cuda_device,
+                           **kw)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts["threefry"] == 1
+    want = jr.threefry_draw_reference(key, n, form, start=start,
+                                      device=cuda_device, **kw)
+    assert got.dtype == want.dtype and got.shape == (n,)
+    assert torch.equal(_bitwise(got), _bitwise(want))
+    cpu = jr.threefry_draw_reference(key, 4099, form, start=start,
+                                     device="cpu", **kw)
+    assert torch.equal(_bitwise(got[:4099].cpu()), _bitwise(cpu))
+
+
+@pytest.mark.gpu
+def test_threefry_samplers_on_card_equal_cpu(cuda_device):
+    """The samplers draw on the card what they draw on the CPU."""
+    cases = [
+        lambda d: jr.bits(3, (1000, 3), 8, device=d),
+        lambda d: jr.uniform(3, (5000,), torch.bfloat16, -1.0, 2.0,
+                             device=d),
+        lambda d: jr.normal(3, (300, 70), device=d),
+        lambda d: jr.normal(3, (300, 70), torch.bfloat16, scale=0.0625,
+                            device=d),
+        lambda d: jr.gumbel(3, (70000,), device=d),
+        lambda d: jr.randint(3, (70000,), 0, 4096, device=d),
+        lambda d: jr.randint(3, (7000,), 0, 256, torch.uint8, device=d),
+        lambda d: jr.permutation(3, 100_003, device=d),
+        lambda d: jr.choice(3, 1 << 20, 512, device=d),
+    ]
+    for i, case in enumerate(cases):
+        got, want = case(cuda_device), case("cpu")
+        assert got.device.type == "cuda"
+        assert torch.equal(_bitwise(got.cpu()), _bitwise(want)), i
+
+
+@pytest.mark.gpu
+def test_threefry_empty_draw_launches_nothing(cuda_device):
+    cuda_lib.launch_counts.clear()
+    out = jr.normal(0, (0, 5), device=cuda_device)
+    assert out.shape == (0, 5) and cuda_lib.launch_counts["threefry"] == 0

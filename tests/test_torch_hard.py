@@ -1,16 +1,17 @@
 """The port's hard-mode corpus (``chamjax_torch/data/hard.py``) on the CPU,
-gated by the corpus statistics ``tests/test_hard_corpus.py`` gates the JAX
-package's on.  The streams differ by design (torch generators, not
-JAX-PRNG), so only the RNG-free parameters are compared with JAX's: the
-Zipf mass CDF and the eigenvalue profile, both float32 in both packages,
-to a few float32 ulps (XLA's and torch's ``pow``, ``exp`` and ``cumsum``
-round differently in the last bits)."""
+against the JAX package's: both draw the same threefry streams, so the
+rows, the training rows and both kinds of queries are the JAX package's
+(rtol 1e-5, atol 1e-5: the fp32 projection runs in another order), the
+Zipf mass CDF bit for bit (the port sums it in XLA's CPU order); plus the
+corpus statistics ``tests/test_hard_corpus.py`` gates the JAX package's
+on."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from chamjax.data.hard import make_hard_corpus as j_make_hard_corpus
+from chamjax.data.hard import synthetic_dataset_hard as j_dataset_hard
 
 from chamjax_torch.config import IndexConfig, SearchConfig
 from chamjax_torch.data import compute_ground_truth
@@ -40,6 +41,31 @@ def test_hard_draw_deterministic_and_chunk_invariant(hc):
     assert a.dtype == np.float32 and np.isfinite(a).all()
 
 
+def test_hard_corpus_equals_chamjax():
+    """The same rows as the JAX package's corpus from the same seed: a
+    chunk past the first of the base stream, the training stream, jittered
+    queries (``choice`` without replacement, the jitter normal) and
+    independent queries; the wrapper's dataset too."""
+    kw = dict(d=16, n_clusters=512, seed=7, n_banks=8)
+    j = j_make_hard_corpus(**kw)
+    hc = make_hard_corpus(**kw, device="cpu")
+    for name, want, got in (
+            ("base", j.draw_base(GEN, GEN), hc.draw_base(GEN, GEN)),
+            ("train", j.draw_train(0, GEN), hc.draw_train(0, GEN)),
+            ("jittered", j.queries(64, jitter=0.3),
+             hc.queries(64, jitter=0.3)),
+            ("independent", j.queries(64), hc.queries(64))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-5, err_msg=name)
+    want = j_dataset_hard(nb=3000, nq=16, nt=2000, d=16, n_clusters=512,
+                          seed=3)
+    got = synthetic_dataset_hard(nb=3000, nq=16, nt=2000, d=16,
+                                 n_clusters=512, seed=3, device="cpu")
+    for part in ("xb", "xt", "xq"):
+        np.testing.assert_allclose(getattr(got, part), getattr(want, part),
+                                   rtol=1e-5, atol=1e-5, err_msg=part)
+
+
 @pytest.mark.parametrize("span", [(0, 1000), (1000, GEN), (0, 0)])
 def test_hard_draw_rejects_misaligned(span):
     hc = make_hard_corpus(d=16, n_clusters=256, seed=1, device="cpu")
@@ -58,16 +84,16 @@ def test_hard_mass_is_heavy_tailed(hc):
 @pytest.mark.parametrize("n_clusters,zipf_a", [(4096, 1.05), (262_144, 1.05),
                                                (512, 1.3)])
 def test_rng_free_parameters_equal_jax(n_clusters, zipf_a):
-    """The mass CDF and the eigenvalue profile ``lam`` equal the JAX
-    package's to 16 float32 ulps: a float32 cumsum over 262144 terms summed
-    in another order differs by up to ~10 ulps (5.4e-7)."""
+    """The mass CDF equals the JAX package's bit for bit (its prefix sums
+    and total in XLA's CPU order; one ulp would move rows across a cluster
+    boundary) and the eigenvalue profile ``lam`` to 16 float32 ulps (XLA's
+    and torch's ``exp`` round differently in the last bits)."""
     d = 32
     hc = make_hard_corpus(d=d, n_clusters=n_clusters, seed=0,
                           zipf_a=zipf_a, n_banks=4, device="cpu")
     j = j_make_hard_corpus(d=d, n_clusters=n_clusters, seed=0,
                            zipf_a=zipf_a, n_banks=4)
-    np.testing.assert_allclose(hc.params["mass_cdf"], j.params["mass_cdf"],
-                               rtol=16 * 2.0 ** -24, atol=0)
+    np.testing.assert_array_equal(hc.params["mass_cdf"], j.params["mass_cdf"])
     # chamjax/data/hard.py builds lam inside make_hard_corpus: the same
     # two lines in jnp
     rank = j.params["rank"]

@@ -182,21 +182,44 @@ def dual_pair():
 
 
 def test_dual_encoder_init_and_conversion(dual_pair):
-    """The port's own init: the JAX shapes and scales from a torch
-    generator (another stream); ``shared_towers`` starts both towers
-    equal; the converter copies every parameter."""
+    """The port's own init from a seed is the JAX package's from that seed,
+    bit for bit (both draw ``split(key(seed), 3)`` and a split a tower);
+    ``shared_towers`` starts both towers from the query tower's keys, as
+    there; the converter copies every parameter."""
+    from chamjax.ir import JaxDualEncoder
     j, t = dual_pair
     own = DualEncoder(vocab=512, dim=32, emb_dim=16, max_len=12, seed=4,
                       **CPU)
-    for name, p in own.named_parameters():
-        assert tuple(p.shape) == tuple(dict(t.named_parameters())[name].shape)
-    assert float(own.embed.detach().std()) == pytest.approx(16 ** -0.5,
-                                                     rel=0.1)
+    flat = jax.tree_util.tree_flatten_with_path(host(j.params))[0]
+    params = dict(own.named_parameters())
+    assert len(params) == len(flat)
+    for path, a in flat:
+        name = ".".join(k.key for k in path)
+        np.testing.assert_array_equal(params[name].detach().numpy(), a,
+                                      err_msg=name)
     shared = DualEncoder(vocab=64, dim=8, emb_dim=8, shared_towers=True,
                          **CPU)
+    j_shared = JaxDualEncoder(vocab=64, dim=8, emb_dim=8, shared_towers=True)
     assert torch.equal(shared.q.w1, shared.d.w1)
+    np.testing.assert_array_equal(shared.d.w2.detach().numpy(),
+                                  np.asarray(j_shared.params["d"]["w2"]))
     np.testing.assert_array_equal(t.q.w2.detach().numpy(),
                                   np.asarray(j.params["q"]["w2"]))
+
+
+def test_sparse_encoder_init_equals_chamjax():
+    """``SparseEncoder(seed)`` starts from the JAX package's parameters for
+    that seed, bit for bit (``split(key(seed))``: embed, head)."""
+    from chamjax.ir import JaxSparseEncoder
+    for seed in (3, 8):
+        j = JaxSparseEncoder(vocab=256, n_buckets=128, latent=16,
+                             max_len=12, seed=seed)
+        t = SparseEncoder(vocab=256, n_buckets=128, latent=16, max_len=12,
+                          seed=seed, **CPU)
+        for name in ("embed", "head"):
+            np.testing.assert_array_equal(getattr(t, name).detach().numpy(),
+                                          np.asarray(j.params[name]),
+                                          err_msg=name)
 
 
 def test_dual_encoder_encodings_equal_chamjax(dual_pair):

@@ -409,6 +409,41 @@ def test_sass_report_counts_bulk_copies_and_barriers():
         "LDGSTS.E.BYPASS.128": 1, "LDS": 1}
 
 
+def test_sass_report_sorts_integer_instructions_by_pipe():
+    """``pipe_counts``: integer-pipe and IMAD instructions, predicated or
+    not; float and special-function instructions are not counted."""
+    sass = """
+        Function : _Z6kernelv
+        /*0000*/                   IADD3 R2, R2, R3, RZ ;
+        /*0010*/                   SHF.L.W.U32.HI R3, R3, 0xd, R3 ;
+        /*0020*/              @!P0 LOP3.LUT R3, R3, R2, RZ, 0x3c, !PT ;
+        /*0030*/                   IMAD.IADD R2, R2, 0x1, R3 ;
+        /*0040*/                   IMAD.WIDE R4, R0, 0x4, R4 ;
+        /*0050*/                   FFMA R6, R6, R7, R8 ;
+        /*0060*/                   MUFU.LG2 R6, R6 ;
+    """
+    assert dict(sass_report.pipe_counts(sass)["_Z6kernelv"]) == {
+        "alu": 3, "imad": 2}
+
+
+def test_threefry_bound_counts_the_hash_operations():
+    """20 rounds (5 groups of the 4 rotations), each a funnel shift and an
+    xor on the integer pipe, plus bits1 ^ bits2: 41 an output, against
+    (41 + 32 adds) / 2 were the adds shared; the bytes bound a draw that
+    writes more than the hash can produce."""
+    from chamjax_torch import random as jr
+    assert bounds.THREEFRY_ROUNDS == 5 * len(jr._ROTATIONS[0])
+    assert (bounds.THREEFRY_INT_ONLY, bounds.THREEFRY_ADDS) == (41, 32)
+    n = 1 << 26
+    ms, by = bounds.threefry_bound(n, 4 * n)
+    assert by == "operations"
+    assert ms == pytest.approx(n * 41 / (H100.int32_tops * 1e12) * 1e3,
+                               rel=1e-12)
+    ms, by = bounds.threefry_bound(1, 1 << 30)
+    assert by == "bytes"
+    assert ms == pytest.approx((1 << 30) / (H100.hbm_gbps * 1e9) * 1e3)
+
+
 @pytest.mark.parametrize("variant,m,seg,want", [
     # LUT row + two 144-byte slot rows a code row (the narrowest item)
     ("f32", 16, 2048, 16 * 1024 + 2 * 16 * 144),

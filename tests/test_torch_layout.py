@@ -172,7 +172,7 @@ def test_import_leaves_jax_out():
             "chamjax_torch.utils, chamjax_torch.utils.results, "
             "chamjax_torch.utils.energy, chamjax_torch.eval.diagnose, "
             "chamjax_torch.benchmarks.profiling_stages, "
-            "chamjax_torch.native; "
+            "chamjax_torch.random, chamjax_torch.native; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'chamjax' "
             "or m.startswith('chamjax.')); print(bad); sys.exit(bool(bad))")
@@ -235,6 +235,15 @@ def test_entry_points_need_card_or_explicit_cpu(jax_index, no_card):
         synthetic_index(4096, 32, 8, 8, 512, True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         flagship_index(4096, 32, 8, 8, 512, True)
+    # the draws of chamjax_torch.random and the corpora built on them
+    from chamjax_torch import random as jr
+    from chamjax_torch.data import synthetic_dataset_device
+    from chamjax_torch.data.hard import make_hard_corpus
+    for draw in (lambda: jr.normal(0, (4,)), lambda: jr.randint(0, 4, 0, 9),
+                 lambda: synthetic_dataset_device(nb=64, nq=4, nt=64, d=8),
+                 lambda: make_hard_corpus(d=8, n_clusters=16)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            draw()
     # the HF classes refuse before they load a checkpoint (or transformers)
     from chamjax_torch.ir.dense import HFEncoder
     from chamjax_torch.ir.rerank import HFCrossEncoder

@@ -177,3 +177,23 @@ def test_llama_init_shapes():
     assert p.embed.dtype == torch.bfloat16
     assert float(p.layers.ln1.float().min()) == 1.0
     assert cfg.attention_heads % cfg.kv_heads == 0
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_init_from_a_seed_equals_chamjax(case):
+    """A seed gives the JAX package's Llama parameters bit for bit, with no
+    conversion: ``split(key, 8)`` and ``fold_in(key, 99)``, each normal
+    drawn at the target dtype (8 random bits for bf16) and scaled in it."""
+    shape = dict(SHAPE, **CASES[case])
+    jcfg, tcfg = jconfig.ModelConfig(**shape), tconfig.ModelConfig(**shape)
+    jp = jm.init_llama(jax.random.PRNGKey(13), jcfg)
+    tp = tl.init_llama(13, tcfg, device="cpu")
+    pairs = [("embed", jp["embed"], tp.embed),
+             ("ln_f", jp["ln_f"], tp.ln_f),
+             ("out_proj", jp["out_proj"], tp.out_proj)]
+    pairs += [(k, v, getattr(tp.layers, k)) for k, v in jp["layers"].items()]
+    for name, want, got in pairs:
+        assert got.dtype == getattr(torch, shape["dtype"]), name
+        np.testing.assert_array_equal(got.float().numpy(),
+                                      np.asarray(want, np.float32),
+                                      err_msg=name)

@@ -25,6 +25,7 @@ from chamjax import models as jm
 from chamjax.models import transformer as jt
 
 from chamjax_torch import config as tconfig
+from chamjax_torch import random as jr
 from chamjax_torch import models as tm
 from chamjax_torch.models import transformer as tt
 from chamjax_torch.models.convert import (decoder_from_numpy,
@@ -144,7 +145,7 @@ def test_prefill_step_consistency():
 
 def test_step_shapes_and_cache_growth():
     _, tcfg = cfgs("float32")
-    tp = tt.init_decoder(torch.Generator().manual_seed(4), tcfg, device="cpu")
+    tp = tt.init_decoder(jr.fold_in(4, 1), tcfg, device="cpu")
     cache = tm.init_kv_cache(tcfg, 4, device="cpu")
     lg, hid, cache = tm.decoder_step(tp, torch.zeros(4, dtype=torch.int32),
                                      cache, H)
@@ -310,3 +311,43 @@ def test_init_shapes_and_dtypes():
     again = tt.init_decoder(7, tcfg, device="cpu")
     assert torch.equal(again.layers.w1, tt.init_decoder(7, tcfg,
                                                         device="cpu").layers.w1)
+
+
+def tree_pairs(jp, tp, prefix=""):
+    """(name, chamjax array, port tensor) for every parameter of a
+    ``TransformerParams``."""
+    out = [(prefix + n, getattr(jp, n), getattr(tp, n))
+           for n in ("embed", "pos", "out_proj")]
+    out += [(prefix + "ln_f." + k, jp.ln_f[k], tp.ln_f[k])
+            for k in ("scale", "bias")]
+    for stack in ("layers", "cross_layers"):
+        j_stack = getattr(jp, stack)
+        if j_stack is None:
+            assert getattr(tp, stack) is None
+            continue
+        out += [(f"{prefix}{stack}.{k}", v, getattr(getattr(tp, stack), k))
+                for k, v in j_stack.items()]
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["decoder", "encoder-decoder"])
+def test_init_from_a_seed_equals_chamjax(kind, dtype):
+    """A seed gives the JAX package's initial parameters, every one bit for
+    bit (f32 draws cast to the config's dtype), with no conversion: both
+    draw ``split(key, 5)`` (decoder) or ``split(key)`` then ``split(k, 3)``
+    and ``split(k, 5)`` (encoder-decoder) from threefry."""
+    jcfg, tcfg = cfgs(dtype, model_type=kind, encoder_layers=2)
+    if kind == "decoder":
+        pairs = tree_pairs(jm.init_decoder(jax.random.PRNGKey(11), jcfg),
+                           tt.init_decoder(11, tcfg, device="cpu"))
+    else:
+        (je, jd), (te, td) = (
+            jm.init_encoder_decoder(jax.random.PRNGKey(11), jcfg),
+            tt.init_encoder_decoder(11, tcfg, device="cpu"))
+        pairs = tree_pairs(je, te, "enc.") + tree_pairs(jd, td, "dec.")
+    for name, want, got in pairs:
+        assert got.dtype == tt.dtype_of(tcfg), name
+        np.testing.assert_array_equal(got.float().numpy(),
+                                      np.asarray(want, np.float32),
+                                      err_msg=name)

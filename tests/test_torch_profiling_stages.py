@@ -147,3 +147,23 @@ def test_synthetic_index_layout(index):
         index.codes_tiled[1].numpy(), index.codes_t[:, seg:2 * seg].numpy())
     again = ps.synthetic_index(**SHAPE, tiled=True, device="cpu", seed=3)
     assert torch.equal(again.codes_t, index.codes_t)
+
+
+def test_synthetic_index_draws_the_reference_profiles(index):
+    """``--synthetic``'s index holds what ``benchmarks/profiling_stages.py``
+    draws for it from the same key: ``split(key, 4)`` gives the centroids,
+    the codebooks and the uint8 codes (``randint`` 0..256), bit for bit."""
+    import jax
+    import jax.numpy as jnp
+    ks = jax.random.split(jax.random.PRNGKey(3), 4)
+    m, d = SHAPE["m"], SHAPE["d"]
+    n_pad = index.codes_t.shape[1]
+    np.testing.assert_array_equal(
+        index.codes_t.numpy(),
+        np.asarray(jax.random.randint(ks[2], (m, n_pad), 0, 256, jnp.uint8)))
+    np.testing.assert_array_equal(
+        index.centroids.numpy(),
+        np.asarray(jax.random.normal(ks[0], (SHAPE["nlist"], d))))
+    np.testing.assert_array_equal(
+        index.codebooks.numpy(),
+        np.asarray(jax.random.normal(ks[1], (m, 256, d // m))))

@@ -149,7 +149,7 @@ def test_cuda_loader_layout():
     """Every kernel source is where the loader looks, and builds for
     sm_90a into the package's build directory."""
     assert cuda_lib.SOURCES == ("adc_scan_tiles", "adc_scan_flat",
-                                "adc_scan_variants")
+                                "adc_scan_variants", "threefry")
     for name in cuda_lib.SOURCES:
         src = (cuda_lib.CSRC_DIR / f"{name}.cu").read_text()
         assert cuda_lib.library_path(name).parent == cuda_lib.BUILD_DIR
@@ -175,6 +175,7 @@ def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
     for name in ("adc_scan_tiles", "adc_scan_flat", "adc_scan_variants"):
         assert after[name] != before[name], name
         assert after[name].parent == cuda_lib.BUILD_DIR
+    assert after["threefry"] == before["threefry"]    # includes no header
     src = csrc / "adc_scan_flat.cu"
     src.write_bytes(src.read_bytes() + b"\n")
     again = {n: cuda_lib.library_path(n) for n in cuda_lib.SOURCES}
