@@ -3,13 +3,15 @@ inputs of one call: the bytes the function needs (each input byte it
 depends on read once, each output byte written once) over the HBM rate,
 against its operations over the card's rate for their type
 (``perf_model.roofline_ms``): a scan's adds at the fp32 rate, the threefry
-hash's integer operations at the integer rate.  Where the work depends
+hash's integer operations at the integer rate (and a float draw's
+instructions at the issue rate, ``threefry_form_bound``).  Where the work depends
 on the data (window lengths, repeated tiles or LUT rows), the count is
 what these inputs need."""
 
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Dict, Tuple
 
 import torch
 
@@ -134,3 +136,83 @@ def threefry_bound(n: int, out_bytes: int, spec: GpuSpec = H100
                      (THREEFRY_INT_ONLY + THREEFRY_ADDS) / 2)
     return roofline_ms(out_bytes, n * per_output, spec,
                        tflops=spec.int32_tops)
+
+
+# The float work of an output of each form (csrc/threefry.cu, XLA's CPU
+# code), in FMA-pipe operations (adds, multiplies, fused multiply-adds)
+# and MUFU operations.  xla_log: the exponent as a float (2), t - 1,
+# e - small, t + t1, x2, x3, three quadratics (6), their combination (2),
+# e * q1 and its fma, the -x2/2 fma, t + y, the last fma: 20.  A correctly
+# rounded division: a MUFU reciprocal and 5 fmas (Newton step, quotient,
+# residual, correction); a square root: a MUFU reciprocal root and 3.
+_LOG_FMA = 20
+_DIV = (5, 1)
+_SQRT = (3, 1)
+# the uniform u of a normal is uniform on [-1, 1): log1p(-u^2) takes the
+# rational form where u^2 < sqrt(2) - 1, and erf_inv its tail where
+# w = -log1p(-u^2) >= 5, i.e. u^2 >= 1 - e^-5
+_P_LOG1P_SMALL = math.sqrt(math.sqrt(2.0) - 1.0)
+_P_ERFINV_TAIL = 1.0 - math.sqrt(1.0 - math.exp(-5.0))
+
+
+def _normal_ops(uniform: int) -> Tuple[float, float]:
+    small = 17 + _DIV[0]          # x^2, two Horner sums (12), x * x2, the
+    large = 1 + _LOG_FMA          # ratio's multiply, fma, add; or 1 + x
+    log1p = _P_LOG1P_SMALL * small + (1 - _P_LOG1P_SMALL) * large
+    erfinv = 9 + _P_ERFINV_TAIL * _SQRT[0]      # w - c and 8 fmas
+    fma = uniform + 1 + log1p + erfinv + 3      # -u*u; p*u, *sqrt2, *scale
+    mufu = _P_LOG1P_SMALL * _DIV[1] + _P_ERFINV_TAIL * _SQRT[1]
+    return fma, mufu
+
+
+# form -> (FMA-pipe operations, MUFU operations) an output, beyond the hash
+THREEFRY_FLOAT_OPS: Dict[str, Tuple[float, float]] = {
+    "u32": (0, 0), "u16": (0, 0), "u8": (0, 0),
+    "uniform_f32": (2, 0),        # f - 1, the fma
+    "uniform_bf16": (3, 0),       # f - 1, f * span, + lo
+    "normal_f32": _normal_ops(2),
+    "normal_bf16": _normal_ops(3),
+    "gumbel_f32": (2 + 2 * _LOG_FMA, 0),
+}
+
+
+def threefry_form_bound(n: int, out_bytes: int, form: str,
+                        spec: GpuSpec = H100) -> Dict:
+    """The least time for a threefry draw of ``n`` outputs in ``form``,
+    from the work the function needs, whatever the compiler emits.  Each
+    of these bounds it from below; the largest is the bound:
+
+    - ``bytes``: ``out_bytes`` written at the HBM rate;
+    - ``integer pipe``: the hash's 41 operations an output that only the
+      integer pipe runs (``THREEFRY_INT_ONLY``), 64 lanes an SM a clock;
+    - ``FMA pipe``: the form's float operations (``THREEFRY_FLOAT_OPS``)
+      and the hash's 32 adds as IMADs beside them, at the float32 lanes'
+      rate (128 an SM a clock, ``spec.f32_tflops / 2`` operations);
+    - ``MUFU``: the reciprocals of the normal's divisions and square
+      roots, 16 lanes an SM a clock;
+    - ``issue``: every one of those instructions, at the 4
+      warp-instructions an SM a clock its schedulers issue (128 lanes, the
+      float32 lanes' rate).
+
+    The normal's branches count what a uniform draw takes on average:
+    64.4% of outputs take log1p's rational form, 0.34% erf_inv's tail.
+    Returns the per-output counts, each term's ms, ``bound_ms``,
+    ``bound_by`` ("bytes" or "operations") and ``limit`` (the term's
+    name)."""
+    fma, mufu = THREEFRY_FLOAT_OPS[form]
+    lanes = spec.f32_tflops / 2 * 1e12          # lane-operations a second
+    per = dict(int_only=THREEFRY_INT_ONLY, adds=THREEFRY_ADDS, float=fma,
+               mufu=mufu)
+    terms = {
+        "bytes": out_bytes / (spec.hbm_gbps * 1e9) * 1e3,
+        "integer pipe": n * THREEFRY_INT_ONLY / (spec.int32_tops * 1e12)
+        * 1e3,
+        "FMA pipe": n * (fma + THREEFRY_ADDS) / lanes * 1e3,
+        "MUFU": n * mufu / (spec.int32_tops / 4 * 1e12) * 1e3,
+        "issue": n * (THREEFRY_INT_ONLY + THREEFRY_ADDS + fma + mufu)
+        / lanes * 1e3,
+    }
+    limit = max(terms, key=terms.get)
+    return dict(per_output=per, terms_ms=terms, bound_ms=terms[limit],
+                bound_by="bytes" if limit == "bytes" else "operations",
+                limit=limit)

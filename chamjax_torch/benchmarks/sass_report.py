@@ -67,20 +67,33 @@ def parse_sass(text: str) -> Dict[str, collections.Counter]:
     return out
 
 
-# the two issue pipes of Hopper's integer instructions, 64 lanes an SM a
-# clock each: the integer pipe (add, logic, shift and funnel shift,
-# compare, select) and the FMA pipe's integer multiply-add
+# Hopper's instructions by the pipe that runs them: the integer pipe (add,
+# logic, shift and funnel shift, compare, select; 64 lanes an SM a clock),
+# the FMA pipe's integer multiply-add (64 lanes), its float32 arithmetic
+# (``fp32``: the FMA pipes' 128 lanes, with the float compares, selects and
+# min/max beside them), the special-function unit (``mufu``: reciprocal,
+# root, log2, exp2; 16 lanes) and the conversions (``conv``)
 PIPES = {
     "alu": ("IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "ISETP",
             "SEL", "LEA", "IMNMX", "PRMT", "IABS", "PLOP3", "BMSK", "VIADD"),
     "imad": ("IMAD", "IMUL"),
+    "fp32": ("FFMA", "FADD", "FMUL", "FMNMX", "FSETP", "FSEL", "FSET",
+             "FCHK", "FRND"),
+    "mufu": ("MUFU",),
+    "conv": ("I2F", "I2FP", "F2I", "F2F", "F2FP"),
 }
 _PIPE_OF = {op: pipe for pipe, ops in PIPES.items() for op in ops}
+# the funnel shifts that rotate (``__funnelshift_l(x, x, r)``): threefry's
+# 20 rounds each take one, so their count over 20 is the hashes a kernel's
+# code holds
+ROTATE = "SHF.L.W"
 
 
 def pipe_counts(text: str) -> Dict[str, collections.Counter]:
-    """{mangled kernel name: Counter of its instructions by issue pipe
-    (``PIPES``)}: static counts, each instruction once as written."""
+    """{mangled kernel name: Counter of its instructions by pipe
+    (``PIPES``), ``all`` its instructions but NOPs, and ``rotations`` its
+    funnel-shift rotations (``ROTATE``)}: static counts, each instruction
+    once as written."""
     out: Dict[str, collections.Counter] = {}
     current = None
     for line in text.splitlines():
@@ -89,11 +102,29 @@ def pipe_counts(text: str) -> Dict[str, collections.Counter]:
             current = out.setdefault(f.group(1), collections.Counter())
             continue
         i = _INSTR.search(line)
-        if current is not None and i:
-            pipe = _PIPE_OF.get(i.group(1).split(".")[0])
-            if pipe:
-                current[pipe] += 1
+        if current is None or not i:
+            continue
+        op = i.group(1)
+        kind = op.split(".")[0]
+        if kind != "NOP":
+            current["all"] += 1
+        pipe = _PIPE_OF.get(kind)
+        if pipe:
+            current[pipe] += 1
+        if op.startswith(ROTATE):
+            current["rotations"] += 1
     return out
+
+
+def per_hash(counts: Dict[str, int], rounds: int = 20) -> Dict[str, float]:
+    """A threefry kernel's instructions by pipe over the hashes its code
+    holds (``rotations / rounds``): for a kernel whose code is hashes and
+    what they feed, the instructions an output costs, its share of the
+    loop's other work included."""
+    hashes = counts.get("rotations", 0) / rounds
+    if not hashes:
+        return {}
+    return {k: v / hashes for k, v in counts.items() if k != "rotations"}
 
 
 def library_pipe_counts(lib: str) -> Dict[str, Dict[str, int]]:

@@ -155,18 +155,21 @@ def assign_balanced(
 def _kmeanspp_init(x: torch.Tensor, k: int, key: jr.Key) -> torch.Tensor:
     """k-means++ (D²-sampling) seeding, the JAX package's draws: the first
     centre ``randint(key, (), 0, n)``, centre ``i`` the argmax of
-    ``log(D²) + gumbel(fold_in(key, i))`` (the Gumbel-max trick)."""
+    ``log(D²) + gumbel(fold_in(key, i))`` (the Gumbel-max trick,
+    ``random.gumbel_argmax``: on a card one fused launch a step, the index
+    left on the card, so no step waits on the host)."""
     n, d = x.shape
+    key = jr.as_key(key)
     first = jr.randint(key, (), 0, n, device=x.device)
-    c0 = x[first.long()]
-    min_d = torch.sum((x - c0) ** 2, dim=1)
+    c = x.index_select(0, first.reshape(1).long())
+    min_d = torch.sum((x - c) ** 2, dim=1)
     cents = torch.empty((k, d), dtype=x.dtype, device=x.device)
-    cents[0] = c0
+    cents[0] = c[0]
+    scratch = jr.argmax_scratch(x.device)
     for i in range(1, k):
-        logits = torch.log(torch.clamp(min_d, min=1e-30))
-        g = jr.gumbel(jr.fold_in(key, i), (n,), device=x.device)
-        c = x[torch.argmax(logits + g)]
-        cents[i] = c
+        idx = jr.gumbel_argmax(key, i, min_d, scratch=scratch)
+        c = x.index_select(0, idx.reshape(1))
+        cents[i] = c[0]
         min_d = torch.minimum(min_d, torch.sum((x - c) ** 2, dim=1))
     return cents
 

@@ -22,7 +22,10 @@ numpy ``uint32[2]``; an int is accepted wherever a key is and means
 pass and the float forms run in the hand-written kernel
 ``chamjax_torch/csrc/threefry.cu`` (:func:`threefry_draw`), one launch a
 draw; the sorts of ``permutation`` and the modular arithmetic of
-``randint`` are torch ops on its bits.  On the CPU the same functions run
+``randint`` are torch ops on its bits.  k-means++'s Gumbel-max step
+(:func:`gumbel_argmax`) is a second entry point of the same source: one
+launch folds the key, draws the gumbels in registers and reduces to the
+argmax on the card.  On the CPU the same functions run
 the plain version (:func:`threefry_draw_reference`): torch ops on int32
 words (torch's uint32 lacks them), whose adds wrap as uint32's do.  A
 float form that passes through ``log`` or ``erf_inv`` depends on 23
@@ -150,17 +153,15 @@ def _s32(v: int) -> int:
     return v - (1 << 32) if v >> 31 else v
 
 
-def _threefry_words(k0: int, k1: int, start: int, n: int,
-                    device: torch.device) -> torch.Tensor:
-    """``bits1 ^ bits2`` of counters ``start .. start + n - 1`` as int32
-    bits: threefry2x32 in torch int32 ops, whose adds wrap as uint32's do;
-    a logical right shift is the arithmetic one masked."""
-    lo = torch.arange(n, dtype=torch.int64, device=device).add_(start & MASK)
-    hi = ((lo >> 32) + (start >> 32)).bitwise_and_(MASK)
+def _threefry_pair(k0: int, k1: int, hi: torch.Tensor, lo: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """threefry2x32's output pair of the counter words ``(hi, lo)`` (int64
+    tensors of uint32 values) under key ``(k0, k1)``, as int32 bits: torch
+    int32 ops, whose adds wrap as uint32's do; a logical right shift is the
+    arithmetic one masked."""
     ks = (_s32(k0), _s32(k1), _s32(k0 ^ k1 ^ _PARITY))
     x0 = hi.to(torch.int32).add_(ks[0])
-    x1 = lo.bitwise_and_(MASK).to(torch.int32).add_(ks[1])
-    del hi, lo
+    x1 = lo.to(torch.int32).add_(ks[1])
     for i in range(5):
         for r in _ROTATIONS[i % 2]:
             x0.add_(x1)
@@ -168,7 +169,31 @@ def _threefry_words(k0: int, k1: int, start: int, n: int,
             x1.bitwise_left_shift_(r).bitwise_or_(low).bitwise_xor_(x0)
         x0.add_(ks[(i + 1) % 3])
         x1.add_(_s32(ks[(i + 2) % 3] + i + 1))
+    return x0, x1
+
+
+def _threefry_words(k0: int, k1: int, start: int, n: int,
+                    device: torch.device) -> torch.Tensor:
+    """``bits1 ^ bits2`` of counters ``start .. start + n - 1`` as int32
+    bits."""
+    lo = torch.arange(n, dtype=torch.int64, device=device).add_(start & MASK)
+    hi = ((lo >> 32) + (start >> 32)).bitwise_and_(MASK)
+    x0, x1 = _threefry_pair(k0, k1, hi, lo.bitwise_and_(MASK))
+    del hi, lo
     return x0.bitwise_xor_(x1)
+
+
+def fold_in_reference(k: Key, data: torch.Tensor) -> torch.Tensor:
+    """The plain version of the fold that the Gumbel-max kernel runs on the
+    card: ``fold_in(k, d)`` for each uint32 ``d`` of ``data`` (an integer
+    tensor), as ``(len(data), 2)`` int64 words: the output pair of counter
+    ``(0, d)``."""
+    kk = as_key(k)
+    lo = data.to(torch.int64).reshape(-1)
+    if lo.numel() and (int(lo.min()) < 0 or int(lo.max()) > MASK):
+        raise ValueError("fold_in data must be uint32")
+    x0, x1 = _threefry_pair(int(kk[0]), int(kk[1]), torch.zeros_like(lo), lo)
+    return torch.stack([x0, x1], dim=1).to(torch.int64) & MASK
 
 
 def _bf16_round(x: torch.Tensor) -> torch.Tensor:
@@ -540,6 +565,91 @@ def gumbel(k: Key, shape: Shape = (), device=None) -> torch.Tensor:
     return threefry_draw(k, math.prod(shape), "gumbel_f32",
                          **draw_params("gumbel_f32"),
                          device=device).reshape(shape)
+
+
+# the Gumbel-max step's logit floor, as the reference clamps D² before log
+_LOGIT_FLOOR = 1e-30
+
+
+def gumbel_argmax_reference(k: Key, step: int, d: torch.Tensor
+                            ) -> torch.Tensor:
+    """The plain version of :func:`gumbel_argmax`: the chain of torch ops,
+    ``argmax(log(clamp(d, 1e-30)) + gumbel(fold_in(k, step), (n,)))``
+    (0-d int64, the lowest index on ties), on ``d``'s device."""
+    logits = torch.log(torch.clamp(d, min=_LOGIT_FLOOR))
+    g = gumbel(fold_in(k, step), (d.numel(),), device=d.device)
+    return torch.argmax(logits + g)
+
+
+def argmax_scratch(device) -> torch.Tensor:
+    """Scratch for :func:`gumbel_argmax` on ``device``: two zeroed int64
+    words, which each launch leaves zeroed, so a loop allocates it once.
+    One stream at a time may use a scratch."""
+    return torch.zeros(2, dtype=torch.int64, device=resolve_device(device))
+
+
+def gumbel_argmax(k: Key, step: int, d: torch.Tensor, *,
+                  scratch: torch.Tensor = None) -> torch.Tensor:
+    """One step of k-means++'s D² sampling by the Gumbel-max trick:
+    ``argmax_j log(max(d_j, 1e-30)) + gumbel(fold_in(k, step), (n,))_j``
+    as a 0-d int64 tensor on ``d``'s device, the lowest ``j`` on ties.
+
+    On a card: one launch of ``csrc/threefry.cu``'s fused step (or
+    raises), which folds the key, draws the gumbels and reduces them in
+    registers, and leaves the index on the card; ``d`` is a contiguous
+    float32 vector of 1 to 2**32 - 1 entries, and ``scratch``
+    (:func:`argmax_scratch`) is allocated here where not given.  On the
+    CPU: :func:`gumbel_argmax_reference`."""
+    kk = as_key(k)
+    step = int(step)
+    if not 0 <= step <= MASK:
+        raise ValueError(f"step {step} must be a uint32")
+    if d.dim() != 1 or not 1 <= d.numel() <= MASK:
+        raise ValueError(f"d must be a vector of 1 to 2**32 - 1 entries, "
+                         f"got shape {tuple(d.shape)}")
+    if d.device.type == "cpu":
+        return gumbel_argmax_reference(kk, step, d)
+    if d.device.type != "cuda":
+        raise ValueError(f"gumbel_argmax: unsupported device {d.device}")
+    if d.dtype != torch.float32 or not d.is_contiguous():
+        raise ValueError("gumbel_argmax: d must be contiguous float32 on "
+                         "the card")
+    if scratch is None:
+        scratch = argmax_scratch(d.device)
+    if (scratch.dtype != torch.int64 or scratch.numel() != 2
+            or scratch.device != d.device):
+        raise ValueError("gumbel_argmax: scratch must be two int64 words on "
+                         "d's device (argmax_scratch)")
+    p = draw_params("gumbel_f32")
+    out = torch.empty((), dtype=torch.int64, device=d.device)
+    lib = cuda_lib.load("threefry")
+    with torch.cuda.device(d.device):
+        stream = torch.cuda.current_stream(d.device).cuda_stream
+        err = lib.chamjax_threefry_gumbel_argmax(
+            d.data_ptr(), d.numel(), int(kk[0]), int(kk[1]), step, p["lo"],
+            p["span"], scratch.data_ptr(), out.data_ptr(), stream)
+    cuda_lib.check(lib, err, "threefry_gumbel_argmax")
+    cuda_lib.launch_counts["threefry_gumbel_argmax"] += 1
+    return out
+
+
+def logit_on_card(d: torch.Tensor) -> torch.Tensor:
+    """``log(max(d, 1e-30))`` as the fused step computes its logit (CUDA's
+    ``logf``), for the check that it equals ``torch.log`` on the card bit
+    for bit; ``d`` contiguous float32 on a card."""
+    if d.device.type != "cuda" or d.dtype != torch.float32 \
+            or not d.is_contiguous():
+        raise ValueError("logit_on_card: d must be contiguous float32 on a "
+                         "card")
+    out = torch.empty_like(d)
+    lib = cuda_lib.load("threefry")
+    with torch.cuda.device(d.device):
+        stream = torch.cuda.current_stream(d.device).cuda_stream
+        err = lib.chamjax_threefry_logit(d.data_ptr(), d.numel(),
+                                         out.data_ptr(), stream)
+    cuda_lib.check(lib, err, "threefry_logit")
+    cuda_lib.launch_counts["threefry_logit"] += 1
+    return out
 
 
 def _words32(k: Key, n: int, device) -> torch.Tensor:

@@ -56,6 +56,9 @@ SIGNATURES = {
     "threefry": {
         "chamjax_threefry": (
             [_VP, _I64, _U64, _U32, _U32, _I, _F, _F, _F, _VP], _I),
+        "chamjax_threefry_gumbel_argmax": (
+            [_VP, _I64, _U32, _U32, _U32, _F, _F, _VP, _VP, _VP], _I),
+        "chamjax_threefry_logit": ([_VP, _I64, _VP, _VP], _I),
     },
 }
 
@@ -139,9 +142,12 @@ def load(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     lib.chamjax_cuda_error_string.argtypes = [ctypes.c_int]
     lib.chamjax_cuda_error_string.restype = ctypes.c_char_p
+    # an earlier source directory (benchmarks/threefry_timing.py's
+    # baseline) may lack a later entry point: a call to it then fails
     for fn, (argtypes, restype) in SIGNATURES.get(name, {}).items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = restype
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
     return lib
 
 

@@ -47,18 +47,27 @@ Phases (any failure exits non-zero and prints no result):
      bits at 32/16/8, float32 and bfloat16 uniforms and normals, the
      gumbel) over 2^26 outputs whose counters start above 2^32, bit for
      bit against its plain version (the ulp bar of the float32 normal and
-     gumbel is 0), its bound from the integer operations the hash needs
-     (the compiler's SASS counts beside it), beside ``torch.randint`` /
-     ``rand`` / ``randn`` of the same shape; ``randint``, ``permutation`` (two and three sort rounds) and
-     ``choice`` on the card equal to the CPU's plain draws; each launch of
-     the flagship's xb draw at its shape.
+     gumbel is 0), its float-aware bound and the integer pipe's
+     (``benchmarks/bounds.py``; every kernel's SASS by pipe beside them),
+     beside ``torch.randint`` / ``rand`` / ``randn`` of the same shape;
+     the fused Gumbel-max step (``chamjax_threefry_gumbel_argmax``) at
+     n = 100,000 and 2^26, 64 steps each equal to the unfused chain
+     (clamp, log, gumbel, add, argmax), timed beside it and beside
+     ``torch.multinomial``, and its logit equal to ``torch.log`` at every
+     float32 input; ``randint``, ``permutation`` (two and three sort
+     rounds) and ``choice`` on the card equal to the CPU's plain draws;
+     each launch of the flagship's xb draw at its shape.
 3. The main path: ``synthetic_dataset_device`` (1M x 128, 4096 clusters,
    seed 42) drawn on the card by the threefry kernel and held to
    ``FLAGSHIP_FINGERPRINT`` (the JAX package's own draw of it: shapes,
    float64 sums within 1e-6 of the sum of |x|, the first and last 4 rows
    within 1e-4), then pulled to the host; the counts set to 0 just before
-   the draw and read after the build (``threefry`` must launch)
-   → ``build_ivfpq`` (OPQ16 + IVF4096 + PQ16, hard-balanced) →
+   the draw and read after the build (both threefry kernels must
+   launch: the bulk draws, and the fused Gumbel-max step once a k-means++
+   step) → ``build_ivfpq`` (OPQ16 + IVF4096 + PQ16, hard-balanced; its
+   k-means++ seeding timed inside it between two syncs, then run again
+   traced — device time, idle share, events a step — and again with each
+   of its 4095 fused indices held against the unfused chain's) →
    ``compute_ground_truth`` (256 queries) → ``IVFSearcher.search``
    (seg=512, group=8, nprobe=32, k=100, packed-bf16 LUTs).  R@1/10/100,
    the points that overflowed every candidate cell and ``n_pad`` are
@@ -1398,7 +1407,8 @@ def main_path(dev):
                       balance_factor=512 * nlist / nb)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with warnings.catch_warnings(record=True) as caught:
+    with warnings.catch_warnings(record=True) as caught, \
+            timed_seeding() as seeding:
         warnings.simplefilter("always")
         idx = build_ivfpq(ds.xb, cfg, xt=ds.xt, kmeans_iters=10,
                           pq_iters=10, device=dev)
@@ -1406,15 +1416,18 @@ def main_path(dev):
     t_build = time.perf_counter() - t0
     draw_launches = dict(cuda_lib.launch_counts)
     n_over = overflowed(caught)
+    bulk = draw_launches.get("threefry", 0)
+    fused = draw_launches.get("threefry_gumbel_argmax", 0)
     log(f"dataset drawn on the card in {t_data:.2f} s (= chamjax's draw: "
         f"FLAGSHIP_FINGERPRINT held), pulled to the host in {t_pull:.2f} s; "
         f"build {t_build:.1f} s, max list {int(idx.list_len.max())}, cap "
         f"{int(np.ceil(nb / cfg.nlist * cfg.balance_factor))}, overflowed "
-        f"{n_over}, n_pad {idx.n_pad}; threefry launches "
-        f"{draw_launches.get('threefry', 0)}")
-    if draw_launches.get("threefry", 0) < 1:
-        raise AssertionError(f"the flagship draw did not launch threefry: "
-                             f"{draw_launches}")
+        f"{n_over}, n_pad {idx.n_pad}; threefry launches: bulk {bulk}, "
+        f"fused Gumbel-max {fused}")
+    if bulk < 1 or fused < 1:
+        raise AssertionError(f"the flagship draw and build did not launch "
+                             f"both threefry kernels: {draw_launches}")
+    seeding = seeding_phase(seeding, t_build)
     if int(idx.list_len.sum()) != nb:
         raise AssertionError("index lost rows")
     t0 = time.perf_counter()
@@ -1550,7 +1563,106 @@ def main_path(dev):
             corpus="synthetic_dataset_device(**FLAGSHIP) on the card = "
                    "chamjax's (FLAGSHIP_FINGERPRINT)",
             reference_record_bench_r05=BENCH_R05,
-            launches_draw_and_build=draw_launches))
+            launches_draw_and_build=draw_launches, seeding=seeding))
+
+
+@contextlib.contextmanager
+def timed_seeding():
+    """Within the block, ``index/kmeans.py::_kmeanspp_init`` runs between
+    two device syncs: yields a dict that gathers each call's wall seconds
+    (``wall_s``), its arguments and its centroids."""
+    import importlib
+    import torch
+    kmeans = importlib.import_module("chamjax_torch.index.kmeans")
+    inner = kmeans._kmeanspp_init
+    rec = dict(wall_s=[], calls=[])
+
+    def timed(x, k, key):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cents = inner(x, k, key)
+        torch.cuda.synchronize()
+        rec["wall_s"].append(time.perf_counter() - t0)
+        rec["calls"].append((x, k, key, cents))
+        return cents
+
+    kmeans._kmeanspp_init = timed
+    try:
+        yield rec
+    finally:
+        kmeans._kmeanspp_init = inner
+
+
+def seeding_steps_differ(x, k, key) -> int:
+    """The seeding over ``x`` again, each step's fused Gumbel-max index
+    held against the unfused chain's (``gumbel_argmax_reference``) on the
+    card and the seeding continued from the fused one: the steps whose
+    indices differ (one host read, at the end), and the centroids."""
+    import torch
+    from chamjax_torch import random as jr
+    key = jr.as_key(key)
+    first = jr.randint(key, (), 0, x.shape[0], device=x.device)
+    c = x.index_select(0, first.reshape(1).long())
+    min_d = torch.sum((x - c) ** 2, dim=1)
+    cents = [c]
+    scratch = jr.argmax_scratch(x.device)
+    differ = torch.zeros((), dtype=torch.int64, device=x.device)
+    for i in range(1, k):
+        idx = jr.gumbel_argmax(key, i, min_d, scratch=scratch)
+        differ += idx != jr.gumbel_argmax_reference(key, i, min_d)
+        c = x.index_select(0, idx.reshape(1))
+        cents.append(c)
+        min_d = torch.minimum(min_d, torch.sum((x - c) ** 2, dim=1))
+    return int(differ), torch.cat(cents)
+
+
+def seeding_phase(rec, t_build) -> dict:
+    """The flagship build's k-means++ seeding (``timed_seeding``): its wall
+    time inside the build and its share; the same seeding again under
+    ``torch.profiler`` (device time, the idle share, kernels a step, the
+    kernels by device time); and again with every step's fused index held
+    against the unfused chain's (all 4095 steps equal, the centroids equal
+    to the build's).  Raises where they differ."""
+    import torch
+    from chamjax_torch.index.kmeans import _kmeanspp_init
+    if len(rec["calls"]) != 1:
+        raise AssertionError(f"the flagship build seeded "
+                             f"{len(rec['calls'])} times, not once")
+    x, k, key, cents = rec["calls"][0]
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        again = _kmeanspp_init(x, k, key)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    kernels, copies = device_events(prof, "")
+    busy_ms = busy_us(kernels + copies) / 1e3
+    by_name = collections.Counter()
+    for e in kernels + copies:
+        by_name[e.name[:80]] += e.time_range.elapsed_us() / 1e3
+    differ, chain_cents = seeding_steps_differ(x, k, key)
+    if differ or not torch.equal(chain_cents, cents) or not torch.equal(
+            again, cents):
+        raise AssertionError(f"the seeding's fused Gumbel-max differs from "
+                             f"the chain at {differ} of {k - 1} steps, or "
+                             f"its centroids from the build's")
+    line = dict(steps=k - 1, rows=x.shape[0], wall_s=rec["wall_s"][0],
+                build_s=t_build, share_of_build=rec["wall_s"][0] / t_build,
+                traced_window_ms=window_ms, device_busy_ms=busy_ms,
+                idle_share=1.0 - busy_ms / window_ms,
+                device_events_per_step=(len(kernels) + len(copies))
+                / (k - 1),
+                top_device_ms={n: v for n, v in by_name.most_common(6)},
+                fused_equal_chain_steps=k - 1)
+    log(f"seeding inside the flagship build: {line['wall_s']:.3f} s of "
+        f"{t_build:.2f} s ({line['share_of_build']:.1%}); traced again "
+        f"{window_ms:.1f} ms, device busy {busy_ms:.1f} ms (idle "
+        f"{line['idle_share']:.1%}), {line['device_events_per_step']:.2f} "
+        f"device events a step; the fused index equals the chain's at all "
+        f"{k - 1} steps")
+    return line
 
 
 def diagnose(name, s, xq, gt, res):
@@ -2014,6 +2126,10 @@ THREEFRY_START = (1 << 32) + 12345   # their counters: the hi word set
 # the samplers' sizes: the flagship's randint chunk, the hard corpus's
 # choice over 2^20 rows (two sort rounds), a permutation of three rounds
 THREEFRY_SAMPLER_N = (1_000_000, 1 << 20, 2_700_000)
+# the fused Gumbel-max step: the flagship's seeding width (all of xt) and
+# phase 2's draws; steps held against the chain at each
+ARGMAX_N = (100_000, 1 << 26)
+ARGMAX_STEPS = 64
 # the flagship's draw (synthetic_dataset_device(**FLAGSHIP)): an xb chunk
 # is two 32-bit draws (randint), the latent normal and the scaled noise
 FLAGSHIP_DRAWS = (("u32", (1_000_000,), 1.0),
@@ -2057,7 +2173,8 @@ def threefry_row(dev, form, n, *, start=0, scale=1.0, bounds=(0.0, 1.0)):
     and the library call of the same shape."""
     import torch
     from chamjax_torch import random as jr
-    from chamjax_torch.benchmarks.bounds import threefry_bound
+    from chamjax_torch.benchmarks.bounds import (threefry_bound,
+                                                 threefry_form_bound)
     key = jr.fold_in(jr.key(42), 7)
     kw = jr.draw_params(form, *bounds, scale=scale)
 
@@ -2080,49 +2197,140 @@ def threefry_row(dev, form, n, *, start=0, scale=1.0, bounds=(0.0, 1.0)):
     del got, want
     ms = device_ms(call)
     plain_ms = time_ms(plain, reps=5, warmup=1)
-    bound_ms, bound_by = threefry_bound(n, out_bytes)
+    int_ms, _ = threefry_bound(n, out_bytes)
+    fb = threefry_form_bound(n, out_bytes, form)
     lib = threefry_library(form, (n,), dev)
     library_ms = device_ms(lib) if lib is not None else None
     row = dict(form=form, n=n, start=start, scale=scale, differing=differ,
-               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-               bound_by=bound_by, library_ms=library_ms)
+               max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               bound_ms=fb["bound_ms"], bound_by=fb["bound_by"],
+               bound_limit=fb["limit"], bound_terms_ms=fb["terms_ms"],
+               bound_ms_integer=int_ms, share_of_bound=fb["bound_ms"] / ms,
+               share_of_integer_bound=int_ms / ms, library_ms=library_ms)
     log(f"threefry {form} n={n} start={start}: bit-equal to the plain "
         f"version; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}), library {library_ms} ms")
+        f"{fb['bound_ms']:.4f} ms ({fb['limit']}; integer pipe "
+        f"{int_ms:.4f}), library {library_ms} ms")
     return row
 
 
-def threefry_phase(dev):
-    """Phase 2, the threefry kernel: every form over 2^26 outputs whose
-    counters start above 2^32, bit for bit against its plain version on
-    the card (float32 normal and gumbel too: the ulp bar is 0), timed
-    beside its bound (the integer operations the hash needs at the card's
-    integer rate, against the bytes written; the raw-bits kernel's SASS
-    counts by pipe beside it, as what the compiler emitted) and beside the
-    ``torch.randint`` / ``rand`` / ``randn`` call of the same shape; then
-    the samplers built on its bits (``randint`` at the flagship's chunk,
-    ``permutation`` in two and three rounds, ``choice``) on the card
-    against the plain versions on the CPU; then each launch of the
-    flagship's xb draw at its shape.  Returns the rows, or raises."""
+def threefry_sass():
+    """The threefry library's SASS by pipe (``sass_report.pipe_counts``:
+    integer, IMAD, fp32, mufu, conversions, all), each kernel's static
+    counts and the counts over the hashes its code holds (``per_hash``:
+    for a draw, the instructions an output costs).  Keys: the form's name,
+    ``gumbel_argmax`` and ``logit``."""
+    from chamjax_torch import random as jr
+    from chamjax_torch.benchmarks.sass_report import (library_pipe_counts,
+                                                      per_hash)
+    out = {}
+    for name, counts in library_pipe_counts("threefry").items():
+        m = re.search(r"threefry_kernel(?:ILi(\d+)EE|<(?:\(int\))?(\d+)>)",
+                      name)
+        if m:
+            key = jr.FORMS[int(m.group(1) or m.group(2))]
+        elif "gumbel_argmax" in name:
+            key = "gumbel_argmax"
+        elif "logit" in name:
+            key = "logit"
+        else:
+            key = name
+        out[key] = dict(static=counts, per_hash=per_hash(counts))
+    return out
+
+
+def logit_check(dev) -> dict:
+    """The fused step's logit (CUDA's ``logf`` of max(d, 1e-30),
+    ``random.logit_on_card``) against ``torch.log(torch.clamp(d, 1e-30))``
+    on the card over every float32 bit pattern, 2^26 at a time: equal bits
+    (nan where nan).  Raises on a difference."""
     import torch
     from chamjax_torch import random as jr
-    from chamjax_torch.benchmarks.bounds import (THREEFRY_ADDS,
-                                                 THREEFRY_INT_ONLY)
-    from chamjax_torch.benchmarks.sass_report import library_pipe_counts
-    kernels = library_pipe_counts("threefry")
-    log(f"threefry SASS by pipe: {kernels}")
-    # the raw 32-bit form (kBits32 = 0): the hash and the store alone,
-    # its integer instructions an output against the bound's
-    bits32 = re.compile(r"threefry_kernel(?:ILi0E|<(?:\(int\))?0>)")
-    pipes = next(v for k, v in kernels.items() if bits32.search(k))
-    per_output = max(THREEFRY_INT_ONLY,
-                     (THREEFRY_INT_ONLY + THREEFRY_ADDS) / 2)
-    log(f"threefry raw bits: {pipes} instructions an output emitted, "
-        f"{per_output} on the busier pipe in the bound")
+    differ, step = 0, 1 << 26
+    for s0 in range(0, 1 << 32, step):
+        d = (torch.arange(s0, s0 + step, dtype=torch.int64, device=dev)
+             .to(torch.int32).view(torch.float32))
+        got = jr.logit_on_card(d)
+        want = torch.log(torch.clamp(d, min=1e-30))
+        same = (bit_view(got) == bit_view(want)) | (
+            torch.isnan(got) & torch.isnan(want))
+        differ += int((~same).sum())
+    if differ:
+        raise AssertionError(f"the fused step's logf differs from torch.log "
+                             f"on the card at {differ} of 2^32 inputs")
+    log("threefry gumbel_argmax: its logit equals torch.log on the card at "
+        "every float32 input")
+    return dict(inputs=1 << 32, differing=differ)
+
+
+def argmax_row(dev, n: int) -> dict:
+    """The fused Gumbel-max step (``random.gumbel_argmax``) at ``n`` rows
+    beside the unfused chain (``gumbel_argmax_reference``: the bulk gumbel,
+    clamp, log, add, argmax): ``ARGMAX_STEPS`` steps over one D² vector,
+    each index equal to the chain's; both timed (``device_ms``), the bound
+    (the gumbel draw's work, ``threefry_form_bound``, and the distances
+    read: the logit's log and the reduction are not counted), and
+    ``torch.multinomial(d, 1)`` (D² sampling by the library, its own
+    stream; at most 2^24 categories) as the library call."""
+    import torch
+    from chamjax_torch import random as jr
+    from chamjax_torch.benchmarks.bounds import threefry_form_bound
+    g = torch.Generator(device=dev)
+    g.manual_seed(n)
+    d = torch.rand(n, generator=g, device=dev).pow_(3).mul_(400.0)
+    scratch = jr.argmax_scratch(dev)
+    got = torch.stack([jr.gumbel_argmax(13, i, d, scratch=scratch)
+                       for i in range(1, ARGMAX_STEPS + 1)])
+    torch.cuda.synchronize()
+    want = torch.stack([jr.gumbel_argmax_reference(13, i, d)
+                        for i in range(1, ARGMAX_STEPS + 1)])
+    differ = int((got != want).sum())
+    if differ:
+        raise AssertionError(f"threefry gumbel_argmax n={n}: {differ} of "
+                             f"{ARGMAX_STEPS} steps differ from the chain")
+    ms = device_ms(lambda: jr.gumbel_argmax(13, 1, d, scratch=scratch))
+    chain_ms = device_ms(lambda: jr.gumbel_argmax_reference(13, 1, d))
+    fb = threefry_form_bound(n, 4 * n, "gumbel_f32")
+    library_ms = (device_ms(lambda: torch.multinomial(d, 1))
+                  if n <= 1 << 24 else None)
+    log(f"threefry gumbel_argmax n={n}: {ARGMAX_STEPS} steps equal to the "
+        f"chain; fused {ms:.4f} ms, chain {chain_ms:.4f} ms, bound "
+        f"{fb['bound_ms']:.4f} ms ({fb['limit']}), torch.multinomial "
+        f"{library_ms} ms")
+    return dict(n=n, steps=ARGMAX_STEPS, differing=differ, ms=ms,
+                plain_ms=chain_ms, bound_ms=fb["bound_ms"],
+                bound_by=fb["bound_by"], bound_limit=fb["limit"],
+                share_of_bound=fb["bound_ms"] / ms, library_ms=library_ms,
+                library="torch.multinomial(d, 1)")
+
+
+def threefry_phase(dev):
+    """Phase 2, the threefry kernels: every form over 2^26 outputs whose
+    counters start above 2^32, bit for bit against its plain version on
+    the card (float32 normal and gumbel too: the ulp bar is 0), timed
+    beside its bounds (the float-aware bound, ``threefry_form_bound``, and
+    the integer pipe's, ``threefry_bound``; each kernel's SASS by pipe
+    beside them, as what the compiler emitted) and beside the
+    ``torch.randint`` / ``rand`` / ``randn`` call of the same shape; the
+    fused Gumbel-max step against the unfused chain at n = 100,000 (the
+    flagship's seeding) and 2^26, and its logit against ``torch.log`` at
+    every float32 input; then the samplers built on its bits (``randint``
+    at the flagship's chunk, ``permutation`` in two and three rounds,
+    ``choice``) on the card against the plain versions on the CPU; then
+    each launch of the flagship's xb draw at its shape.  Returns the rows,
+    or raises."""
+    import torch
+    from chamjax_torch import random as jr
+    sass = threefry_sass()
+    for name, c in sass.items():
+        log(f"threefry SASS {name}: static {c['static']}, over its hashes "
+            f"{ {k: round(v, 2) for k, v in c['per_hash'].items()} }")
     forms = [threefry_row(dev, form, THREEFRY_N, start=THREEFRY_START,
                           bounds=(-3.0, 5.5) if form.startswith("uniform")
                           else (0.0, 1.0))
              for form in jr.FORMS]
+    logit = logit_check(dev)
+    argmax = [argmax_row(dev, n) for n in ARGMAX_N]
     samplers = {}
     n1, n2, n3 = THREEFRY_SAMPLER_N
     for name, draw in (
@@ -2146,7 +2354,7 @@ def threefry_phase(dev):
     flagship = [threefry_row(dev, form, math.prod(shape), scale=scale)
                 for form, shape, scale in FLAGSHIP_DRAWS]
     return dict(forms=forms, samplers=samplers, flagship=flagship,
-                sass_per_output=pipes, bound_ops_per_output=per_output)
+                argmax=argmax, logit=logit, sass=sass)
 
 
 def device_events(prof, annotation: str):
@@ -4761,26 +4969,43 @@ def run_smoke(t_smoke, dev, corpus_job) -> int:
             full_width_counterpart=fw["counterpart"],
             full_width_counterpart_ms=fw["counterpart_ms"], options=rows))
     # the draws: no Pallas kernel on the TPU (XLA generates threefry2x32);
-    # the row's times are the flagship's largest draw (its 1M x 128 noise)
+    # the row's times are the flagship's largest draw (its 1M x 128 noise);
+    # launches split into the bulk draws and the fused Gumbel-max steps of
+    # the build's k-means++ (its times in "fused", at the flagship's width)
     noise = threefry["flagship"][-1]
+    launches = {k: main["draw_launches"].get(k, 0)
+                for k in ("threefry", "threefry_gumbel_argmax")}
+    fused = threefry["argmax"][0]
     kernels.append(dict(
         name="threefry", route="cuda",
         source="chamjax_torch/csrc/threefry.cu",
         replaces="jax/_src/prng.py:1184",
         replaces_note="XLA's threefry2x32 and jax/_src/random.py's "
                       "samplers; no pallas_call on the TPU",
-        launches=main["draw_launches"].get("threefry", 0),
+        launches=sum(launches.values()),
+        launches_bulk=launches["threefry"],
+        launches_fused=launches["threefry_gumbel_argmax"],
         max_abs_err=max(r["max_abs_err"]
                         for r in threefry["forms"] + threefry["flagship"]),
         ms=noise["ms"], plain_ms=noise["plain_ms"],
         bound_ms=noise["bound_ms"], bound_by=noise["bound_by"],
+        bound_limit=noise["bound_limit"],
+        bound_ms_integer=noise["bound_ms_integer"],
         library_ms=noise["library_ms"], library="torch.randn",
         path="main path: the flagship draw and the build's k-means++",
+        fused=dict(name="threefry_gumbel_argmax",
+                   entry="chamjax_threefry_gumbel_argmax",
+                   launches=launches["threefry_gumbel_argmax"],
+                   max_abs_err=0.0, ms=fused["ms"],
+                   plain_ms=fused["plain_ms"], bound_ms=fused["bound_ms"],
+                   bound_by=fused["bound_by"],
+                   library_ms=fused["library_ms"],
+                   library=fused["library"], rows=threefry["argmax"],
+                   seeding=main["line"]["seeding"],
+                   logit_check=threefry["logit"]),
         flagship_xb_chunk_ms=sum(r["ms"] for r in threefry["flagship"]),
         flagship_draws=threefry["flagship"], options=threefry["forms"],
-        samplers=threefry["samplers"],
-        sass_per_output=threefry["sass_per_output"],
-        bound_ops_per_output=threefry["bound_ops_per_output"]))
+        samplers=threefry["samplers"], sass=threefry["sass"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     # busy_share divides by the profiled window, which the profiler
     # stretches; busy_share_unprofiled divides the same kernel time a

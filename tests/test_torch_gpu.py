@@ -1592,3 +1592,120 @@ def test_threefry_empty_draw_launches_nothing(cuda_device):
     cuda_lib.launch_counts.clear()
     out = jr.normal(0, (0, 5), device=cuda_device)
     assert out.shape == (0, 5) and cuda_lib.launch_counts["threefry"] == 0
+
+
+# the redesigned draw's runs (4, 8 or 16 outputs a thread): starts whose
+# runs cross 2**32 in the middle (the carrying loop), the last counters,
+# and lengths that are not a multiple of a run
+RUN_STARTS = [(1 << 32) - 1, (1 << 32) - 7, (1 << 32) - 13]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 7, (1 << 20) + 3])
+@pytest.mark.parametrize("start", RUN_STARTS + ["last"])
+@pytest.mark.parametrize("form", jr.FORMS)
+def test_threefry_runs_bit_equal_on_card(cuda_device, form, start, n):
+    """Every form, bit-equal to the plain version, where a thread's run of
+    counters crosses 2**32, up to the last counter 2**64 - 1, and at
+    lengths that leave a ragged run."""
+    start = (1 << 64) - n if start == "last" else start
+    lo, hi = THREEFRY_BOUNDS.get(form, (0.0, 1.0))
+    kw = jr.draw_params(form, lo, hi, scale=0.5 if "normal" in form
+                        else 1.0)
+    key = jr.fold_in(3, 17)
+    got = jr.threefry_draw(key, n, form, start=start, device=cuda_device,
+                           **kw)
+    torch.cuda.synchronize()
+    want = jr.threefry_draw_reference(key, n, form, start=start,
+                                      device=cuda_device, **kw)
+    assert torch.equal(_bitwise(got), _bitwise(want))
+
+
+@pytest.mark.gpu
+def test_gumbel_argmax_equals_chain_on_card(cuda_device):
+    """The fused Gumbel-max step picks the chain's index (clamp, log,
+    gumbel, add, argmax) at 64 steps over n = 100,000 rows of D², as the
+    seeding updates them, one launch a step."""
+    from chamjax_torch.utils import cuda_lib
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(0)
+    x = torch.randn(100_000, 16, generator=g, device=cuda_device)
+    min_d = torch.sum((x - x[:1]) ** 2, dim=1)
+    scratch = jr.argmax_scratch(cuda_device)
+    cuda_lib.launch_counts.clear()
+    for i in range(1, 65):
+        idx = jr.gumbel_argmax(21, i, min_d, scratch=scratch)
+        want = jr.gumbel_argmax_reference(21, i, min_d)
+        assert idx.dtype == torch.int64 and idx.shape == ()
+        assert int(idx) == int(want), i
+        c = x.index_select(0, idx.reshape(1))
+        min_d = torch.minimum(min_d, torch.sum((x - c) ** 2, dim=1))
+    assert cuda_lib.launch_counts["threefry_gumbel_argmax"] == 64
+    assert torch.equal(scratch.cpu(), torch.zeros(2, dtype=torch.int64))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fill", [float("inf"), float("nan")])
+def test_gumbel_argmax_ties_on_card(cuda_device, fill):
+    """Equal largest values, within one block and across blocks: the
+    lowest index, as on the CPU."""
+    d = torch.ones(300_001, device=cuda_device)
+    d[[250_000, 1_000, 77_777, 299_999]] = fill
+    for step in (1, 9):
+        assert int(jr.gumbel_argmax(2, step, d)) == 1_000
+        assert int(jr.gumbel_argmax_reference(2, step, d)) == 1_000
+    # an odd length and a start off 16 bytes: the scalar loads
+    e = d[1:100_004]
+    assert int(jr.gumbel_argmax(2, 3, e)) == 999
+
+
+@pytest.mark.gpu
+def test_gumbel_argmax_logit_is_torch_log_on_card(cuda_device):
+    """The fused step's logit (CUDA's logf of max(d, 1e-30)) equals
+    torch.log(torch.clamp(d, 1e-30)) on the card bit for bit, over 2**24
+    float bit patterns spread over every exponent, and at 0, the floor,
+    the subnormals, +inf and nan."""
+    bits = torch.arange(0, 1 << 24, device=cuda_device,
+                        dtype=torch.int64) * 127 + 5
+    d = (bits & 0x7FFFFFFF).to(torch.int32).view(torch.float32)
+    d = torch.cat([d, torch.tensor([0.0, 1e-30, 1e-45, 1e-38, 1.0,
+                                    float("inf"), float("nan")],
+                                   device=cuda_device)])
+    got = jr.logit_on_card(d)
+    want = torch.log(torch.clamp(d, min=1e-30))
+    assert torch.equal(_bitwise(got), _bitwise(want))
+
+
+@pytest.mark.gpu
+def test_kmeanspp_fused_launches_and_no_host_sync_on_card(cuda_device):
+    """k-means++ on the card launches the fused step k - 1 times and no
+    bulk gumbel, reads nothing back to the host (it runs under
+    set_sync_debug_mode("error")), and seeds the centroids the chain of
+    torch ops seeds."""
+    import importlib
+    kmeans = importlib.import_module("chamjax_torch.index.kmeans")
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(1)
+    x = torch.randn(20_000, 32, generator=g, device=cuda_device)
+    k = 65
+    kmeans._kmeanspp_init(x, 9, jr.key(4))          # load the kernels
+    torch.cuda.synchronize()
+    cuda_lib.launch_counts.clear()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cents = kmeans._kmeanspp_init(x, k, jr.key(4))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts["threefry_gumbel_argmax"] == k - 1
+    assert cuda_lib.launch_counts["threefry"] == 2          # randint
+    key = jr.key(4)
+    first = jr.randint(key, (), 0, x.shape[0], device=cuda_device)
+    c = x[first.long()]
+    min_d = torch.sum((x - c) ** 2, dim=1)
+    want = [c]
+    for i in range(1, k):
+        c = x[jr.gumbel_argmax_reference(key, i, min_d)]
+        want.append(c)
+        min_d = torch.minimum(min_d, torch.sum((x - c) ** 2, dim=1))
+    assert torch.equal(cents, torch.stack(want))

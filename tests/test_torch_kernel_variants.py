@@ -410,8 +410,9 @@ def test_sass_report_counts_bulk_copies_and_barriers():
 
 
 def test_sass_report_sorts_integer_instructions_by_pipe():
-    """``pipe_counts``: integer-pipe and IMAD instructions, predicated or
-    not; float and special-function instructions are not counted."""
+    """``pipe_counts``: integer-pipe, IMAD, float32 and special-function
+    instructions by pipe, predicated or not, every instruction but NOPs,
+    and the funnel-shift rotations (threefry's hashes a kernel holds)."""
     sass = """
         Function : _Z6kernelv
         /*0000*/                   IADD3 R2, R2, R3, RZ ;
@@ -421,9 +422,11 @@ def test_sass_report_sorts_integer_instructions_by_pipe():
         /*0040*/                   IMAD.WIDE R4, R0, 0x4, R4 ;
         /*0050*/                   FFMA R6, R6, R7, R8 ;
         /*0060*/                   MUFU.LG2 R6, R6 ;
+        /*0070*/                   NOP ;
     """
     assert dict(sass_report.pipe_counts(sass)["_Z6kernelv"]) == {
-        "alu": 3, "imad": 2}
+        "alu": 3, "imad": 2, "fp32": 1, "mufu": 1, "all": 7,
+        "rotations": 1}
 
 
 def test_threefry_bound_counts_the_hash_operations():
@@ -442,6 +445,42 @@ def test_threefry_bound_counts_the_hash_operations():
     ms, by = bounds.threefry_bound(1, 1 << 30)
     assert by == "bytes"
     assert ms == pytest.approx((1 << 30) / (H100.hbm_gbps * 1e9) * 1e3)
+
+
+@pytest.mark.parametrize("form,nbytes,limit", [
+    ("u32", 4, "integer pipe"), ("u8", 1, "integer pipe"),
+    ("uniform_f32", 4, "integer pipe"), ("uniform_bf16", 2, "integer pipe"),
+    ("normal_f32", 4, "issue"), ("normal_bf16", 2, "issue"),
+    ("gumbel_f32", 4, "issue")])
+def test_threefry_form_bound_at_phase_two(form, nbytes, limit):
+    """The float-aware bound at phase 2's 2**26 outputs: the raw bits and
+    uniforms stay bound by the integer pipe's 41 operations an output; a
+    normal (its branches weighted as a uniform draw takes them) and a
+    gumbel (two logs of 20 operations and the uniform's 2) by issue: the
+    hash's 41 + 32 and the float work, 128 lanes an SM a clock."""
+    n = 1 << 26
+    r = bounds.threefry_form_bound(n, nbytes * n, form)
+    lanes = H100.f32_tflops / 2 * 1e12
+    assert r["limit"] == limit and r["bound_by"] == "operations"
+    assert r["terms_ms"]["integer pipe"] == pytest.approx(
+        bounds.threefry_bound(n, nbytes * n)[0], rel=1e-12)
+    assert r["terms_ms"]["bytes"] == pytest.approx(
+        nbytes * n / (H100.hbm_gbps * 1e9) * 1e3)
+    fma, mufu = {"u32": (0, 0), "u8": (0, 0), "uniform_f32": (2, 0),
+                 "uniform_bf16": (3, 0), "gumbel_f32": (42, 0)}.get(
+                     form, (None, None))
+    if form.startswith("normal"):
+        small, tail = 0.6435942529056, 0.0033746676906   # u² < √2-1; w ≥ 5
+        fma = ((2 if form == "normal_f32" else 3) + 1
+               + small * 22 + (1 - small) * 21 + 9 + tail * 3 + 3)
+        mufu = small + tail
+    assert r["per_output"]["float"] == pytest.approx(fma, rel=1e-8)
+    assert r["per_output"]["mufu"] == pytest.approx(mufu, rel=1e-8)
+    assert r["terms_ms"]["issue"] == pytest.approx(
+        n * (41 + 32 + fma + mufu) / lanes * 1e3, rel=1e-8)
+    assert r["bound_ms"] == max(r["terms_ms"].values())
+    assert (r["bound_ms"] > bounds.threefry_bound(n, nbytes * n)[0]) == (
+        limit == "issue")
 
 
 @pytest.mark.parametrize("variant,m,seg,want", [

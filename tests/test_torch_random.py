@@ -227,6 +227,81 @@ def test_draw_rejects_bad_forms():
 
 
 # ---------------------------------------------------------------------------
+# the fused Gumbel-max step of k-means++ (its plain version; the kernel is
+# held against it on the card in tests/test_torch_gpu.py)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_fold_reference_is_fold_in(seed):
+    """The fold the Gumbel-max kernel runs on the card (its plain version)
+    equals ``jax.random.fold_in`` for data up to 2**32 - 1."""
+    data = np.array([0, 1, 2, 7, 4095, 65536, 2**31 - 1, 2**31, 2**32 - 2,
+                     2**32 - 1], np.uint32)
+    k = jax.random.PRNGKey(seed)
+    want = np.stack([np.asarray(jax.random.fold_in(k, int(v)))
+                     for v in data]).astype(np.int64)
+    got = jr.fold_in_reference(seed, torch.from_numpy(data.astype(np.int64)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        got.numpy(), np.stack([jr.fold_in(seed, int(v)) for v in data]))
+
+
+@pytest.fixture(scope="module")
+def argmax_steps():
+    """300 Gumbel-max steps of chamjax's own expression over rows of D²
+    (n 97, some rows below the 1e-30 floor, one exactly 0 in each)."""
+    n, steps = 97, 300
+    rng = np.random.default_rng(3)
+    d = (rng.gamma(2.0, 1.0, (steps, n)) ** 3).astype(np.float32)
+    d[:, ::11] *= np.float32(1e-34)
+    d[:, 5] = 0.0
+    key = jax.random.PRNGKey(11)
+
+    @jax.jit
+    def step(i, row):
+        g = jax.random.gumbel(jax.random.fold_in(key, i), (n,))
+        return jnp.argmax(jnp.log(jnp.maximum(row, 1e-30)) + g)
+
+    want = np.asarray(jax.vmap(step)(jnp.arange(1, steps + 1,
+                                                dtype=jnp.uint32), d))
+    return d, want
+
+
+def test_gumbel_argmax_reference_is_chamjax(argmax_steps):
+    """The plain version of the fused step picks chamjax's index at every
+    one of 300 steps."""
+    d, want = argmax_steps
+    got = [int(jr.gumbel_argmax(11, i + 1, torch.from_numpy(row)))
+           for i, row in enumerate(d)]
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("fill", [float("inf"), float("nan")])
+def test_gumbel_argmax_tie_takes_the_lowest_index(fill):
+    """Equal largest values (+inf logits, or nan, which argmax takes as
+    the largest) return the lowest index, as ``jnp.argmax`` does."""
+    d = torch.ones(40)
+    d[[9, 3, 31]] = fill
+    for step in (1, 2, 4095):
+        assert int(jr.gumbel_argmax(5, step, d)) == 3
+        want = jnp.argmax(jnp.log(jnp.maximum(jnp.asarray(d.numpy()), 1e-30))
+                          + jax.random.gumbel(jax.random.fold_in(
+                              jax.random.PRNGKey(5), step), (40,)))
+        assert int(want) == 3
+
+
+def test_gumbel_argmax_rejects_bad_arguments():
+    with pytest.raises(ValueError, match="step"):
+        jr.gumbel_argmax(0, 2**32, torch.ones(4))
+    with pytest.raises(ValueError, match="vector"):
+        jr.gumbel_argmax(0, 1, torch.ones(2, 2))
+    with pytest.raises(ValueError, match="vector"):
+        jr.gumbel_argmax(0, 1, torch.ones(0))
+    with pytest.raises(ValueError, match="uint32"):
+        jr.fold_in_reference(0, torch.tensor([-1]))
+
+
+# ---------------------------------------------------------------------------
 # synthetic_dataset_device and the flagship's fingerprint
 # ---------------------------------------------------------------------------
 
