@@ -9,8 +9,9 @@ baseline, learned sparse search, and a rerank stage.  The same surface as
 the JAX package, with two renames: ``JaxDualEncoder`` is
 :class:`DualEncoder` and ``JaxSparseEncoder`` is :class:`SparseEncoder`
 (``nn.Module``s trained with autograd and ``torch.optim.Adam``).  The
-classes that load published weights (``HFEncoder``, ``HFCrossEncoder``,
-``QueryGenerator``) are not ported yet.
+classes that load published weights through ``transformers`` are in their
+modules, as in the JAX package: ``dense.HFEncoder``,
+``rerank.HFCrossEncoder`` and ``train.QueryGenerator``.
 """
 
 from chamjax_torch.ir.dataloader import GenericDataLoader       # noqa: F401

@@ -637,6 +637,12 @@ def check_tp(params: TPParams, cache, heads: int, batch: int) -> None:
     if len(cache.k) != params.dp or len(cache.k[0]) != params.tp:
         raise ValueError(f"a {len(cache.k)}×{len(cache.k[0])} cache for a "
                          f"{params.dp}×{params.tp} grid")
+    check_split(params, heads, batch)
+
+
+def check_split(params: TPParams, heads: int, batch: int) -> None:
+    """Raise unless the heads split over ``params``' tp positions and the
+    batch over its dp rows."""
     if heads % params.tp or batch % params.dp:
         raise ValueError(f"{heads} heads and a batch of {batch} do not "
                          f"split over tp={params.tp}, dp={params.dp}")

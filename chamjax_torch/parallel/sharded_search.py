@@ -201,17 +201,29 @@ def captures(mesh: Mesh) -> bool:
     return mesh.one_device and mesh.device_at().type == "cuda"
 
 
+def _shard_window_budget(windows: int, windows_shard: int, nprobe: int,
+                         group: int) -> int:
+    """A shard's window budget for the seg routes.
+
+    By default (``windows_shard=0``) the full global budget: foreign lists
+    have length 0 and so no windows, so a shard's demand for a query is a
+    subset of the global demand and never truncates more than the global
+    search would.  A smaller budget drops the last windows of queries whose
+    probes fall on one shard (lists go to shards by size, not locality);
+    ``windows_shard`` sets it, trading that risk for a smaller scan a shard
+    where the build is balanced (every list one segment: demand ≤
+    nprobe)."""
+    if windows_shard:
+        return max(group, windows_shard)
+    return max(group, windows, nprobe)
+
+
 @fp32_matmul()
 def _search_impl(sh, queries, *, mesh, axis, batch_axis, nprobe, k,
-                 scan_len, windows, seg, group, by_residual,
+                 scan_len, windows, windows_shard, seg, group, by_residual,
                  use_approx, backend, lut_bf16, select_l1, lane_l1,
                  coarse_cand):
-    # the full global window budget on every shard: foreign lists have
-    # length 0 and so no windows, so a shard's demand for a query is a
-    # subset of the global demand and never truncates more than the global
-    # search would; a divided budget would drop windows of queries whose
-    # probes fall on one shard (lists go to shards by size, not locality)
-    w_sh = max(group, windows, nprobe)
+    w_sh = _shard_window_budget(windows, windows_shard, nprobe, group)
     rows = mesh.shape[batch_axis] if batch_axis else 1
     S = mesh.shape[axis]
     bl = queries.shape[0] // rows
@@ -290,6 +302,7 @@ def sharded_search(
     k: int,
     scan_len: int = 0,
     windows: int = 0,
+    windows_shard: int = 0,
     seg: int = 512,
     group: int = 8,
     by_residual: bool = True,
@@ -307,11 +320,13 @@ def sharded_search(
     the merge is an exact top-k over the gathered ``S·k`` candidates.  A
     tiled ``ShardedIVF`` runs ``backend="seg"`` on the tiled scan
     (``adc_scan_tiles``); ``"pallas"`` and ``"xla"`` need the flat layout
-    and raise ``ValueError`` on a tiled-only index.  ``use_approx`` keeps
-    the JAX package's contract; selection is exact."""
+    and raise ``ValueError`` on a tiled-only index.  ``windows_shard``
+    sets each shard's window budget on the seg routes (0: the full budget,
+    :func:`_shard_window_budget`); ``"pallas"`` and ``"xla"`` ignore it.
+    ``use_approx`` keeps the JAX package's contract; selection is exact."""
     return _search(sh, queries, mesh=mesh, batch_axis=None, axis=axis,
                    nprobe=nprobe, k=k, scan_len=scan_len, windows=windows,
-                   seg=seg, group=group,
+                   windows_shard=windows_shard, seg=seg, group=group,
                    by_residual=by_residual, use_approx=use_approx,
                    backend=backend, lut_bf16=lut_bf16, select_l1=select_l1,
                    lane_l1=lane_l1, coarse_cand=coarse_cand)
@@ -328,6 +343,7 @@ def sharded_search_2d(
     k: int,
     scan_len: int = 0,
     windows: int = 0,
+    windows_shard: int = 0,
     seg: int = 512,
     group: int = 8,
     by_residual: bool = True,
@@ -345,7 +361,7 @@ def sharded_search_2d(
     the rows in order, on the queries' device."""
     return _search(sh, queries, mesh=mesh, batch_axis=batch_axis, axis=axis,
                    nprobe=nprobe, k=k, scan_len=scan_len, windows=windows,
-                   seg=seg, group=group,
+                   windows_shard=windows_shard, seg=seg, group=group,
                    by_residual=by_residual, use_approx=use_approx,
                    backend=backend, lut_bf16=lut_bf16, select_l1=select_l1,
                    lane_l1=lane_l1, coarse_cand=coarse_cand)

@@ -34,13 +34,14 @@ import torch
 from chamjax_torch.config import ModelConfig
 from chamjax_torch.models import (
     KVCache,
-    TransformerParams,
     decoder_step,
     encoder_forward,
     init_kv_cache,
 )
 from chamjax_torch.models.llama import init_llama_kv_cache, llama_step
-from chamjax_torch.models.transformer import build_cross_kv, reset_cache
+from chamjax_torch.models.transformer import (TPParams, build_cross_kv,
+                                              check_split, leaves,
+                                              reset_cache)
 from chamjax_torch.retrieval.interface import BaseRetriever
 from chamjax_torch.serving.profiling import StepProfiler
 from chamjax_torch.utils import graphs
@@ -103,9 +104,10 @@ def first_tokens(batch: int, device) -> torch.Tensor:
 
 def _fill_cross_kv(enc, dec, ret_tokens, out, heads) -> None:
     """Encode the retrieved tokens and write the decoder's cross K/V into
-    the buffers ``out`` in place."""
-    for buf, new in zip(out, build_cross_kv(
-            dec, encoder_forward(enc, ret_tokens, heads), heads)):
+    the buffers ``out`` in place, leaf by leaf (one pair, or one a grid
+    position on tensor-parallel parameters)."""
+    for buf, new in zip(leaves(out), leaves(build_cross_kv(
+            dec, encoder_forward(enc, ret_tokens, heads), heads))):
         buf.copy_(new)
 
 
@@ -116,52 +118,75 @@ def _fill_cross_kv_from_ids(enc, dec, ids, out, heads, tokens_per_doc,
 
 
 class CrossKV:
-    """An encoder-decoder batch's cross-attention K/V: two fixed buffers
-    (graph state) that a retrieval step refills in place and the decode
-    step's graph reads, and the graphs that refill them."""
+    """An encoder-decoder batch's cross-attention K/V: fixed buffers (graph
+    state) that a retrieval step refills in place and the decode step's
+    graph reads, and the graphs that refill them.
 
-    def __init__(self, enc: TransformerParams, dec: TransformerParams,
-                 cfg: ModelConfig, tokens_per_doc: int):
+    On ``TransformerParams`` the buffers are one (layers, b, s, h, hd) K/V
+    pair; on ``TPParams`` they take ``build_cross_kv``'s layout there: a
+    ``[i][j]`` grid of (layers, b/dp, s, h/tp, hd) K and V, each on
+    position (i, j)'s device.  A refill is one graph where every position
+    lies on one device, and runs eagerly where they span devices."""
+
+    def __init__(self, enc, dec, cfg: ModelConfig, tokens_per_doc: int):
         self.enc, self.dec, self.cfg = enc, dec, cfg
         self.tokens_per_doc = tokens_per_doc
         self.kv = None
         self.graphs = graphs.Graphs()
 
     def _buffers(self, b: int, s: int):
-        cfg, w = self.cfg, self.dec.cross_layers.wkv
+        cfg, dec = self.cfg, self.dec
         h = cfg.attention_heads
-        shape = (cfg.layers, b, s, h, cfg.embed_dim // h)
-        if self.kv is None or self.kv[0].shape != shape:
-            self.kv = graphs.state(
-                *(torch.zeros(shape, dtype=w.dtype, device=w.device)
-                  for _ in range(2)))
+        if isinstance(dec, TPParams):
+            check_split(dec, h, b)
+            shape = (cfg.layers, b // dec.dp, s, h // dec.tp,
+                     cfg.embed_dim // h)
+            like = tuple(tuple(r.cwk for r in row) for row in dec.rank_grid)
+        else:
+            shape = (cfg.layers, b, s, h, cfg.embed_dim // h)
+            like = dec.cross_layers.wkv
+
+        def zeros(w):
+            if isinstance(w, torch.Tensor):
+                return graphs.state(torch.zeros(shape, dtype=w.dtype,
+                                                device=w.device))
+            return tuple(zeros(x) for x in w)
+        if self.kv is None or leaves(self.kv)[0].shape != shape:
+            self.kv = (zeros(like), zeros(like))
         return self.kv
+
+    def _refill(self, fn, *args) -> None:
+        if any(isinstance(p, TPParams) and not p.one_device
+               for p in (self.enc, self.dec)):
+            with graphs.disable_capture():    # one graph cannot span devices
+                fn(*args)
+        else:
+            graphs.call(self.graphs, fn, *args)
 
     def from_ids(self, ids: torch.Tensor):
         """Refill from retrieved ids on the device (token synthesis,
         encoder and K/V in one graph); returns the buffers."""
         cfg = self.cfg
         s = min(ids.shape[1] * self.tokens_per_doc, cfg.max_seq_len)
-        graphs.call(self.graphs, _fill_cross_kv_from_ids, self.enc,
-                    self.dec, ids, self._buffers(ids.shape[0], s),
-                    cfg.attention_heads, self.tokens_per_doc,
-                    cfg.vocab_size, cfg.max_seq_len)
+        self._refill(_fill_cross_kv_from_ids, self.enc, self.dec, ids,
+                     self._buffers(ids.shape[0], s), cfg.attention_heads,
+                     self.tokens_per_doc, cfg.vocab_size, cfg.max_seq_len)
         return self.kv
 
     def from_tokens(self, ret_tokens: torch.Tensor):
         """Refill from retrieved tokens (the host path); returns the
         buffers."""
-        graphs.call(self.graphs, _fill_cross_kv, self.enc, self.dec,
-                    ret_tokens, self._buffers(*ret_tokens.shape),
-                    self.cfg.attention_heads)
+        self._refill(_fill_cross_kv, self.enc, self.dec, ret_tokens,
+                     self._buffers(*ret_tokens.shape),
+                     self.cfg.attention_heads)
         return self.kv
 
 
-def _block(t: torch.Tensor) -> None:
-    """Wait for ``t`` (``block_until_ready``): on the host-retriever path
-    only."""
-    if t.is_cuda:
-        torch.cuda.synchronize(t.device)
+def _block(t) -> None:
+    """Wait for ``t``, a tensor or nested tuples of them
+    (``block_until_ready``): on the host-retriever path only."""
+    for device in {x.device for x in leaves(t) if x.is_cuda}:
+        torch.cuda.synchronize(device)
 
 
 def _finish(device: torch.device) -> None:
@@ -277,12 +302,15 @@ class RalmDecoder:
 
 class RalmEncoderDecoder:
     """Encoder-decoder RALM loop (reference ``ralmEncoderDecoder``).  Runs
-    on the parameters' device."""
+    on the parameters' device.  Over tensor-parallel parameters
+    (``shard_decoder_params`` of both models) the caller shards the cache
+    too (``loop.cache = shard_kv_cache(loop.cache, mesh)``), as the
+    reference's tests do."""
 
     def __init__(
         self,
-        enc_params: TransformerParams,
-        dec_params: TransformerParams,
+        enc_params,
+        dec_params,
         cfg: ModelConfig,
         retriever: BaseRetriever,
         batch_size: int,
@@ -344,7 +372,7 @@ class RalmEncoderDecoder:
             )[:, : self.cfg.max_seq_len]).to(self.device)
             with self.prof.model_span():
                 self.cross_kv = self._cross.from_tokens(ret_tokens)
-                _block(self.cross_kv[0])
+                _block(self.cross_kv)
         self.last_result = res
 
     def single_step(self) -> None:

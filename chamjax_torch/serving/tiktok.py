@@ -33,8 +33,7 @@ import numpy as np
 import torch
 
 from chamjax_torch.config import ModelConfig
-from chamjax_torch.models import (TransformerParams, decoder_step,
-                                  encoder_forward)
+from chamjax_torch.models import decoder_step, encoder_forward
 from chamjax_torch.models.transformer import reset_cache
 from chamjax_torch.retrieval.interface import BaseRetriever
 from chamjax_torch.serving.profiling import StepProfiler
@@ -224,12 +223,13 @@ class TikTokEncoderDecoder(_Scheduler):
     ``ralmTikTokEncoderDecoder``): the retrieval step is split so that
     encoding the query, the retrieval, and encoding the retrieved tokens
     for cross-attention all overlap the other micro-batch's decode steps.
-    Runs on the decoder parameters' device."""
+    Runs on the decoder parameters' device; over tensor-parallel
+    parameters the caller shards each state's cache (``shard_kv_cache``)."""
 
     def __init__(
         self,
-        enc_params: TransformerParams,
-        dec_params: TransformerParams,
+        enc_params,
+        dec_params,
         cfg: ModelConfig,
         retriever: BaseRetriever,
         batch_size: int,

@@ -2436,6 +2436,34 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cudaMemsetAsync")
 
 
+def traced_kernels(fn, n: int, annotation: str) -> dict:
+    """Trace ``n`` calls of ``fn`` (after one untraced call): the union of
+    their kernels' device time a call and the six kernel names that took
+    the most, with their ms and launches a call."""
+    import os
+    import torch
+    from chamjax_torch.utils import tracing
+    fn()
+    torch.cuda.synchronize()
+    log_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "chamjax_torch", "build", "traces")
+    with tracing.trace(log_dir) as prof:
+        with tracing.annotate(annotation):
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+    kernels, _ = device_events(prof, annotation)
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        by_name[e.name][0] += e.time_range.elapsed_us() / 1e3 / n
+        by_name[e.name][1] += 1 / n
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    return dict(kernel_ms=busy_us(kernels) / 1e3 / n,
+                kernels=len(kernels) / n,
+                top_kernels=[dict(name=k[:120], ms=v[0], launches=v[1])
+                             for k, v in top])
+
+
 def host_launch_calls(prof) -> dict:
     """How often the host called each launching runtime function in a
     traced window (a graph replay is one ``cudaGraphLaunch``)."""
@@ -3935,7 +3963,13 @@ MESH_TP_F32 = dict(batch=4, steps=4, rtol=1e-4)
 MESH_TP_BF16_STEPS = 16        # bf16 TP against bf16 unsharded, BF16_REL
 MESH_TP_WARM, MESH_TP_TIMED = 8, 32
 MESH_RAG_AXES = (("dp", 2), ("tp", 2), ("lists", 2))
-MESH_RAG_PRESET, MESH_RAG_STEPS = "Dec-S", 32
+# preset, retrieval interval: Dec-S at 1, EncDec-S at its preset's 8
+MESH_RAG_RUNS = (("Dec-S", 1), ("EncDec-S", 8))
+MESH_RAG_STEPS = 32
+# the EncDec-S loop in f32, tensor-parallel against unsharded: batch 4,
+# interval 2, 5 steps (retrievals at steps 0, 2 and 4), MESH_TP_F32's bar
+MESH_ENCDEC_F32 = dict(batch=4, interval=2, steps=5)
+MESH_WS_SHARDS = 4          # the windows_shard leg: tiled, lists 4
 
 
 def on_card_mesh(axes, dev):
@@ -4093,6 +4127,124 @@ def mesh_search(dev, ctx):
         log(f"mesh search {name}: {rec}")
         out[name] = rec
     return out, dict(launches)
+
+
+@contextlib.contextmanager
+def plain_tile_scan():
+    """Inside: every search runs eagerly, with ``adc_scan_tiles`` replaced
+    by its plain version on the same (card) tensors."""
+    from chamjax_torch.ops import scan_seg_block as sb
+    from chamjax_torch.utils import graphs
+    real = sb.adc_scan_tiles
+
+    def plain(*args, group=8, **kw):
+        return sb.adc_scan_tiles_reference(*args, **kw)
+    sb.adc_scan_tiles = plain
+    try:
+        with graphs.disable_capture():
+            yield
+    finally:
+        sb.adc_scan_tiles = real
+
+
+def mesh_windows_shard(dev, ctx):
+    """Step 1b: ``windows_shard`` on the flagship's tiled shards over lists
+    ``MESH_WS_SHARDS``, packed-bf16 LUTs.  Each recall query's demand on a
+    shard is the segments of its probed lists that the shard owns (the
+    probes as the search selects them, b=128 batches).  Budget (a) is the
+    largest demand, D: the smallest budget that covers every query; the
+    tiled scan rounds a budget up to its group (``GROUP``), so (b), the
+    next budget below, is (a)'s scanned windows less one group.  At each
+    budget and the full one: the launch counts (set to 0 just before), the
+    queries it truncates, R@10, b=128 and b=1 device ms (captured), and
+    the kernels of 10 traced b=128 searches.
+    (a) must equal the full budget's results bit for bit (ids up to the
+    order of exact ties); (b)'s search is held against the same search
+    with the plain scan, up to ties.  Returns the record and the
+    ``adc_scan_tiles`` launches."""
+    import numpy as np
+    import torch
+    from chamjax_torch.eval import recall_at_k
+    from chamjax_torch.ops.coarse import select_probes
+    from chamjax_torch.parallel import (place_sharded, shard_index,
+                                        sharded_search)
+    from chamjax_torch.utils import cuda_lib
+    from chamjax_torch.utils.precision import fp32_matmul
+    idx, gt, xq = ctx["idx"], ctx["gt"], ctx["ds"].xq[:N_GT]
+    s = ctx["searcher"]
+    mesh = on_card_mesh((("lists", MESH_WS_SHARDS),), dev)
+    sh = place_sharded(shard_index(idx, MESH_WS_SHARDS, tile_seg=SEG), mesh)
+    rep = sh.replicated(mesh.device_at())
+
+    @fp32_matmul()        # as the sharded search selects its probes
+    def probes(q):
+        if rep["opq_R"] is not None:
+            q = torch.matmul(q, rep["opq_R"])
+        return select_probes(q, rep["centroids"], NPROBE)[0].long()
+    segs = torch.stack([-(-t.long() // SEG) for t in sh.list_len])
+    batches = [torch.as_tensor(xq[i:i + BATCH]).to(dev)
+               for i in range(0, N_GT, BATCH)]
+    demand = torch.cat([segs[:, probes(q)].sum(2).max(0).values
+                        for q in batches]).cpu().numpy()
+    D = int(demand.max())
+    full = -(-max(GROUP, s.windows, NPROBE) // GROUP) * GROUP
+    scanned_a = -(-D // GROUP) * GROUP
+    if scanned_a <= GROUP:
+        raise AssertionError(f"windows_shard: demand {D} leaves no budget "
+                             "below it")
+    kw = dict(nprobe=NPROBE, k=K, windows=s.windows, seg=SEG, group=GROUP,
+              backend="seg", lut_bf16=True)
+    rec = dict(shards=MESH_WS_SHARDS, demand_max=D,
+               demand_mean=float(demand.mean()),
+               demand_hist=np.bincount(demand).tolist())
+    res = {}
+    launches = 0
+    for name, ws in (("full", 0), ("a", D), ("b", scanned_a - GROUP)):
+        windows = full if ws == 0 else max(GROUP, -(-ws // GROUP) * GROUP)
+        cuda_lib.launch_counts.clear()
+        out = [sharded_search(sh, q, mesh=mesh, windows_shard=ws, **kw)
+               for q in batches]
+        got = dict(cuda_lib.launch_counts)
+        if got.get("adc_scan_tiles", 0) < 1:
+            raise AssertionError(f"windows_shard {name}: {got}")
+        launches += got["adc_scan_tiles"]
+        d = np.concatenate([o[0].cpu().numpy() for o in out])
+        i = np.concatenate([o[1].cpu().numpy() for o in out]).astype(
+            np.int64)
+        res[name] = d, i
+
+        def run(q, ws=ws):
+            return sharded_search(sh, q, mesh=mesh, windows_shard=ws, **kw)
+        rec[name] = dict(windows_shard=ws, windows_scanned=windows,
+                         truncated_queries=int((demand > windows).sum()),
+                         recall_at_10=recall_at_k(i, gt, 10),
+                         launches_adc_scan_tiles=got["adc_scan_tiles"],
+                         **time_batches(run, ctx["xq_dev"], 1),
+                         trace_b128=traced_kernels(
+                             lambda: run(batches[0]), 10, f"ws_{name}"))
+    (d_f, i_f), (d_a, i_a), (d_b, i_b) = res["full"], res["a"], res["b"]
+    if not np.array_equal(d_a, d_f):
+        raise AssertionError("windows_shard (a): distances differ from the "
+                             "full budget's")
+    check_same_up_to_ties("windows_shard (a) vs the full budget", d_a, i_a,
+                          d_f, i_f, rtol=0.0)
+    rec["a"]["ids_bit_equal"] = bool(np.array_equal(i_a, i_f))
+    if rec["b"]["truncated_queries"] < 1:
+        raise AssertionError(f"windows_shard (b) truncates nothing: {rec}")
+    with plain_tile_scan():
+        plain = [sharded_search(sh, q, mesh=mesh,
+                                windows_shard=rec["b"]["windows_shard"],
+                                **kw) for q in batches]
+    check_same_up_to_ties(
+        "windows_shard (b): the kernel vs its plain version", d_b, i_b,
+        np.concatenate([o[0].cpu().numpy() for o in plain]),
+        np.concatenate([o[1].cpu().numpy() for o in plain]).astype(np.int64),
+        rtol=1e-5)
+    rec["b"]["rows_changed_by_truncation"] = len(rows_off(d_b, i_b, d_f,
+                                                          i_f, 1e-5))
+    rec["graphs"] = len(sh.graphs)
+    log(f"mesh windows_shard: {rec}")
+    return rec, launches
 
 
 def reassembled(sh, info, cfg):
@@ -4328,68 +4480,193 @@ def mesh_tp(dev):
     return out
 
 
+class Recording:
+    """A retriever passed through, keeping every query it was handed and
+    every answer, in order."""
+
+    def __init__(self, inner):
+        self.inner, self.queries, self.results = inner, [], []
+
+    def retrieve_device(self, queries, nprobe, k):
+        self.queries.append(queries)
+        self.results.append(self.inner.retrieve_device(queries, nprobe, k))
+        return self.results[-1]
+
+
+class Replay:
+    """A retriever answering with another loop's answers (a ``Recording``'s,
+    in order), keeping the queries it was handed."""
+
+    def __init__(self, recording):
+        self.recording, self.queries = recording, []
+
+    def retrieve_device(self, queries, nprobe, k):
+        self.queries.append(queries)
+        return self.recording.results[len(self.queries) - 1]
+
+
+@contextlib.contextmanager
+def recorded_logits(out):
+    """Inside: every decode step of the RALM loops appends its logits to
+    ``out``."""
+    from chamjax_torch.serving import ralm
+    real = ralm.decoder_step
+
+    def spy(*args, **kw):
+        logits, hidden, cache = real(*args, **kw)
+        out.append(logits)
+        return logits, hidden, cache
+    ralm.decoder_step = spy
+    try:
+        yield
+    finally:
+        ralm.decoder_step = real
+
+
+def rel_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def shard_caches(loop, mesh) -> None:
+    """Shard a loop's KV caches over ``mesh`` (each tik-tok state's)."""
+    from chamjax_torch.parallel import shard_kv_cache
+    for st in getattr(loop, "states", {"": loop}).values():
+        st.cache = shard_kv_cache(st.cache, mesh)
+
+
+def mesh_encdec_f32(dev, cfg, mesh, retriever, nprobe, k):
+    """EncDec-S's ``RalmEncoderDecoder`` in f32 at ``MESH_ENCDEC_F32``:
+    tensor-parallel parameters and cache over ``mesh`` searching through
+    ``retriever`` (f32 LUTs), step by step beside the unsharded loop, which
+    is handed the same answers (``Replay``: a near tie in the search cannot
+    split the two).  Tokens equal at every step; the queries, the cross
+    K/V joined back over the grid and the last step's logits within
+    ``MESH_TP_F32["rtol"]`` of the largest magnitude."""
+    import torch
+    from chamjax_torch.benchmarks import ralm_device_bench as bench
+    from chamjax_torch.parallel import shard_decoder_params
+    from chamjax_torch.serving import RalmEncoderDecoder
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = bench.init_params(f32, 0, dev)
+    rec_r = Recording(retriever)
+    kw = dict(retrieval_interval=MESH_ENCDEC_F32["interval"],
+              nprobe=nprobe, k=k)
+    b = MESH_ENCDEC_F32["batch"]
+    tp = RalmEncoderDecoder(*(shard_decoder_params(p, mesh) for p in p32),
+                            f32, rec_r, b, **kw)
+    shard_caches(tp, mesh)
+    ref = RalmEncoderDecoder(*p32, f32, Replay(rec_r), b, **kw)
+    logits = {"tp": [], "ref": []}
+    tokens = set()
+    for _ in range(MESH_ENCDEC_F32["steps"]):
+        for name, loop in (("tp", tp), ("ref", ref)):
+            with recorded_logits(logits[name]):
+                loop.single_step()
+        if not torch.equal(tp.tokens, ref.tokens):
+            raise AssertionError("mesh EncDec-S f32: tokens differ")
+        tokens.update(tp.tokens.tolist())
+
+    def joined(parts):
+        return torch.cat([torch.cat(r, dim=3) for r in parts], dim=1)
+    rec = dict(retrievals=len(rec_r.results), distinct_tokens=len(tokens),
+               query_rel_err=max(rel_err(a, b_) for a, b_ in zip(
+                   rec_r.queries, ref.retriever.queries)),
+               cross_k_rel_err=rel_err(joined(tp.cross_kv[0]),
+                                       ref.cross_kv[0]),
+               cross_v_rel_err=rel_err(joined(tp.cross_kv[1]),
+                                       ref.cross_kv[1]),
+               logits_rel_err=rel_err(logits["tp"][-1], logits["ref"][-1]))
+    bad = {k: v for k, v in rec.items()
+           if k.endswith("rel_err") and v > MESH_TP_F32["rtol"]}
+    if bad or rec["retrievals"] < 2:
+        raise AssertionError(f"mesh EncDec-S f32: {rec}")
+    return rec
+
+
 def mesh_rag(dev, retriever):
-    """Step 4: ``RalmDecoder`` and ``TikTokDecoder`` on Dec-S at interval 1,
-    batch 64: tensor-parallel parameters over a ``MeshRetriever`` on the
-    RALM index sharded over ``lists``, ``batch_axis="dp"`` (dp × tp × lists,
-    8 positions), beside the unsharded loop over the ``LocalRetriever``:
-    tok/s, ``adc_scan_tiles`` launches (counts set to 0 just before the
-    timed steps), the last fused retrieval equal to ``IVFSearcher.search``
-    on the same hidden states up to ties.  Then ``dryrun_multichip(8)`` on
-    8 positions of the card."""
+    """Step 4: the RALM loops over tensor-parallel parameters at batch 64
+    (``MESH_RAG_RUNS``): ``RalmDecoder`` and ``TikTokDecoder`` on Dec-S at
+    interval 1, ``RalmEncoderDecoder`` and ``TikTokEncoderDecoder`` on
+    EncDec-S at its preset's interval 8 (encoder and decoder both
+    ``shard_decoder_params``), each over a ``MeshRetriever`` on the RALM
+    index sharded over ``lists``, ``batch_axis="dp"`` (dp × tp × lists, 8
+    positions), the caches ``shard_kv_cache``, beside the unsharded loop
+    over the ``LocalRetriever``: tok/s, ``adc_scan_tiles`` launches (counts
+    set to 0 just before the timed steps), the last fused retrieval equal
+    to ``IVFSearcher.search`` on the same queries up to ties.  EncDec-S
+    also in f32 (``mesh_encdec_f32``).  Then ``dryrun_multichip(8)`` on 8
+    positions of the card."""
     import torch
     from chamjax_torch import entry
     from chamjax_torch.benchmarks import ralm_device_bench as bench
     from chamjax_torch.parallel import (place_sharded, shard_decoder_params,
-                                        shard_index, shard_kv_cache)
+                                        shard_index)
     from chamjax_torch.retrieval import MeshRetriever
-    from chamjax_torch.serving import RalmDecoder, TikTokDecoder
+    from chamjax_torch.serving import (RalmDecoder, RalmEncoderDecoder,
+                                       TikTokDecoder, TikTokEncoderDecoder)
     from chamjax_torch.utils import cuda_lib
     s = retriever.searcher
-    args = bench.parse_args(RALM_ARGV + ["--presets", MESH_RAG_PRESET])
-    cfg = bench.model_configs(args)[MESH_RAG_PRESET]
-    params = bench.init_params(cfg, 0, dev)
+    args = bench.parse_args(RALM_ARGV + ["--presets", ",".join(
+        p for p, _ in MESH_RAG_RUNS)])
+    cfgs = bench.model_configs(args)
     mesh = on_card_mesh(MESH_RAG_AXES, dev)
     sh = place_sharded(shard_index(s.packed, mesh.shape["lists"],
                                    tile_seg=s.seg), mesh)
-    mesh_r = QueryRecorder(MeshRetriever(
-        sh, mesh, s.packed.list_len, dataclasses.replace(s.scfg, seg=s.seg),
-        batch_axis="dp"))
-    tp_params = shard_decoder_params(params, mesh)
+
+    def mesh_retriever(**over):
+        return MeshRetriever(sh, mesh, s.packed.list_len, dataclasses.replace(
+            s.scfg, seg=s.seg, **over), batch_axis="dp")
+    mesh_r = QueryRecorder(mesh_retriever())
     out = dict(mesh=mesh.shape, steps=MESH_RAG_STEPS, batch=args.batch)
-    for kind, cls in (("ralm", RalmDecoder), ("tiktok", TikTokDecoder)):
-        for sharded in (False, True):
-            loop = cls(tp_params if sharded else params, cfg,
-                       mesh_r if sharded else retriever, args.batch,
-                       retrieval_interval=1, nprobe=args.nprobe, k=args.k)
-            if sharded:
-                states = (loop.states.values() if kind == "tiktok"
-                          else (loop,))
-                for st in states:
-                    st.cache = shard_kv_cache(st.cache, mesh)
-            loop.batch_inference(args.warmup)
-            loop.reset_inference_state()
-            cuda_lib.launch_counts.clear()
-            loop.batch_inference(MESH_RAG_STEPS)
-            launches = cuda_lib.launch_counts["adc_scan_tiles"]
-            if launches < 1:
-                raise AssertionError(f"mesh {kind}: adc_scan_tiles did not "
-                                     "launch")
-            key = f"{kind}{'_tp_mesh' if sharded else '_unsharded'}"
-            out[key] = dict(tok_per_s=loop.throughput_tokens_per_sec(
-                MESH_RAG_STEPS), launches_adc_scan_tiles=launches)
-            if sharded:
-                q, res = mesh_r.queries, mesh_r.result
-                d_s, i_s = s.search(q.cpu().numpy(), nprobe=args.nprobe,
-                                    k=args.k)
-                check_same_up_to_ties(
-                    f"mesh {kind}: fused retrieval vs IVFSearcher.search",
-                    res.dists.cpu().numpy(),
-                    res.ids.cpu().numpy().astype("int64"), d_s, i_s,
-                    rtol=1e-5)
-                out[key]["fused_equals_searcher"] = True
-            del loop
-            torch.cuda.synchronize(dev)
+    for preset, interval in MESH_RAG_RUNS:
+        cfg = cfgs[preset]
+        params = bench.init_params(cfg, 0, dev)
+        encdec = cfg.model_type == "encoder-decoder"
+        models = params if encdec else (params,)
+        tp_models = tuple(shard_decoder_params(p, mesh) for p in models)
+        classes = ((("ralm", RalmEncoderDecoder),
+                    ("tiktok", TikTokEncoderDecoder)) if encdec else
+                   (("ralm", RalmDecoder), ("tiktok", TikTokDecoder)))
+        rec = dict(interval=interval)
+        for kind, cls in classes:
+            for sharded in (False, True):
+                loop = cls(*(tp_models if sharded else models), cfg,
+                           mesh_r if sharded else retriever, args.batch,
+                           retrieval_interval=interval, nprobe=args.nprobe,
+                           k=args.k)
+                if sharded:
+                    shard_caches(loop, mesh)
+                loop.batch_inference(args.warmup)
+                loop.reset_inference_state()
+                cuda_lib.launch_counts.clear()
+                loop.batch_inference(MESH_RAG_STEPS)
+                launches = cuda_lib.launch_counts["adc_scan_tiles"]
+                if launches < 1:
+                    raise AssertionError(f"mesh {preset} {kind}: "
+                                         "adc_scan_tiles did not launch")
+                key = f"{kind}{'_tp_mesh' if sharded else '_unsharded'}"
+                rec[key] = dict(tok_per_s=loop.throughput_tokens_per_sec(
+                    MESH_RAG_STEPS), launches_adc_scan_tiles=launches)
+                if sharded:
+                    q, res = mesh_r.queries, mesh_r.result
+                    d_s, i_s = s.search(q.cpu().numpy(), nprobe=args.nprobe,
+                                        k=args.k)
+                    check_same_up_to_ties(
+                        f"mesh {preset} {kind}: fused retrieval vs "
+                        "IVFSearcher.search", res.dists.cpu().numpy(),
+                        res.ids.cpu().numpy().astype("int64"), d_s, i_s,
+                        rtol=1e-5)
+                    rec[key]["fused_equals_searcher"] = True
+                del loop
+                torch.cuda.synchronize(dev)
+        if encdec:
+            rec["f32"] = mesh_encdec_f32(dev, cfg, mesh,
+                                         mesh_retriever(lut_bf16=False),
+                                         args.nprobe, args.k)
+        log(f"mesh rag {preset}: {rec}")
+        out[preset] = rec
+        del params, models, tp_models
     out["graphs"] = len(sh.graphs)
     out["dryrun_multichip"] = entry.dryrun_multichip(8, devices=[dev] * 8)
     log(f"mesh rag: {out}")
@@ -4398,17 +4675,19 @@ def mesh_rag(dev, retriever):
 
 def mesh_phase(dev, ctx, main_line, retriever):
     """Phase 10: the mesh tier on the card (``mesh_search``,
-    ``mesh_build``, ``mesh_tp``, ``mesh_rag``).  Returns the mesh line and
-    the launches of each scan kernel in its searches."""
+    ``mesh_windows_shard``, ``mesh_build``, ``mesh_tp``, ``mesh_rag``).
+    Returns the mesh line and the launches of each scan kernel in its
+    searches."""
     t0 = time.perf_counter()
     search, launches = mesh_search(dev, ctx)
+    search["windows_shard"], ws_launches = mesh_windows_shard(dev, ctx)
     build = mesh_build(dev, ctx, main_line)
     tp = mesh_tp(dev)
     rag = mesh_rag(dev, retriever)
     launches["adc_scan_tiles"] += (
-        build["launches"]["adc_scan_tiles"]
-        + sum(v["launches_adc_scan_tiles"] for k, v in rag.items()
-              if k.endswith("_tp_mesh")))
+        ws_launches + build["launches"]["adc_scan_tiles"]
+        + sum(v["launches_adc_scan_tiles"] for preset, _ in MESH_RAG_RUNS
+              for k, v in rag[preset].items() if k.endswith("_tp_mesh")))
     cards = len(on_card_mesh(MESH_RAG_AXES, dev).distinct_devices())
     return dict(mesh_distinct_cards=cards, search=search, build=build,
                 tp=tp, rag=rag, phase_s=time.perf_counter() - t0), launches

@@ -15,6 +15,7 @@ machine that has only PyTorch:
 """
 
 import contextlib
+import types
 
 import numpy as np
 import pytest
@@ -1338,6 +1339,111 @@ def test_tp_step_on_distinct_cards(two_cards, family):
     got, cache = _tp_run(family, cfg, params, two_cards * 2)
     assert len(cache.graphs) == 0
     assert_close(got, ref, rtol=1e-4)
+
+
+class _RowIdsOnCard:
+    """A fused-path retriever answering row r with ids ``3·j + 11·r`` on
+    the queries' device, so the rows' retrieved tokens differ and no near
+    tie of a search can split two loops."""
+
+    def retrieve_device(self, queries, nprobe, k):
+        dev = queries.device
+        ids = (torch.arange(k, device=dev)[None] * 3
+               + 11 * torch.arange(queries.shape[0], device=dev)[:, None]
+               ).to(torch.int32)
+        return types.SimpleNamespace(ids=ids, dists=ids.float())
+
+
+def _join_grid(parts):
+    return torch.cat([torch.cat(r, dim=3) for r in parts], dim=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["ralm", "tiktok"])
+def test_tp_encoder_decoder_loop_on_one_card(cuda_device, kind,
+                                             monkeypatch):
+    """``RalmEncoderDecoder`` / ``TikTokEncoderDecoder`` over dp 2 × tp 2
+    positions on cuda:0 (both models ``shard_decoder_params``, the caches
+    ``shard_kv_cache``), f32, fused path, against the unsharded loop:
+    tokens equal, every decode step's logits and the cross K/V joined back
+    over the grid within rtol 1e-4; each state's refill is one captured
+    graph, and the RALM loop's steps after the first two make no host
+    sync."""
+    from chamjax_torch.benchmarks.ralm_device_bench import (init_params,
+                                                            no_host_sync)
+    from chamjax_torch.parallel import (make_mesh, shard_decoder_params,
+                                        shard_kv_cache)
+    from chamjax_torch.serving import ralm, tiktok
+    cfg = ralm_config("encoder-decoder")
+    params = init_params(cfg, 0, cuda_device)
+    mesh = make_mesh((("dp", 2), ("tp", 2)), devices=["cuda:0"] * 4)
+    logits = []
+    for mod in (ralm, tiktok):
+        def spy(*a, _real=mod.decoder_step, **k):
+            out = _real(*a, **k)
+            logits.append(out[0])
+            return out
+        monkeypatch.setattr(mod, "decoder_step", spy)
+    cls = (ralm.RalmEncoderDecoder if kind == "ralm"
+           else tiktok.TikTokEncoderDecoder)
+    runs = []
+    for sharded in (False, True):
+        models = (tuple(shard_decoder_params(p, mesh) for p in params)
+                  if sharded else params)
+        loop = cls(*models, cfg, _RowIdsOnCard(), 4, retrieval_interval=2,
+                   nprobe=8, k=4)
+        states = tuple(getattr(loop, "states", {"": loop}).values())
+        if sharded:
+            for st in states:
+                st.cache = shard_kv_cache(st.cache, mesh)
+        logits.clear()
+        if kind == "ralm":
+            loop.multi_steps(2)             # every graph is captured now
+            with no_host_sync(cuda_device):
+                loop.multi_steps(4)
+        else:
+            loop.batch_inference(6)
+        torch.cuda.synchronize()
+        assert all(len(st._cross.graphs) == 1 for st in states)
+        runs.append((list(logits), [st.tokens.clone() for st in states],
+                     [st.cross_kv for st in states]))
+    (lg_r, tok_r, kv_r), (lg_t, tok_t, kv_t) = runs
+    assert len(lg_t) == len(lg_r) > 0
+    assert_close(lg_t, lg_r, rtol=1e-4)
+    assert all(torch.equal(a, b) for a, b in zip(tok_t, tok_r))
+    for got, want in zip(kv_t, kv_r):
+        assert_close([_join_grid(got[0]), _join_grid(got[1])], want,
+                     rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_windows_shard_on_one_card(card_index, monkeypatch):
+    """``windows_shard`` at a budget that truncates, on the tiled shards
+    over lists 4 on cuda:0: the kernel's search (captured) launches
+    ``adc_scan_tiles``, differs from the full budget's, and equals the same
+    search with the plain scan (eager) up to ties."""
+    from chamjax_torch.ops import scan_seg_block as sb
+    from chamjax_torch.utils import graphs
+    ds, idx = card_index
+    shard_kw, kw, kernel = MESH_ROUTES["tiled"]
+    # one window a shard: the first segment of its best probed list
+    kw = dict(kw, nprobe=8, k=10, windows=48, seg=256, group=1,
+              lut_bf16=False, windows_shard=1)
+    q = torch.from_numpy(ds.xq[:16])
+    axes, devices = (("lists", 4),), ["cuda:0"] * 4
+    before = cuda_lib.launch_counts[kernel]
+    sh, got = _mesh_search(idx, q, devices, axes, shard_kw, kw)
+    assert cuda_lib.launch_counts[kernel] > before
+    assert len(sh.graphs) == 1
+    full = _mesh_search(idx, q, devices, axes, shard_kw,
+                        dict(kw, windows_shard=0))[1]
+    assert not torch.equal(got[1], full[1])
+    monkeypatch.setattr(sb, "adc_scan_tiles",
+                        lambda *a, group=8, **k:
+                        sb.adc_scan_tiles_reference(*a, **k))
+    with graphs.disable_capture():
+        plain = _mesh_search(idx, q, devices, axes, shard_kw, kw)[1]
+    _held(got, plain)
 
 
 # --- the retrieval-quality path: ir and rag on the card ----------------------

@@ -33,6 +33,8 @@ from chamjax_torch.index import build_ivfpq
 from chamjax_torch.models import transformer as tt
 from chamjax_torch.models.llama import (init_llama, init_llama_kv_cache,
                                         llama_step)
+from chamjax_torch.parallel import (make_mesh, shard_decoder_params,
+                                    shard_kv_cache)
 from chamjax_torch.retrieval import LocalRetriever
 from chamjax_torch.searcher import ivfpq_search, ivfpq_search_preassigned
 from chamjax_torch.serving.ralm import RalmDecoder, RalmEncoderDecoder
@@ -401,8 +403,24 @@ def retriever():
 
 
 def storage(loop):
-    return [t.data_ptr() for t in (loop.tokens, loop.cache.k, loop.cache.v,
-                                   loop.cache.idx)]
+    return [t.data_ptr() for t in tt.leaves((loop.tokens, loop.cache.k,
+                                             loop.cache.v, loop.cache.idx))]
+
+
+def encdec_loop(r, interval, tp=False):
+    """A fused ``RalmEncoderDecoder`` at batch 2; ``tp``: over dp 2 × tp 2
+    CPU positions (both models and the cache sharded), one device, so its
+    refills and steps are captured as the unsharded loop's are."""
+    cfg = ModelConfig(model_type="encoder-decoder", **MODEL)
+    params = tt.init_encoder_decoder(4, cfg, device="cpu")
+    if tp:
+        mesh = make_mesh((("dp", 2), ("tp", 2)), devices=["cpu"] * 4)
+        params = [shard_decoder_params(p, mesh) for p in params]
+    loop = RalmEncoderDecoder(*params, cfg, r, 2,
+                              retrieval_interval=interval, nprobe=4, k=4)
+    if tp:
+        loop.cache = shard_kv_cache(loop.cache, mesh)
+    return loop
 
 
 def test_reset_in_place_keeps_the_graphs(stand_in, retriever):
@@ -430,29 +448,28 @@ def test_reset_in_place_keeps_the_graphs(stand_in, retriever):
     assert torch.equal(loop.last_result.ids, first[1])
 
 
-@pytest.mark.parametrize("family", ["decoder", "encoder-decoder"])
+@pytest.mark.parametrize("family", ["decoder", "encoder-decoder",
+                                    "encoder-decoder-tp"])
 def test_steps_write_fixed_buffers(stand_in, retriever, family):
     """(d) A step writes the next tokens into the token buffer and the
     cache in place (the buffers a replay reads); the enc-dec cross K/V is
-    one pair of buffers, refilled in place by each retrieval step."""
+    one set of buffers (a pair, or a pair a position over tensor-parallel
+    parameters), refilled in place by each retrieval step."""
     _ds, r = retriever
     if family == "decoder":
         cfg, p = decoder()
         loop = RalmDecoder(p, cfg, r, 2, retrieval_interval=2, nprobe=4, k=4)
     else:
-        cfg = ModelConfig(model_type="encoder-decoder", **MODEL)
-        loop = RalmEncoderDecoder(*tt.init_encoder_decoder(4, cfg,
-                                                           device="cpu"),
-                                  cfg, r, 2, retrieval_interval=2, nprobe=4,
-                                  k=4)
+        loop = encdec_loop(r, 2, tp=family.endswith("-tp"))
     ids, ptrs, cross = id(loop.tokens), storage(loop), set()
     for _ in range(5):
         loop.single_step()
         assert id(loop.tokens) == ids and storage(loop) == ptrs
-        if family == "encoder-decoder":
-            cross.add(tuple(t.data_ptr() for t in loop.cross_kv))
-    if family == "encoder-decoder":
+        if family != "decoder":
+            cross.add(tuple(t.data_ptr() for t in tt.leaves(loop.cross_kv)))
+    if family != "decoder":
         assert len(cross) == 1 and len(loop._cross.graphs) == 1
+        assert len(tt.leaves(loop.cross_kv)) == (8 if "tp" in family else 2)
 
 
 # ---------------------------------------------------------------------------
@@ -460,18 +477,15 @@ def test_steps_write_fixed_buffers(stand_in, retriever, family):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("family", ["decoder", "llama", "encoder-decoder"])
+@pytest.mark.parametrize("family", ["decoder", "llama", "encoder-decoder",
+                                    "encoder-decoder-tp"])
 def test_captured_loop_equals_eager(stand_in, retriever, family):
     """A fused RALM loop replaying its graphs gives the eager loop's tokens
     and retrievals at every step."""
     _ds, r = retriever
-    if family == "encoder-decoder":
-        cfg = ModelConfig(model_type=family, **MODEL)
-        params = tt.init_encoder_decoder(4, cfg, device="cpu")
-
+    if family.startswith("encoder-decoder"):
         def make():
-            return RalmEncoderDecoder(*params, cfg, r, 2,
-                                      retrieval_interval=3, nprobe=4, k=4)
+            return encdec_loop(r, 3, tp=family.endswith("-tp"))
     else:
         cfg, p = decoder(family)
 
@@ -527,6 +541,31 @@ def test_search_captured_equals_eager(stand_in, retriever):
         d_e, i_e = s.search(ds.xq)
     np.testing.assert_array_equal(d, d_e)
     np.testing.assert_array_equal(i, i_e)
+
+
+def test_sharded_search_keys_its_window_budget(stand_in, retriever,
+                                               monkeypatch):
+    """A mesh search captured at one ``windows_shard`` never replays at
+    another: the budget is part of the key (the search is captured here
+    as it is where every position lies on one card)."""
+    import importlib
+    from chamjax_torch.parallel import place_sharded, shard_index
+    tss = importlib.import_module("chamjax_torch.parallel.sharded_search")
+    ds, r = retriever
+    monkeypatch.setattr(tss, "captures", lambda mesh: True)
+    mesh = make_mesh((("lists", 2),), devices=["cpu"] * 2)
+    sh = place_sharded(shard_index(r.searcher.packed, 2), mesh)
+    q = torch.from_numpy(ds.xq)
+    kw = dict(mesh=mesh, nprobe=4, k=16, windows=8, seg=256, group=1,
+              backend="seg", use_approx=False)
+    got = {ws: tss.sharded_search(sh, q, windows_shard=ws, **kw)
+           for ws in (0, 1, 0, 1)}
+    assert len(sh.graphs) == 2
+    for ws, res in got.items():
+        with graphs.disable_capture():
+            want = tss.sharded_search(sh, q, windows_shard=ws, **kw)
+        assert all(torch.equal(g, w) for g, w in zip(res, want)), ws
+    assert not torch.equal(got[0][1], got[1][1])     # budget 1 truncates
 
 
 @pytest.mark.parametrize("kind", ["decoder", "encoder-decoder"])

@@ -380,14 +380,21 @@ def test_shard_index_many_empty_lists():
     assert int(owner_has_empty.max()) < 512
 
 
-def test_sharded_seg_probe_concentration_matches_single():
-    """All probes land on multi-segment lists one shard owns: the full
-    global window budget on every shard covers them."""
+@pytest.fixture(scope="module")
+def concentrated():
+    """Few large lists (~550-2350 rows): probes concentrate on the lists
+    one shard owns, and at seg 512 each list spans 2-5 segments."""
     ds = synthetic_dataset(nb=24_000, nq=16, nt=6000, d=16, seed=13,
                            n_clusters=3)
     idx = build_ivfpq(ds.xb, IndexConfig(dim=16, nlist=16, m=4, list_pad=64),
                       xt=ds.xt, kmeans_iters=4, pq_iters=4)
-    t_idx = carry(idx)
+    return ds, idx, carry(idx)
+
+
+def test_sharded_seg_probe_concentration_matches_single(concentrated):
+    """All probes land on multi-segment lists one shard owns: the full
+    global window budget on every shard covers them."""
+    ds, idx, t_idx = concentrated
     seg = auto_seg(idx.list_len)
     W = auto_windows(idx.list_len, seg, 4)
     kw = dict(nprobe=4, k=10, windows=W, seg=seg, group=2, use_approx=False,
@@ -401,6 +408,80 @@ def test_sharded_seg_probe_concentration_matches_single():
                                **kw))
     held(got, single(t_idx, nprobe=4, k=10, backend="seg", seg_group=2,
                      lut_bf16=False).search(ds.xq))
+
+
+WS_SEG, WS_NPROBE, WS_GROUP = 512, 4, 2
+
+
+def shard_demand(t_idx, sh, xq, nprobe, seg):
+    """Each query's largest window demand over the shards: the segments of
+    its probed lists that one shard owns."""
+    from chamjax_torch.ops.coarse import select_probes
+    lists, _ = select_probes(tq(xq), tq(np.array(t_idx.centroids)), nprobe)
+    segs = -(-stacked(sh.list_len) // seg)                  # (S, nlist)
+    return segs[:, lists.numpy()].sum(axis=2).max(axis=0)   # (b,)
+
+
+def _ws_search(t_idx, idx, xq, route, axes, **kw):
+    """The port's and the JAX package's search over ``axes`` on ``route``
+    ("tiled" or "flat"), both with ``kw``."""
+    shard_kw = dict(tile_seg=WS_SEG) if route == "tiled" else {}
+    kw = dict(nprobe=WS_NPROBE, k=10, windows=auto_windows(
+        t_idx.list_len, WS_SEG, WS_NPROBE), seg=WS_SEG, group=WS_GROUP,
+        use_approx=False, backend="seg", **kw)
+    mesh, jm = port_mesh(axes), jax_mesh(axes)
+    S = mesh.shape["lists"]
+    sh = place_sharded(shard_index(t_idx, S, **shard_kw), mesh)
+    jsh = j_place(j_shard_index(idx, S, **shard_kw), jm)
+    if "data" in mesh.shape:
+        q = jax.device_put(jnp.asarray(xq), NamedSharding(jm, P("data")))
+        return (sharded_search_2d(sh, tq(xq), mesh=mesh, **kw),
+                j_search_2d(jsh, q, mesh=jm, interpret=True, **kw), sh)
+    return (sharded_search(sh, tq(xq), mesh=mesh, **kw),
+            j_sharded_search(jsh, jnp.asarray(xq), mesh=jm, interpret=True,
+                             **kw), sh)
+
+
+WS_LAYOUTS = [("tiled", (("lists", 4),)), ("flat", (("lists", 4),)),
+              ("tiled", (("data", 2), ("lists", 2))),
+              ("flat", (("data", 2), ("lists", 2)))]
+
+
+@pytest.mark.parametrize("route,axes", WS_LAYOUTS,
+                         ids=["tiled_1d", "flat_1d", "tiled_2d", "flat_2d"])
+def test_windows_shard_truncates_as_jax(concentrated, route, axes):
+    """A per-shard window budget below some queries' demand: both seg
+    routes (the tiled scan and the flat multi-window scan), 1-D and 2-D,
+    drop the same windows as the JAX package's search (results up to
+    ties), and the truncation changes the answer."""
+    ds, idx, t_idx = concentrated
+    budget = 2 * WS_GROUP
+    got, want, sh = _ws_search(t_idx, idx, ds.xq, route, axes,
+                               windows_shard=budget)
+    demand = shard_demand(t_idx, sh, ds.xq, WS_NPROBE, WS_SEG)
+    assert (demand > budget).sum() >= 4, demand
+    held(got, want)
+    full = _ws_search(t_idx, idx, ds.xq, route, axes)[0]
+    assert not np.array_equal(n(got[1]), n(full[1]))
+
+
+@pytest.mark.parametrize("route", ["tiled", "flat"])
+def test_windows_shard_default_and_covering_budget_are_full(concentrated,
+                                                            route):
+    """The default (``windows_shard=0``) is the full budget, today's
+    result and the JAX package's; a budget that covers every query's
+    largest shard demand gives the full budget's result bit for bit."""
+    ds, idx, t_idx = concentrated
+    axes = (("lists", 4),)
+    got, want, sh = _ws_search(t_idx, idx, ds.xq, route, axes)
+    held(got, want)
+    cover = int(shard_demand(t_idx, sh, ds.xq, WS_NPROBE, WS_SEG).max())
+    assert cover < max(WS_GROUP, auto_windows(t_idx.list_len, WS_SEG,
+                                              WS_NPROBE), WS_NPROBE)
+    tight = _ws_search(t_idx, idx, ds.xq, route, axes,
+                       windows_shard=cover)[0]
+    for a, b in zip(tight, got):
+        np.testing.assert_array_equal(n(a), n(b))
 
 
 # ---------------------------------------------------------------------------

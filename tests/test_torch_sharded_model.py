@@ -15,6 +15,7 @@ magnitude, the RALM path's bar.
 """
 
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -79,12 +80,15 @@ def close(got, want, atol=ATOL):
     np.testing.assert_allclose(n(got), n(want), atol=atol, rtol=0)
 
 
+def join_grid(parts):
+    """A ``[i][j]`` grid of head-split tensors (a ``ShardedKVCache``'s K or
+    V, a tensor-parallel cross K or V) put back together: rows over dp,
+    heads over tp."""
+    return torch.cat([torch.cat(r, dim=3) for r in parts], dim=1)
+
+
 def full_cache(sc):
-    """A head-split ``ShardedKVCache``'s K and V put back together: rows
-    over dp, heads over tp."""
-    def join(parts):
-        return torch.cat([torch.cat(r, dim=3) for r in parts], dim=1)
-    return join(sc.k), join(sc.v)
+    return join_grid(sc.k), join_grid(sc.v)
 
 
 def test_tp_decoder_step_matches_unsharded():
@@ -431,3 +435,150 @@ def test_tp_refuses_what_it_cannot_split():
     odd = tm.init_decoder(0, tcfg(_dec_cfg(ffn_embed_dim=129)), device="cpu")
     with pytest.raises(ValueError, match="FFN"):
         shard_decoder_params(odd, t_mesh())
+
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder loops over tensor-parallel parameters
+# ---------------------------------------------------------------------------
+
+
+class RowIds:
+    """A retriever with ``retrieve_device`` (the fused path) in both
+    packages: row r retrieves ids ``3·j + 11·r``, so the rows' retrieved
+    tokens differ; it keeps the last queries it was handed."""
+
+    def __init__(self, to_ids):
+        self.to_ids, self.queries = to_ids, None
+
+    def retrieve_device(self, queries, nprobe, k):
+        b = queries.shape[0]
+        self.queries = queries
+        ids = self.to_ids((np.arange(k)[None] * 3
+                           + 11 * np.arange(b)[:, None]).astype(np.int32),
+                          queries)
+        return types.SimpleNamespace(ids=ids, dists=ids)
+
+
+def _encdec_loops(kind, jdummy, tdummy, jse, jsd, tse, tsd, cfg, steps,
+                  monkeypatch):
+    """Runs the JAX package's and the port's ``kind`` loop ("ralm" or
+    "tiktok") over sharded parameters for ``steps`` steps; returns each
+    loop and the logits of every decode step, in order."""
+    import chamjax.serving.ralm as jralm
+    import chamjax.serving.tiktok as jtiktok
+    import chamjax_torch.serving.ralm as tralm
+    import chamjax_torch.serving.tiktok as ttiktok
+    logits = {"jax": [], "port": []}
+    for side, mods in (("jax", (jralm, jtiktok)), ("port", (tralm,
+                                                            ttiktok))):
+        for mod in mods:
+            def spy(*a, _real=mod.decoder_step, _out=logits[side], **k):
+                lg, hid, cache = _real(*a, **k)
+                _out.append(lg)
+                return lg, hid, cache
+            monkeypatch.setattr(mod, "decoder_step", spy)
+    kw = dict(retrieval_interval=2, k=4)
+    jm_, tm_ = j_mesh(), t_mesh()
+    if kind == "ralm":
+        jloop = jralm.RalmEncoderDecoder(jse, jsd, cfg, jdummy, 4, **kw)
+        tloop = tralm.RalmEncoderDecoder(tse, tsd, tcfg(cfg), tdummy, 4,
+                                         **kw)
+        jstates, tstates = (jloop,), (tloop,)
+    else:
+        jloop = jtiktok.TikTokEncoderDecoder(jse, jsd, cfg, jdummy, 4, **kw)
+        tloop = ttiktok.TikTokEncoderDecoder(tse, tsd, tcfg(cfg), tdummy, 4,
+                                             **kw)
+        jstates = tuple(jloop.states.values())
+        tstates = tuple(tloop.states.values())
+    for st in jstates:
+        st.cache = j_shard_cache(st.cache, jm_)
+    for st in tstates:
+        st.cache = shard_kv_cache(st.cache, tm_)
+    if kind == "ralm":
+        jloop.multi_steps(steps)
+        tloop.multi_steps(steps)
+    else:
+        jloop.batch_inference(steps)
+        tloop.batch_inference(steps)
+    return jloop, tloop, jstates, tstates, logits
+
+
+@pytest.mark.parametrize("path", ["host", "device"])
+@pytest.mark.parametrize("kind", ["ralm", "tiktok"])
+def test_tp_encoder_decoder_loops_match_jax(kind, path, monkeypatch):
+    """``RalmEncoderDecoder`` and ``TikTokEncoderDecoder`` over
+    ``shard_decoder_params`` of both models and a ``shard_kv_cache`` cache
+    (dp 2 × tp 2), on the host path (``DummyRetriever``) and the fused
+    path, against the JAX package's loops over its GSPMD placement: tokens
+    equal, and every step's logits and the cross K/V joined back over the
+    grid within atol 1e-5.  Under this random init every token is the same
+    in both packages, so the logits and the K/V carry the comparison.
+    Then a reset empties the sharded cache in place and the run repeats
+    on the same cross K/V buffers."""
+    from chamjax.models import init_encoder_decoder
+    from chamjax.retrieval.interface import DummyRetriever
+    from chamjax_torch.retrieval import DummyRetriever as TDummy
+    cfg = _dec_cfg(model_type="encoder-decoder", encoder_layers=2,
+                   retrieval_token_len=4)
+    jenc, jdec = init_encoder_decoder(jax.random.PRNGKey(0), cfg)
+    enc = encoder_from_numpy(f32_tree(jenc), tcfg(cfg), device="cpu")
+    dec = decoder_from_numpy(f32_tree(jdec), tcfg(cfg), device="cpu")
+    if path == "host":
+        jr, tr = DummyRetriever(), TDummy()
+    else:
+        jr = RowIds(lambda ids, q: jnp.asarray(ids))
+        tr = RowIds(lambda ids, q: torch.from_numpy(ids).to(q.device))
+    jm_, tm_ = j_mesh(), t_mesh()
+    tse, tsd = shard_decoder_params(enc, tm_), shard_decoder_params(dec, tm_)
+    jloop, tloop, jstates, tstates, logits = _encdec_loops(
+        kind, jr, tr, j_shard_decoder(jenc, jm_), j_shard_decoder(jdec, jm_),
+        tse, tsd, cfg, 6, monkeypatch)
+    assert len(logits["port"]) == len(logits["jax"]) > 0
+    for got, want in zip(logits["port"], logits["jax"]):
+        close(got, want)
+    if path == "device":
+        close(tr.queries, jr.queries)
+    buffers = []
+    for jst, tst in zip(jstates, tstates):
+        np.testing.assert_array_equal(tst.tokens.numpy(),
+                                      np.asarray(jst.tokens))
+        assert isinstance(tst.cross_kv[0], tuple)       # the grid layout
+        for got, want in zip(tst.cross_kv, jst.cross_kv):
+            close(join_grid(got), want)
+        buffers.append([t.data_ptr() for t in tt.leaves(tst.cross_kv)])
+    # the reset: the sharded cache empties in place, the cross K/V is
+    # forgotten, and the next run refills the same buffers
+    first = list(logits["port"])
+    tloop.reset_inference_state()
+    for tst in tstates:
+        assert all(not t.any() for t in tt.leaves(tst.cache.k))
+        assert tst.cross_kv is None
+    logits["port"].clear()
+    if kind == "ralm":
+        tloop.multi_steps(6)
+    else:
+        tloop.batch_inference(6)
+    assert len(logits["port"]) == len(first)
+    for a, b in zip(logits["port"], first):
+        assert torch.equal(a, b)
+    assert [[t.data_ptr() for t in tt.leaves(tst.cross_kv)]
+            for tst in tstates] == buffers
+
+
+@pytest.mark.parametrize("what", ["batch", "heads"])
+def test_cross_kv_refuses_what_it_cannot_split(what):
+    """``CrossKV`` on tensor-parallel parameters refuses a batch that does
+    not split over dp and heads that do not split over tp, with
+    ``check_tp``'s message, before it encodes anything."""
+    from chamjax_torch.serving.ralm import CrossKV
+    cfg = tcfg(_dec_cfg(model_type="encoder-decoder", encoder_layers=1,
+                        **({"embed_dim": 48, "attention_heads": 3}
+                           if what == "heads" else {})))
+    enc, dec = tm.init_encoder_decoder(0, cfg, device="cpu")
+    mesh = t_mesh()
+    cross = CrossKV(shard_decoder_params(enc, mesh),
+                    shard_decoder_params(dec, mesh), cfg, 4)
+    b = 3 if what == "batch" else 4
+    with pytest.raises(ValueError, match="do not split over tp=2, dp=2"):
+        cross.from_tokens(torch.ones((b, 8), dtype=torch.int32))
+    assert cross.kv is None
