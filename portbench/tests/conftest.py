@@ -1,0 +1,9 @@
+"""CPU tests of the benchmark; the tests marked ``gpu`` decide inside
+themselves whether there is a card."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
