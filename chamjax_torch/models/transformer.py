@@ -33,7 +33,7 @@ from torch import nn
 
 from chamjax_torch import random as jr
 from chamjax_torch.config import ModelConfig
-from chamjax_torch.utils import graphs
+from chamjax_torch.utils import graphs, tracing
 from chamjax_torch.utils.collectives import all_gather_to, all_reduce_sum
 from chamjax_torch.utils.device import resolve_device
 
@@ -457,13 +457,16 @@ def _decoder_step(params, tokens, kv, heads, cross_kv, cross_valid_len):
         qh = _split_heads(q, h)                             # (b, 1, h, hd)
         kh = _split_heads(k, h)
         vh = _split_heads(v, h)
-        a = _attend_step(qh, kh, vh, k_cache[i], v_cache[i], strict_mask)
+        with tracing.annotate("decode.attend"):
+            a = _attend_step(qh, kh, vh, k_cache[i], v_cache[i],
+                             strict_mask)
         x = x + a.reshape(x.shape) @ L.wo[i]
         if cross_kv is not None:
             y = _ln(x, C.ln_scale[i], C.ln_bias[i])
             cq = _split_heads(y @ C.wq[i], h)
-            ca = _attn_full(cq, cross_kv[0][i], cross_kv[1][i], causal=False,
-                            valid_len=cross_valid_len)
+            with tracing.annotate("decode.cross"):
+                ca = _attn_full(cq, cross_kv[0][i], cross_kv[1][i],
+                                causal=False, valid_len=cross_valid_len)
             x = x + ca.reshape(x.shape) @ C.wo[i]
         x = _ffn(x, L, i)
         ks_new.append(kh)

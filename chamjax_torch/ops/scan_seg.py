@@ -24,7 +24,7 @@ from typing import Optional, Tuple
 import torch
 
 from chamjax_torch.ops.topk import select_topk
-from chamjax_torch.utils import cuda_lib
+from chamjax_torch.utils import cuda_lib, tracing
 
 LANES = 128
 SEG = 1024            # default rows per window
@@ -262,12 +262,13 @@ def select_rows(dists: torch.Tensor, starts: torch.Tensor, ids: torch.Tensor,
     """Top-k over each query's window-major candidates ``dists (b,
     W·width)``, where candidate ``w·width + r`` is row ``starts[:, w] +
     r`` → ``(dists (b, k) f32, ids (b, k))``, -1 where not finite."""
-    best_d, pos = select_topk(dists, k, use_approx=use_approx,
-                              recall_target=recall_target, l1=select_l1)
-    best_d = best_d.to(torch.float32)
-    pos = pos.long()
-    row = torch.gather(starts.long(), 1, pos // width) + pos % width
-    return best_d, _ids_at(ids, row, best_d)
+    with tracing.annotate("search.topk"):
+        best_d, pos = select_topk(dists, k, use_approx=use_approx,
+                                  recall_target=recall_target, l1=select_l1)
+        best_d = best_d.to(torch.float32)
+        pos = pos.long()
+        row = torch.gather(starts.long(), 1, pos // width) + pos % width
+        return best_d, _ids_at(ids, row, best_d)
 
 
 def select_rows_lane_l1(dists: torch.Tensor, starts: torch.Tensor,
@@ -278,16 +279,17 @@ def select_rows_lane_l1(dists: torch.Tensor, starts: torch.Tensor,
     candidate ``w·128 + lane`` is row ``starts[:, w] + group·128 + lane``
     with ``group`` the winning row group the kernel recorded."""
     b, windows = starts.shape
-    flat = dists[:, 0, :].reshape(b, windows * LANES)
-    group = dists[:, 1, :].contiguous().view(torch.int32).reshape(
-        b, windows * LANES)
-    best_d, pos = select_topk(flat, k, use_approx=use_approx,
-                              recall_target=recall_target, l1=select_l1)
-    pos = pos.long()
-    g_sel = torch.gather(group, 1, pos).long()
-    row = (torch.gather(starts.long(), 1, pos // LANES)
-           + g_sel * LANES + pos % LANES)
-    return best_d, _ids_at(ids, row, best_d)
+    with tracing.annotate("search.topk"):
+        flat = dists[:, 0, :].reshape(b, windows * LANES)
+        group = dists[:, 1, :].contiguous().view(torch.int32).reshape(
+            b, windows * LANES)
+        best_d, pos = select_topk(flat, k, use_approx=use_approx,
+                                  recall_target=recall_target, l1=select_l1)
+        pos = pos.long()
+        g_sel = torch.gather(group, 1, pos).long()
+        row = (torch.gather(starts.long(), 1, pos // LANES)
+               + g_sel * LANES + pos % LANES)
+        return best_d, _ids_at(ids, row, best_d)
 
 
 # ---------------------------------------------------------------------------
@@ -348,12 +350,15 @@ def scan_lists_seg(
     select_l1: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Segmented scan + selection → ``(dists (b, k) f32, ids (b, k))``."""
-    starts, lens, probe, _valid = expand_windows(
-        list_ids, list_start, list_len, windows=windows, seg=seg)
-    luts_k, lut_idx = prepare_luts(luts, probe, lut_bf16=lut_bf16)
-    dists = adc_scan_segments(
-        codes_t, starts.reshape(-1), lens.reshape(-1), lut_idx, luts_k,
-        seg=seg, lut_bf16=lut_bf16)
+    with tracing.annotate("search.windows"):
+        starts, lens, probe, _valid = expand_windows(
+            list_ids, list_start, list_len, windows=windows, seg=seg)
+    with tracing.annotate("search.pack"):
+        luts_k, lut_idx = prepare_luts(luts, probe, lut_bf16=lut_bf16)
+    with tracing.annotate("search.scan"):
+        dists = adc_scan_segments(
+            codes_t, starts.reshape(-1), lens.reshape(-1), lut_idx, luts_k,
+            seg=seg, lut_bf16=lut_bf16)
     return select_rows(dists.reshape(luts.shape[0], windows * seg), starts,
                        ids, k=k, width=seg, use_approx=use_approx,
                        recall_target=recall_target, select_l1=select_l1)

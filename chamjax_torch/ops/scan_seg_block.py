@@ -19,7 +19,7 @@ import torch
 from chamjax_torch.ops.scan_seg import (LANES, adc_windows_reference,
                                         expand_windows, prepare_luts,
                                         select_rows, select_rows_lane_l1)
-from chamjax_torch.utils import cuda_lib
+from chamjax_torch.utils import cuda_lib, tracing
 
 _OUT_F32, _OUT_BF16, _OUT_LANE_L1 = 0, 1, 2
 # debug_ablate body → the kernel's ``body`` argument
@@ -188,23 +188,27 @@ def scan_lists_seg_block(
     upcasts only the (b, k) result."""
     b = luts.shape[0]
     windows = -(-windows // group) * group
-    starts, lens, probe, _valid = expand_windows(
-        list_ids, list_start, list_len, windows=windows, seg=seg)
-    if slot_major and group > 1:
-        # Slot-major window permutation, kept from the JAX package: flat
-        # window i·G+j takes window j·(W/G)+i.  It does not change the
-        # result set (``starts`` moves with the windows) and keeps tie
-        # order comparable between the packages.
-        def pm(x):
-            return (x.reshape(b, group, windows // group)
-                    .transpose(1, 2).reshape(b, windows))
-        starts, lens, probe = pm(starts), pm(lens), pm(probe)
-    luts_k, lut_idx = prepare_luts(luts, probe, lut_bf16=lut_bf16)
-    dists = adc_scan_tiles(
-        codes_tiled, (starts // seg).reshape(-1).contiguous(),
-        lens.reshape(-1).contiguous(), lut_idx, luts_k, seg=seg, group=group,
-        lut_bf16=lut_bf16, lane_l1=lane_l1,
-        dist_bf16=dist_bf16 and not lane_l1)
+    with tracing.annotate("search.windows"):
+        starts, lens, probe, _valid = expand_windows(
+            list_ids, list_start, list_len, windows=windows, seg=seg)
+        if slot_major and group > 1:
+            # Slot-major window permutation, kept from the JAX package:
+            # flat window i·G+j takes window j·(W/G)+i.  It does not change
+            # the result set (``starts`` moves with the windows) and keeps
+            # tie order comparable between the packages.
+            def pm(x):
+                return (x.reshape(b, group, windows // group)
+                        .transpose(1, 2).reshape(b, windows))
+            starts, lens, probe = pm(starts), pm(lens), pm(probe)
+        tile_idx = (starts // seg).reshape(-1).contiguous()
+        tile_lens = lens.reshape(-1).contiguous()
+    with tracing.annotate("search.pack"):
+        luts_k, lut_idx = prepare_luts(luts, probe, lut_bf16=lut_bf16)
+    with tracing.annotate("search.scan"):
+        dists = adc_scan_tiles(
+            codes_tiled, tile_idx, tile_lens, lut_idx, luts_k, seg=seg,
+            group=group, lut_bf16=lut_bf16, lane_l1=lane_l1,
+            dist_bf16=dist_bf16 and not lane_l1)
     sel = dict(k=k, use_approx=use_approx, recall_target=recall_target,
                select_l1=select_l1)
     if lane_l1:

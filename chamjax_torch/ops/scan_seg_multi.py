@@ -19,6 +19,7 @@ from chamjax_torch.ops.scan_seg import (LANES, check_flat_inputs, check_seg,
                                         expand_windows, flat_scan_reference,
                                         launch_flat, prepare_luts,
                                         select_rows, select_rows_lane_l1)
+from chamjax_torch.utils import tracing
 
 
 def adc_scan_segments_multi_reference(codes_t, starts, lens, lut_idx, luts,
@@ -92,12 +93,15 @@ def scan_lists_seg_multi(
     bucket keep only the better."""
     b = luts.shape[0]
     windows = -(-windows // group) * group      # round W up to group multiple
-    starts, lens, probe, _valid = expand_windows(
-        list_ids, list_start, list_len, windows=windows, seg=seg)
-    luts_k, lut_idx = prepare_luts(luts, probe, lut_bf16=lut_bf16)
-    dists = adc_scan_segments_multi(
-        codes_t, starts.reshape(-1), lens.reshape(-1), lut_idx, luts_k,
-        seg=seg, group=group, lut_bf16=lut_bf16, lane_l1=lane_l1)
+    with tracing.annotate("search.windows"):
+        starts, lens, probe, _valid = expand_windows(
+            list_ids, list_start, list_len, windows=windows, seg=seg)
+    with tracing.annotate("search.pack"):
+        luts_k, lut_idx = prepare_luts(luts, probe, lut_bf16=lut_bf16)
+    with tracing.annotate("search.scan"):
+        dists = adc_scan_segments_multi(
+            codes_t, starts.reshape(-1), lens.reshape(-1), lut_idx, luts_k,
+            seg=seg, group=group, lut_bf16=lut_bf16, lane_l1=lane_l1)
     sel = dict(k=k, use_approx=use_approx, recall_target=recall_target,
                select_l1=select_l1)
     if lane_l1:

@@ -5,8 +5,8 @@ Rebuild of the reference's advanced-RAG demo & profiling layer
 (``reranker_hf/advanced_rag.py:1-295`` — SURVEY.md §2.7): document
 splitting, an embedding vector store (exact or IVF-PQ on the card),
 retrieve → late-interaction rerank → prompt build → generate, with
-per-stage wall-clock timers, ``torch.profiler.record_function`` spans and
-NVTX ranges on the card (the reference's ``torch.cuda.nvtx`` ranges).  The
+per-stage wall-clock timers, ``utils/tracing.py`` spans and NVTX ranges on
+the card (the reference's ``torch.cuda.nvtx`` ranges).  The
 JAX package's ``JaxDecoderReader`` is :class:`~chamjax_torch.rag.pipeline.
 DecoderReader` here.
 """

@@ -6,9 +6,9 @@ Parity with the reference's demo & profiling loop
 ``n_retrieved`` chunks from the vector store, optionally reranks down to
 ``n_final`` with the late-interaction reranker, assembles the context
 prompt, and calls the reader LLM — every stage wrapped in a wall-clock
-timer, a ``torch.profiler.record_function`` span (seen in a
-``torch.profiler`` trace, the JAX package's ``TraceAnnotation``) and, where
-a card is present, an NVTX range, the reference's own.
+timer, a span of ``utils/tracing.py`` (a ``record_function`` range while a
+``torch.profiler`` trace records, the JAX package's ``TraceAnnotation``)
+and, where a card is present, an NVTX range, the reference's own.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from chamjax_torch.utils import tracing
 from chamjax_torch.utils.device import resolve_device
 
 
@@ -38,7 +39,7 @@ class StageTimer:
         nvtx = (torch.cuda.nvtx.range(name) if torch.cuda.is_available()
                 else contextlib.nullcontext())
         t0 = time.perf_counter()
-        with torch.profiler.record_function(name), nvtx:
+        with tracing.annotate(name), nvtx:
             yield
         self.times.setdefault(name, []).append(time.perf_counter() - t0)
 

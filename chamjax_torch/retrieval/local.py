@@ -24,6 +24,7 @@ from chamjax_torch.index.ivf import PackedIVF
 from chamjax_torch.retrieval.interface import BaseRetriever, RetrievalResult
 from chamjax_torch.searcher import (IVFSearcher, auto_seg, auto_windows,
                                     ivfpq_search, resolve_coarse_cand)
+from chamjax_torch.utils import tracing
 from chamjax_torch.utils.device import as_f32, resolve_device
 
 
@@ -66,21 +67,22 @@ class LocalRetriever(BaseRetriever):
         np_ = nprobe or s.scfg.nprobe
         # the window budget tracks an nprobe override (as search does): a
         # budget sized for scfg.nprobe would truncate the scan
-        d, i = ivfpq_search(
-            s.dev, queries,
-            nprobe=np_, k=k or s.scfg.k,
-            scan_len=s.scan_len, windows=s._windows(np_), seg=s.seg,
-            group=s.group, probe_chunk=s.scfg.probe_chunk,
-            by_residual=s.cfg.by_residual,
-            use_approx=s.scfg.use_approx_topk,
-            recall_target=s.scfg.approx_recall_target,
-            backend=s.backend, tile=s.tile,
-            coarse_approx=s.scfg.coarse_approx,
-            coarse_cand=resolve_coarse_cand(s.scfg.coarse_cand, s.cfg.nlist,
-                                            np_),
-            lut_bf16=s.scfg.lut_bf16, select_l1=s.scfg.select_l1,
-            lane_l1=s.scfg.lane_l1,
-        )
+        with tracing.annotate("retrieve"):
+            d, i = ivfpq_search(
+                s.dev, queries,
+                nprobe=np_, k=k or s.scfg.k,
+                scan_len=s.scan_len, windows=s._windows(np_), seg=s.seg,
+                group=s.group, probe_chunk=s.scfg.probe_chunk,
+                by_residual=s.cfg.by_residual,
+                use_approx=s.scfg.use_approx_topk,
+                recall_target=s.scfg.approx_recall_target,
+                backend=s.backend, tile=s.tile,
+                coarse_approx=s.scfg.coarse_approx,
+                coarse_cand=resolve_coarse_cand(s.scfg.coarse_cand,
+                                                s.cfg.nlist, np_),
+                lut_bf16=s.scfg.lut_bf16, select_l1=s.scfg.select_l1,
+                lane_l1=s.scfg.lane_l1,
+            )
         return RetrievalResult(ids=i, dists=d)
 
     def retrieve_with_lists(self, queries: np.ndarray, list_ids: np.ndarray,
@@ -143,7 +145,8 @@ class DeviceRetriever(BaseRetriever):
 
     def retrieve_device(self, queries, nprobe: int, k: int
                         ) -> RetrievalResult:
-        d, i = self._search(queries, nprobe, k)
+        with tracing.annotate("retrieve"):
+            d, i = self._search(queries, nprobe, k)
         return RetrievalResult(ids=i, dists=d)
 
 

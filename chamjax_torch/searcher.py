@@ -36,7 +36,7 @@ from chamjax_torch.ops.scan_seg import (MAX_SEG, WINDOW_FIXED_ROWS,
 from chamjax_torch.ops.scan_seg_block import scan_lists_seg_block
 from chamjax_torch.ops.scan_seg_multi import scan_lists_seg_multi
 from chamjax_torch.ops.scan_xla import scan_lists_xla
-from chamjax_torch.utils import graphs
+from chamjax_torch.utils import graphs, tracing
 from chamjax_torch.utils.device import as_f32, resolve_device
 from chamjax_torch.utils.precision import fp32_matmul
 
@@ -270,12 +270,14 @@ def ivfpq_search(
     if backend == "seg" and windows <= 0:
         windows = 2 * nprobe       # conservative default; searcher sizes it
     backend = _pallas_or_xla(backend, scan_len)
-    q = _rotate(index, queries)
-    list_ids, _ = select_probes(q, index.centroids, nprobe,
-                                coarse_cand=coarse_cand,
-                                use_approx=coarse_approx)
-    luts = build_luts(q, index.centroids, index.codebooks, list_ids,
-                      by_residual=by_residual)
+    with tracing.annotate("search.coarse"):
+        q = _rotate(index, queries)
+        list_ids, _ = select_probes(q, index.centroids, nprobe,
+                                    coarse_cand=coarse_cand,
+                                    use_approx=coarse_approx)
+    with tracing.annotate("search.lut"):
+        luts = build_luts(q, index.centroids, index.codebooks, list_ids,
+                          by_residual=by_residual)
     return _dispatch_scan(
         index, luts, list_ids, k=k, scan_len=scan_len, windows=windows,
         seg=seg, group=group, probe_chunk=probe_chunk, use_approx=use_approx,
@@ -311,9 +313,11 @@ def ivfpq_search_preassigned(
     if backend == "seg" and windows <= 0:
         windows = 2 * nprobe
     backend = _pallas_or_xla(backend, scan_len)
-    q = _rotate(index, queries)
-    luts = build_luts(q, index.centroids, index.codebooks, list_ids,
-                      by_residual=by_residual)
+    with tracing.annotate("search.coarse"):
+        q = _rotate(index, queries)
+    with tracing.annotate("search.lut"):
+        luts = build_luts(q, index.centroids, index.codebooks, list_ids,
+                          by_residual=by_residual)
     return _dispatch_scan(
         index, luts, list_ids, k=k, scan_len=scan_len, windows=windows,
         seg=seg, group=group, probe_chunk=min(8, nprobe),

@@ -11,8 +11,10 @@
 With a retriever that has ``retrieve_device`` and no query replay, the
 whole step chain (decode → hidden state → search, and for enc-dec →
 token synthesis → encode → cross K/V) stays on the device: no step reads a
-device value on the host, and the per-step spans time the host's enqueue.
-``batch_inference`` ends with the one device sync of a batch.
+device value on the host.  There the model and retriever timers time the
+host's enqueue, and on the card a step's time is the card's, from CUDA
+events at the step ends (``StepProfiler``).  ``batch_inference`` ends with
+the one device sync of a batch.
 
 On the card each stage is a replay of a captured CUDA graph
 (``utils/graphs.py``): the decode step (owned by the KV cache), the search
@@ -44,7 +46,7 @@ from chamjax_torch.models.transformer import (TPParams, build_cross_kv,
                                               reset_cache)
 from chamjax_torch.retrieval.interface import BaseRetriever
 from chamjax_torch.serving.profiling import StepProfiler
-from chamjax_torch.utils import graphs
+from chamjax_torch.utils import graphs, tracing
 
 _U32 = 0xFFFFFFFF
 
@@ -165,20 +167,24 @@ class CrossKV:
 
     def from_ids(self, ids: torch.Tensor):
         """Refill from retrieved ids on the device (token synthesis,
-        encoder and K/V in one graph); returns the buffers."""
+        encoder and K/V in one graph); returns the buffers.  A span,
+        ``ralm.refill``."""
         cfg = self.cfg
         s = min(ids.shape[1] * self.tokens_per_doc, cfg.max_seq_len)
-        self._refill(_fill_cross_kv_from_ids, self.enc, self.dec, ids,
-                     self._buffers(ids.shape[0], s), cfg.attention_heads,
-                     self.tokens_per_doc, cfg.vocab_size, cfg.max_seq_len)
+        with tracing.annotate("ralm.refill"):
+            self._refill(_fill_cross_kv_from_ids, self.enc, self.dec, ids,
+                         self._buffers(ids.shape[0], s), cfg.attention_heads,
+                         self.tokens_per_doc, cfg.vocab_size,
+                         cfg.max_seq_len)
         return self.kv
 
     def from_tokens(self, ret_tokens: torch.Tensor):
         """Refill from retrieved tokens (the host path); returns the
-        buffers."""
-        self._refill(_fill_cross_kv, self.enc, self.dec, ret_tokens,
-                     self._buffers(*ret_tokens.shape),
-                     self.cfg.attention_heads)
+        buffers.  A span, ``ralm.refill``."""
+        with tracing.annotate("ralm.refill"):
+            self._refill(_fill_cross_kv, self.enc, self.dec, ret_tokens,
+                         self._buffers(*ret_tokens.shape),
+                         self.cfg.attention_heads)
         return self.kv
 
 
@@ -228,7 +234,7 @@ class RalmDecoder:
         self.query_set = query_set      # (steps, b, dim) replay buffer
         self.use_query_set = use_query_set
         self.device = params.embed.device
-        self.prof = StepProfiler()
+        self.prof = StepProfiler(self.device if self._device_path else None)
         self._step_fn, new_cache = step_fns(cfg)
         self.cache: KVCache = new_cache(cfg, batch_size, device=self.device)
         self.tokens = first_tokens(batch_size, self.device)
@@ -281,8 +287,11 @@ class RalmDecoder:
 
     def batch_inference(self, num_step: Optional[int] = None) -> None:
         """Runs ``num_step`` steps; ``self.total_wall_s`` then holds the
-        wall-clock including a final device sync (per-step spans are the
-        host's enqueue times on the fused device path)."""
+        wall-clock including a final device sync.  Of the per-step arrays
+        (``get_profiling``), ``time_step`` is the card's clock on the fused
+        device path on the card (CUDA events at the step ends) and the
+        host's elsewhere; ``time_model`` and ``time_retriever`` are the
+        host's, which on the fused path times the enqueue."""
         t0 = time.perf_counter()
         self.multi_steps(num_step or self.cfg.max_seq_len)
         _finish(self.device)
@@ -329,7 +338,8 @@ class RalmEncoderDecoder:
         self.k = k or cfg.k
         self.tok_len = retrieval_token_len or cfg.retrieval_token_len
         self.device = dec_params.embed.device
-        self.prof = StepProfiler()
+        self.prof = StepProfiler(self.device if hasattr(
+            retriever, "retrieve_device") else None)
         self.cache: KVCache = init_kv_cache(cfg, batch_size,
                                             device=self.device)
         self.tokens = first_tokens(batch_size, self.device)
@@ -397,7 +407,8 @@ class RalmEncoderDecoder:
 
     def batch_inference(self, num_step: Optional[int] = None) -> None:
         """Runs ``num_step`` steps; ``self.total_wall_s`` holds the
-        wall-clock including a final device sync."""
+        wall-clock including a final device sync.  The per-step arrays'
+        clocks are ``RalmDecoder.batch_inference``'s."""
         t0 = time.perf_counter()
         self.multi_steps(num_step or self.cfg.max_seq_len)
         _finish(self.device)

@@ -156,3 +156,72 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err:
         msg = lib.chamjax_cuda_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+# -- the driver's view of a stream capture (for utils/graphs.py's stage
+# maps): cuStreamGetCaptureInfo, cuGraphGetNodes and cuGraphNodeGetType of
+# libcuda, which every CUDA process has loaded, called with ctypes
+_CAPTURE_ACTIVE = 1             # CU_STREAM_CAPTURE_STATUS_ACTIVE
+# the node types that run on the device: kernel, memcpy, memset
+# (CU_GRAPH_NODE_TYPE_KERNEL, _MEMCPY, _MEMSET)
+DEVICE_NODE_TYPES = (0, 1, 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _driver():
+    """libcuda and its capture-info entry: ``_v3`` (CUDA 12.3 on, with
+    edge data) where the driver has it, else ``_v2``."""
+    lib = ctypes.CDLL("libcuda.so.1")
+    ref = ctypes.POINTER
+    v3 = hasattr(lib, "cuStreamGetCaptureInfo_v3")
+    info = (lib.cuStreamGetCaptureInfo_v3 if v3
+            else lib.cuStreamGetCaptureInfo_v2)
+    info.argtypes = ([_VP, ref(_I), ref(_U64), ref(_VP), _VP]
+                     + ([_VP] if v3 else []) + [ref(ctypes.c_size_t)])
+    info.restype = _I
+    lib.cuGraphGetNodes.argtypes = [_VP, _VP, ref(ctypes.c_size_t)]
+    lib.cuGraphGetNodes.restype = _I
+    lib.cuGraphNodeGetType.argtypes = [_VP, ref(_I)]
+    lib.cuGraphNodeGetType.restype = _I
+    lib.cuGetErrorString.argtypes = [_I, ref(ctypes.c_char_p)]
+    lib.cuGetErrorString.restype = _I
+    return lib, info, v3
+
+
+def _driver_check(lib, err: int, what: str) -> None:
+    if err:
+        msg = ctypes.c_char_p()
+        lib.cuGetErrorString(err, ctypes.byref(msg))
+        raise RuntimeError(f"{what}: CUDA driver error {err} "
+                           f"({(msg.value or b'?').decode()})")
+
+
+def capture_nodes(stream: int) -> list:
+    """The nodes (``CUgraphNode`` handles) of the graph that ``stream``
+    is capturing into, in no set order; raises where it captures
+    nothing."""
+    lib, info, v3 = _driver()
+    status, graph = _I(), _VP()
+    args = [stream, ctypes.byref(status), None, ctypes.byref(graph), None]
+    err = info(*args, *([None] if v3 else []), None)
+    _driver_check(lib, err, "cuStreamGetCaptureInfo")
+    if status.value != _CAPTURE_ACTIVE:
+        raise RuntimeError("capture_nodes: the stream is not capturing")
+    n = ctypes.c_size_t()
+    _driver_check(lib, lib.cuGraphGetNodes(graph, None, ctypes.byref(n)),
+                  "cuGraphGetNodes")
+    if not n.value:             # an array of no node is refused
+        return []
+    nodes = (_VP * n.value)()
+    _driver_check(lib, lib.cuGraphGetNodes(graph, nodes, ctypes.byref(n)),
+                  "cuGraphGetNodes")
+    return list(nodes[:n.value])
+
+
+def node_type(node: int) -> int:
+    """A graph node's ``CUgraphNodeType``."""
+    lib, _info, _v3 = _driver()
+    kind = _I()
+    _driver_check(lib, lib.cuGraphNodeGetType(node, ctypes.byref(kind)),
+                  "cuGraphNodeGetType")
+    return kind.value

@@ -41,6 +41,23 @@ A call runs the function eagerly on the CPU, inside
 :func:`disable_capture` (the counterpart of ``jax.disable_jit``), and
 inside another call's warm-up or capture, whose graph then holds its
 kernels (as a jitted function called under ``jit`` is inlined).
+
+Stage maps.  A replay drops the ``record_function`` ranges of the function
+it captured, so the capture keeps a map of its spans instead
+(``tracing.StageMap``): at each ``tracing.annotate`` span's entry and exit
+it counts the device nodes (kernels, copies, sets) captured so far, and
+the replay's nodes, in capture order, become runs of (innermost span,
+nodes), those outside any span under the function's own name.  A call
+inlined into a capture is a span of its function's name there.  While a
+profiler records, each replay is a range named after the map::
+
+    chamjax.graph <fn>: <span> <n>, <span> <n>, ...
+
+A replay's device activities all carry its ``cudaGraphLaunch``'s
+correlation id; one capture stream runs them in capture order, so in
+start order they split into the map's runs (``portbench/spans.py`` reads
+them, and leaves out a replay whose activities do not number the map's
+total).  A capture is itself a host span, ``graphs.capture``.
 """
 
 from __future__ import annotations
@@ -52,11 +69,11 @@ import functools
 import gc
 import numbers
 import threading
-from typing import Any, Callable, Dict, Iterator, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
-from chamjax_torch.utils import cuda_lib
+from chamjax_torch.utils import cuda_lib, tracing
 
 # the devices whose calls are captured, and the graph class that captures
 # them (the CPU tests stand a class in that re-runs the function)
@@ -102,6 +119,18 @@ class CudaGraph:
     def __init__(self, device: torch.device):
         self.device = device
         self.graph = torch.cuda.CUDAGraph()
+        self._on_device: Dict[int, bool] = {}   # node → runs on the device
+
+    def device_nodes(self) -> int:
+        """The kernel, memcpy and memset nodes captured so far (called
+        inside ``capture``, on the capture stream)."""
+        nodes = cuda_lib.capture_nodes(
+            torch.cuda.current_stream(self.device).cuda_stream)
+        for node in nodes:
+            if node not in self._on_device:
+                self._on_device[node] = (cuda_lib.node_type(node)
+                                         in cuda_lib.DEVICE_NODE_TYPES)
+        return sum(self._on_device[node] for node in nodes)
 
     def warm_up(self, run: Callable[[], Any]) -> None:
         current = torch.cuda.current_stream(self.device)
@@ -197,6 +226,8 @@ class _Captured:
     outputs: Any                    # the graph's output tensors
     held: List[Any]                 # what it was captured on
     launches: collections.Counter   # kernel launches a replay makes
+    stages: Tuple[Tuple[str, int], ...]  # the stage map: (span, nodes)
+    name: str                       # a replay's range, the map in it
 
 
 def _capture(fn: Callable, args: tuple, kwargs: dict, c: _Call) -> _Captured:
@@ -206,11 +237,12 @@ def _capture(fn: Callable, args: tuple, kwargs: dict, c: _Call) -> _Captured:
     counts = collections.Counter(cuda_lib.launch_counts)
     saved = [t.clone() for t in c.states]
     graph = Graph(c.device)
+    stages = tracing.StageMap(fn.__name__, graph.device_nodes)
     try:
         with _raised("depth"):
             graph.warm_up(run)
             before = collections.Counter(cuda_lib.launch_counts)
-            outputs = graph.capture(run)
+            outputs = graph.capture(functools.partial(stages.record, run))
         launches = collections.Counter(cuda_lib.launch_counts)
         launches.subtract(before)
     finally:
@@ -220,7 +252,11 @@ def _capture(fn: Callable, args: tuple, kwargs: dict, c: _Call) -> _Captured:
     # advanced idx): put the state back as the call found it
     for t, s in zip(c.states, saved):
         t.copy_(s)
-    return _Captured(graph, inputs, outputs, c.states + c.held, +launches)
+    runs = stages.result()
+    name = f"chamjax.graph {fn.__name__}: " + ", ".join(
+        f"{span} {n}" for span, n in runs)
+    return _Captured(graph, inputs, outputs, c.states + c.held, +launches,
+                     runs, name)
 
 
 def _captures(device: Optional[torch.device]) -> bool:
@@ -247,16 +283,22 @@ def call(owner: Optional[Graphs], fn: Callable, *args, **kwargs):
     elsewhere, and under :func:`disable_capture`, ``fn`` itself."""
     c = _Call(args, kwargs)
     if not _captures(c.device):
-        return fn(*args, **kwargs)
+        stages = tracing.open_stage_map()
+        if stages is None:
+            return fn(*args, **kwargs)
+        with stages.span(fn.__name__):      # inlined into a capture
+            return fn(*args, **kwargs)
     if owner is None:
         raise ValueError(f"{fn.__name__}: no Graphs to own its capture")
     key = (fn, c.key)
     g = owner._graphs.get(key)
     if g is None:
-        g = owner._graphs[key] = _capture(fn, args, kwargs, c)
+        with tracing.annotate("graphs.capture"):
+            g = owner._graphs[key] = _capture(fn, args, kwargs, c)
     for static, t in zip(g.inputs, c.inputs):
         static.copy_(t)
-    g.graph.replay()
+    with tracing.annotate(g.name):
+        g.graph.replay()
     cuda_lib.launch_counts.update(g.launches)
     return _fresh(g.outputs)
 

@@ -14,6 +14,7 @@ machine that has only PyTorch:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 """
 
+import collections
 import contextlib
 import types
 
@@ -942,6 +943,97 @@ def test_reset_does_not_capture_again_on_card(ralm_retriever, family):
     assert runs[0][2] == runs[1][2]
     assert torch.equal(runs[0][0], runs[1][0])
     assert torch.equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["decoder", "encoder-decoder"])
+def test_stage_maps_split_every_replay_on_card(ralm_retriever, family,
+                                               tmp_path, monkeypatch):
+    """In a profiler trace of fused RALM steps, no replay's device
+    activities outnumber its stage map's total, and the replays the
+    profiler recorded whole (most) number it exactly (the search, the
+    decode step and the encoder-decoder's refill); a whole search replay's
+    ``search.scan`` run holds exactly its ``adc_scan_staged_kernel``
+    activities, and a step has a ``decode.attend`` run a layer (and a
+    ``decode.cross`` run a layer).  Captured again with every span off, the
+    graphs hold as many device nodes: the spans add none.  The loop's
+    ``time_step`` is on the card's clock, one gap a step."""
+    from chamjax_torch.benchmarks.ralm_device_bench import init_params
+    from chamjax_torch.serving.ralm import RalmDecoder, RalmEncoderDecoder
+    from chamjax_torch.utils import graphs
+    from portbench import spans
+    from portbench import trace as ptrace
+    cfg = ralm_config(family, dtype="bfloat16")
+    params = init_params(cfg, 0, "cuda")
+    enc_dec = family == "encoder-decoder"
+
+    def new_loop():
+        cls = RalmEncoderDecoder if enc_dec else RalmDecoder
+        return cls(*(params if enc_dec else (params,)), cfg, ralm_retriever,
+                   4, retrieval_interval=2, nprobe=8, k=10)
+
+    def totals(*owners):
+        return sorted(sum(n for _, n in g.stages)
+                      for o in owners for g in o._graphs.values())
+
+    loop = new_loop()
+    loop.multi_steps(4)                 # every graph is captured by now
+    torch.cuda.synchronize()
+    with tracing.trace(str(tmp_path)):
+        loop.multi_steps(8)
+        torch.cuda.synchronize()
+    (path,) = tmp_path.glob("*.pt.trace.json")
+    t = ptrace.parse(str(path))
+    counts = collections.Counter(corr for *_, corr in t.device)
+    launches = sorted((ts, corr) for name, ts, _, corr in t.runtime
+                      if name == "cudaGraphLaunch")
+
+    def replays(fn, n):
+        """``fn``'s whole replays, after the checks on all ``n``."""
+        reps = spans.split_replays(t, fn)
+        assert len(reps) == n
+        for name, ranges in t.ranges.items():
+            parsed = spans.parse_map(name)
+            if parsed and parsed[0] == fn:
+                total = sum(k for _, k in parsed[1])
+                for s, d in ranges:
+                    (corr,) = [c for ts, c in launches if s <= ts <= s + d]
+                    assert counts[corr] <= total
+        whole = [runs for _, runs in reps if runs is not None]
+        assert 2 * len(whole) >= n
+        return whole
+
+    for runs in replays("ivfpq_search", 4):
+        assert {"search.coarse", "search.lut", "search.pack",
+                "search.windows", "search.scan",
+                "search.topk"} <= {span for span, _ in runs}
+        scan = [a for span, acts in runs if span == "search.scan"
+                for a in acts]
+        staged = [a for _, acts in runs for a in acts
+                  if "adc_scan_staged_kernel" in a[0]]
+        assert scan and scan == staged
+    for runs in replays("_decoder_step", 8):
+        names = [span for span, _ in runs]
+        assert names.count("decode.attend") == cfg.layers
+        assert names.count("decode.cross") == (cfg.layers if enc_dec else 0)
+    if enc_dec:
+        replays("_fill_cross_kv_from_ids", 4)
+        assert len(t.ranges["ralm.refill"]) == 4
+    prof = loop.get_profiling()["time_step"]
+    assert len(prof) == 12 and (prof > 0).all()
+
+    with_spans = totals(loop.cache.graphs, ralm_retriever.searcher.dev.graphs,
+                        loop._cross.graphs if enc_dec else graphs.Graphs())
+    monkeypatch.setattr(tracing, "annotate",
+                        lambda name: contextlib.nullcontext())
+    monkeypatch.setattr(ralm_retriever.searcher.dev, "graphs",
+                        graphs.Graphs())
+    bare = new_loop()
+    bare.multi_steps(4)
+    torch.cuda.synchronize()
+    assert totals(bare.cache.graphs, ralm_retriever.searcher.dev.graphs,
+                  bare._cross.graphs if enc_dec
+                  else graphs.Graphs()) == with_spans
 
 
 @pytest.mark.gpu

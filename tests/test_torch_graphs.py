@@ -39,7 +39,7 @@ from chamjax_torch.retrieval import LocalRetriever
 from chamjax_torch.searcher import ivfpq_search, ivfpq_search_preassigned
 from chamjax_torch.serving.ralm import RalmDecoder, RalmEncoderDecoder
 from chamjax_torch.serving.tiktok import TikTokDecoder, TikTokEncoderDecoder
-from chamjax_torch.utils import cuda_lib, graphs
+from chamjax_torch.utils import cuda_lib, graphs, tracing
 
 D = 32
 MODEL = dict(embed_dim=D, ffn_embed_dim=64, layers=2, attention_heads=4,
@@ -59,19 +59,25 @@ def copy_into(dst, src):
 class ReplayStandIn:
     """CPU stand-in for ``graphs.CudaGraph``: records the function at
     capture and replays it by running it again into the captured outputs,
-    with no launch count of its own."""
+    with no launch count of its own.  ``nodes`` stands for the device nodes
+    a capture holds so far (``device_nodes``); the tests set it."""
 
     made = []
+    nodes = 0
 
     def __init__(self, device):
         self.device = device
         self.replays = 0
         ReplayStandIn.made.append(self)
 
+    def device_nodes(self):
+        return ReplayStandIn.nodes
+
     def warm_up(self, run):
         run()
 
     def capture(self, run):
+        ReplayStandIn.nodes = 0         # a capture starts with no node
         self.run = run
         self.outputs = run()
         return self.outputs
@@ -90,6 +96,7 @@ class ReplayStandIn:
 def stand_in(monkeypatch):
     """Capture calls on CPU tensors with ``ReplayStandIn``."""
     ReplayStandIn.made.clear()
+    ReplayStandIn.nodes = 0
     monkeypatch.setattr(graphs, "Graph", ReplayStandIn)
     monkeypatch.setattr(graphs, "CAPTURE_DEVICES", ("cpu",))
     return ReplayStandIn
@@ -309,6 +316,70 @@ def test_nested_calls_join_the_outer_graph(stand_in):
     with graphs.disable_capture():
         want = both(enc, dec, src)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def _bump(n):
+    """Stand for ``n`` device nodes captured."""
+    ReplayStandIn.nodes += n
+
+
+def _inner(x):
+    _bump(2)
+    with tracing.annotate("in.a"):
+        _bump(1)
+    return x + 1
+
+
+def _outer(x, owner):
+    _bump(3)                                # outside any span
+    with tracing.annotate("s1"):
+        _bump(2)
+        with tracing.annotate("s2"):        # nested
+            _bump(4)
+        _bump(1)
+        with tracing.annotate("empty"):     # launches nothing
+            pass
+        _bump(1)
+    y = graphs.call(owner, _inner, x)       # inlined into this capture
+    _bump(1)
+    return y
+
+
+def test_stage_map_of_a_capture(stand_in, tmp_path):
+    """A capture's stage map: its device nodes in capture order as runs of
+    the innermost span, nesting, a span that launches nothing (no run), an
+    inlined call (a span of its function's name), nodes outside any span
+    (the function's own name); the replay's range carries the map."""
+    owner, inner_owner = graphs.Graphs(), graphs.Graphs()
+    x = torch.ones(3)
+    assert torch.equal(graphs.call(owner, _outer, x, inner_owner), x + 1)
+    (g,) = owner._graphs.values()
+    assert len(inner_owner) == 0
+    assert g.stages == (("_outer", 3), ("s1", 2), ("s2", 4), ("s1", 2),
+                        ("_inner", 2), ("in.a", 1), ("_outer", 1))
+    assert g.name == ("chamjax.graph _outer: _outer 3, s1 2, s2 4, s1 2, "
+                      "_inner 2, in.a 1, _outer 1")
+    with tracing.trace(str(tmp_path)) as prof:
+        graphs.call(owner, _outer, x, inner_owner)      # a replay
+    assert stand_in.made[0].replays == 2     # the capture replays too
+    names = [e.name for e in prof.events()]
+    assert names.count(g.name) == 1 and "graphs.capture" not in names
+    with tracing.trace(str(tmp_path)) as prof:          # a new key
+        graphs.call(owner, _outer, torch.ones(4), inner_owner)
+    names = [e.name for e in prof.events()]
+    assert "graphs.capture" in names and len(owner) == 2
+
+
+def test_stage_map_of_a_capture_without_spans(stand_in):
+    """Nodes captured outside any span are one run of the function's name;
+    a capture of no node has an empty map."""
+    owner = graphs.Graphs()
+    graphs.call(owner, lambda x: (_bump(5), x * 2)[1], torch.ones(2))
+    graphs.call(owner, torch.neg, torch.ones(2))
+    maps = sorted(g.stages for g in owner._graphs.values())
+    assert maps == [(), (("<lambda>", 5),)]
+    assert {g.name for g in owner._graphs.values()} == {
+        "chamjax.graph <lambda>: <lambda> 5", "chamjax.graph neg: "}
 
 
 # ---------------------------------------------------------------------------
