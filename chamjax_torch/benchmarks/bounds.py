@@ -216,3 +216,15 @@ def threefry_form_bound(n: int, out_bytes: int, form: str,
     return dict(per_output=per, terms_ms=terms, bound_ms=terms[limit],
                 bound_by="bytes" if limit == "bytes" else "operations",
                 limit=limit)
+
+
+def decode_attend_bound(b: int, held: int, heads: int, head_dim: int,
+                        elem: int, self_kv: bool, spec: GpuSpec = H100
+                        ) -> Tuple[float, str]:
+    """``decode_attend``: the held positions' K and V (b · held · heads ·
+    head_dim values each), q, the current token's K and V where given, and
+    the output, ``elem`` bytes a value; the scores' and p·V's multiply-adds
+    (2 · 2 flops a value of a held position) at the fp32 rate."""
+    row = b * heads * head_dim
+    nbytes = (2 * held * row + (4 if self_kv else 2) * row) * elem
+    return roofline_ms(nbytes, 4 * (held + int(self_kv)) * row, spec)

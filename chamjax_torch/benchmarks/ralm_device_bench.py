@@ -268,6 +268,8 @@ def run(args, device=None, *, inspect: Optional[Callable] = None,
                 p50_retrieval_ms=float(np.median(
                     loop.prof.time_retriever[::interval]) * 1e3),
                 launches_adc_scan_tiles=launches,
+                launches_decode_attend=cuda_lib.launch_counts[
+                    "decode_attend"],
                 no_host_sync_checked=dev.type == "cuda", card=card)
             if inspect is not None:
                 row.update(inspect(preset, interval, loop))

@@ -33,6 +33,7 @@ from torch import nn
 
 from chamjax_torch import random as jr
 from chamjax_torch.config import ModelConfig
+from chamjax_torch.ops import decode_attend
 from chamjax_torch.utils import graphs, tracing
 from chamjax_torch.utils.collectives import all_gather_to, all_reduce_sum
 from chamjax_torch.utils.device import resolve_device
@@ -422,33 +423,13 @@ def decoder_prefill(
     return logits, hidden, cache._replace(host_idx=t)
 
 
-def _attend_step(qh, kh, vh, k_hist, v_hist, strict_mask):
-    """One token's attention: ``qh``/``kh``/``vh`` (b, 1, h, hd) against the
-    cached positions where ``strict_mask`` (T,) holds, and, in a separate
-    term, against itself.  Returns (b, 1, h, hd) in the inputs' dtype."""
-    T = k_hist.shape[1]
-    hd = qh.shape[-1]
-    scores = torch.einsum("bqhd,bkhd->bhqk", qh.float(),
-                          k_hist.float()) * hd ** -0.5
-    scores = scores.masked_fill(~strict_mask.reshape(1, 1, 1, T),
-                                float("-inf"))
-    self_score = (qh * kh).float().sum(dim=-1) * hd ** -0.5  # (b, 1, h)
-    self_score = self_score.transpose(1, 2)[:, :, :, None]   # (b,h,1,1)
-    all_scores = torch.cat([scores, self_score], dim=-1)
-    p = torch.softmax(all_scores, dim=-1).to(qh.dtype)
-    return (torch.einsum("bhqk,bkhd->bqhd", p[..., :T], v_hist)
-            + p[..., T:].transpose(1, 2) * vh)
-
-
 def _decoder_step(params, tokens, kv, heads, cross_kv, cross_valid_len):
     """The device core of :func:`decoder_step`: reads no device value on
     the host, writes the cache in place and advances ``idx``."""
     k_cache, v_cache, idx = kv
     h = heads
-    T = k_cache.shape[2]
     x = _embed(params, tokens) + params.pos.index_select(0, idx.reshape(1))
     x = x[:, None, :]                                       # (b, 1, d)
-    strict_mask = torch.arange(T, device=x.device) < idx    # cached pos < idx
     L, C = params.layers, params.cross_layers
     ks_new, vs_new = [], []
     for i in range(L.wqkv.shape[0]):
@@ -457,16 +438,16 @@ def _decoder_step(params, tokens, kv, heads, cross_kv, cross_valid_len):
         qh = _split_heads(q, h)                             # (b, 1, h, hd)
         kh = _split_heads(k, h)
         vh = _split_heads(v, h)
-        with tracing.annotate("decode.attend"):
-            a = _attend_step(qh, kh, vh, k_cache[i], v_cache[i],
-                             strict_mask)
+        with tracing.annotate("decode.attend"):   # cached positions < idx
+            a = decode_attend.attend(qh, k_cache[i], v_cache[i], idx,
+                                     self_kv=(kh, vh))
         x = x + a.reshape(x.shape) @ L.wo[i]
         if cross_kv is not None:
             y = _ln(x, C.ln_scale[i], C.ln_bias[i])
             cq = _split_heads(y @ C.wq[i], h)
             with tracing.annotate("decode.cross"):
-                ca = _attn_full(cq, cross_kv[0][i], cross_kv[1][i],
-                                causal=False, valid_len=cross_valid_len)
+                ca = decode_attend.attend(cq, cross_kv[0][i], cross_kv[1][i],
+                                          cross_valid_len)
             x = x + ca.reshape(x.shape) @ C.wo[i]
         x = _ffn(x, L, i)
         ks_new.append(kh)
@@ -707,23 +688,22 @@ def _tp_decoder_step(params, tokens, kv, heads, cross_kv, cross_valid_len):
         idx = idxs[i][0].to(home)
         x = (_embed(S, tp_row(tokens, i, params.dp, home))
              + S.pos.index_select(0, idx.reshape(1)))[:, None, :]
-        strict = [torch.arange(ks[i][j].shape[2], device=ks[i][j].device)
-                  < idxs[i][j] for j in range(params.tp)]
         new = [([], []) for _ in range(params.tp)]
         for l in range(S.ln1_scale.shape[0]):
             def attn(j, r, y):
                 qh, kh, vh = _qkv(r, y, l, hr)
                 new[j][0].append(kh)
                 new[j][1].append(vh)
-                return _attend_step(qh, kh, vh, ks[i][j][l], vs[i][j][l],
-                                    strict[j]).flatten(2)
+                return decode_attend.attend(
+                    qh, ks[i][j][l], vs[i][j][l], idxs[i][j],
+                    self_kv=(kh, vh)).flatten(2)
 
             def cross(j, r, y):
                 vl = (None if cross_valid_len is None else
                       tp_row(cross_valid_len, i, params.dp, y.device))
-                return _attn_full(_split_heads(y @ r.cwq[l], hr),
-                                  cross_kv[0][i][j][l], cross_kv[1][i][j][l],
-                                  causal=False, valid_len=vl).flatten(2)
+                return decode_attend.attend(
+                    _split_heads(y @ r.cwq[l], hr), cross_kv[0][i][j][l],
+                    cross_kv[1][i][j][l], vl).flatten(2)
             x = _tp_block(params, i, l, x, attn,
                           cross if cross_kv is not None else None)
         for j in range(params.tp):

@@ -56,7 +56,13 @@ Phases (any failure exits non-zero and prints no result):
      ``torch.multinomial``, and its logit equal to ``torch.log`` at every
      float32 input; ``randint``, ``permutation`` (two and three sort
      rounds) and ``choice`` on the card equal to the CPU's plain draws;
-     each launch of the flagship's xb draw at its shape.
+     each launch of the flagship's xb draw at its shape;
+   - ``decode_attend`` (``csrc/decode_attend.cu``, the decode step's
+     attention) at the Dec-S step's shapes: the self-attention at 128,
+     256 and 511 held positions and the cross-attention over 512, each
+     within 1 bfloat16 ulp of the float64 attention, timed over a
+     24-layer sweep beside its bound, its plain version and
+     ``scaled_dot_product_attention``.
 3. The main path: ``synthetic_dataset_device`` (1M x 128, 4096 clusters,
    seed 42) drawn on the card by the threefry kernel and held to
    ``FLAGSHIP_FINGERPRINT`` (the JAX package's own draw of it: shapes,
@@ -2355,6 +2361,25 @@ def threefry_phase(dev):
                 for form, shape, scale in FLAGSHIP_DRAWS]
     return dict(forms=forms, samplers=samplers, flagship=flagship,
                 argmax=argmax, logit=logit, sass=sass)
+
+
+def decode_attend_phase(dev):
+    """Phase 2, the decode step's attention kernel: at the Dec-S step's
+    shapes (64 rows, 8 heads of 64, bfloat16, 24 layers of a 512-position
+    cache) the self-attention at 128, 256 and 511 held positions and the
+    cross-attention over 512, each held within 1 ulp of the float64
+    attention and timed beside its bound, its plain version and
+    ``scaled_dot_product_attention``
+    (``benchmarks/decode_attend_timing.py``).  Returns the rows, or
+    raises."""
+    from chamjax_torch.benchmarks import decode_attend_timing
+    rows = decode_attend_timing.run(dev)
+    for r in rows:
+        log(f"decode_attend {r['attention']} held {r['held']}: "
+            f"{r['max_ulps']:.2f} ulps from float64, kernel {r['ms']:.4f} "
+            f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms")
+    return rows
 
 
 def device_events(prof, annotation: str):
@@ -5141,6 +5166,7 @@ def run_smoke(t_smoke, dev, corpus_job) -> int:
         flat_options = flat_kernel_phase(dev)
         variant_options = variants_phase(dev)
         threefry = threefry_phase(dev)
+        attend = decode_attend_phase(dev)
         main = main_path(dev)
         stages = stages_phase(dev, main["ctx"])
         traced = trace_phase(dev, main["ctx"])
@@ -5285,6 +5311,23 @@ def run_smoke(t_smoke, dev, corpus_job) -> int:
         flagship_xb_chunk_ms=sum(r["ms"] for r in threefry["flagship"]),
         flagship_draws=threefry["flagship"], options=threefry["forms"],
         samplers=threefry["samplers"], sass=threefry["sass"]))
+    # the decode step's attention: no Pallas kernel on the TPU (XLA's
+    # einsums); the row's times are the self-attention at 256 held
+    # positions, its launches the RALM phase's timed steps
+    mid = next(r for r in attend if r["held"] == 256)
+    kernels.append(dict(
+        name="decode_attend", route="cuda",
+        source="chamjax_torch/csrc/decode_attend.cu",
+        replaces="chamjax/models/transformer.py:291",
+        replaces_note="XLA's einsums, mask and softmax; no pallas_call",
+        launches=sum(r["launches_decode_attend"] for r in ralm["rows"]),
+        launches_ralm={r["preset"]: r["launches_decode_attend"]
+                       for r in ralm["rows"]},
+        max_abs_err=None, max_ulps=max(r["max_ulps"] for r in attend),
+        ms=mid["ms"], plain_ms=mid["plain_ms"], bound_ms=mid["bound_ms"],
+        bound_by=mid["bound_by"], library_ms=mid["library_ms"],
+        library=mid["library"], path="main path: the RALM decode step",
+        options=attend))
     print(json.dumps({"kernels": kernels}), flush=True)
     # busy_share divides by the profiled window, which the profiler
     # stretches; busy_share_unprofiled divides the same kernel time a

@@ -955,7 +955,8 @@ def test_stage_maps_split_every_replay_on_card(ralm_retriever, family,
     decode step and the encoder-decoder's refill); a whole search replay's
     ``search.scan`` run holds exactly its ``adc_scan_staged_kernel``
     activities, and a step has a ``decode.attend`` run a layer (and a
-    ``decode.cross`` run a layer).  Captured again with every span off, the
+    ``decode.cross`` run a layer), each holding the ``decode_attend``
+    kernel.  Captured again with every span off, the
     graphs hold as many device nodes: the spans add none.  The loop's
     ``time_step`` is on the card's clock, one gap a step."""
     from chamjax_torch.benchmarks.ralm_device_bench import init_params
@@ -1016,6 +1017,9 @@ def test_stage_maps_split_every_replay_on_card(ralm_retriever, family,
         names = [span for span, _ in runs]
         assert names.count("decode.attend") == cfg.layers
         assert names.count("decode.cross") == (cfg.layers if enc_dec else 0)
+        for span, acts in runs:         # the attention is the kernel
+            if span in ("decode.attend", "decode.cross"):
+                assert any("decode_attend_kernel" in a[0] for a in acts)
     if enc_dec:
         replays("_fill_cross_kv_from_ids", 4)
         assert len(t.ranges["ralm.refill"]) == 4
@@ -1034,6 +1038,189 @@ def test_stage_maps_split_every_replay_on_card(ralm_retriever, family,
     assert totals(bare.cache.graphs, ralm_retriever.searcher.dev.graphs,
                   bare._cross.graphs if enc_dec
                   else graphs.Graphs()) == with_spans
+
+
+# ---------------------------------------------------------------------------
+# the decode step's attention kernel (csrc/decode_attend.cu)
+# ---------------------------------------------------------------------------
+
+ATTEND_LENGTHS = ["0", "1", "chunk-1", "chunk", "chunk+1", "T-1", "T",
+                  "ragged"]
+
+
+def attend_inputs(b, T, h, hd, dtype, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q, kh, vh = (torch.randn(b, 1, h, hd, generator=g) for _ in range(3))
+    k, v = (torch.randn(b, T, h, hd, generator=g) for _ in range(2))
+    return tuple(t.to(dev, dtype) for t in (q, k, v, kh, vh))
+
+
+def attend_length(case, b, T, chunk, dev):
+    """The held positions: a 0-d count (the self-attention's ``idx``), or
+    one a row spread from 0 to T (``ragged``, a cross_valid_len)."""
+    if case == "ragged":
+        n = torch.arange(b) * T // max(b - 1, 1)
+        return n[torch.randperm(b, generator=torch.Generator().manual_seed(
+            b))].to(dev, torch.int32)
+    n = {"0": 0, "1": 1, "chunk-1": chunk - 1, "chunk": chunk,
+         "chunk+1": chunk + 1, "T-1": T - 1, "T": T}[case]
+    return torch.tensor(min(n, T), dtype=torch.int32, device=dev)
+
+
+def chunk_positions(heads, head_dim, dtype, chunks):
+    """Held positions that give each of a row's ``chunks`` CTAs exactly one
+    pass (``decode_attend._threads``' passes): past a multiple of it the
+    split over the cluster changes shape."""
+    from chamjax_torch.ops import decode_attend as da
+    vecs = heads * head_dim * dtype.itemsize // 16
+    return chunks * (da._threads(vecs) // vecs)
+
+
+def attend_f64(q, k, v, n, self_kv):
+    """The same attention in float64 from the same stored values."""
+    T, hd = k.shape[1], q.shape[-1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) * hd ** -0.5
+    past = torch.arange(T, device=q.device) >= n.reshape(-1, 1)
+    s = s.masked_fill(past[:, None, None, :], float("-inf"))
+    v = v.double()
+    if self_kv is not None:
+        kh, vh = (t.double() for t in self_kv)
+        own = ((q.double() * kh).sum(-1) * hd ** -0.5).transpose(1, 2)
+        s = torch.cat([s, own[..., None]], dim=-1)
+        v = torch.cat([v, vh], dim=1)
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
+
+
+def bf16_ulps(x, y, truth):
+    """|x - y| in bfloat16 ulps at |truth| (below 2^-6, at 2^-6)."""
+    scale = truth.abs().clamp_min(2.0 ** -6)
+    return (x.double() - y.double()).abs() / torch.exp2(
+        torch.floor(torch.log2(scale)) - 7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("self_kv", [True, False])
+@pytest.mark.parametrize("length", ATTEND_LENGTHS)
+@pytest.mark.parametrize("T", [16, 512])
+@pytest.mark.parametrize("b", [2, 64, 256])
+@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_decode_attend_matches_plain_on_card(cuda_device, dtype, hd, b, T,
+                                             length, self_kv):
+    """The kernel against its plain version (8 heads), one launch each.
+    ``chunk``: the held positions that give each CTA of a row's cluster
+    (its size from ``cluster_size``: 8 CTAs at 2 rows, fewer at 64 and
+    256 where 8 would not all be resident, down to 1) one pass, where the
+    split changes shape.  A row
+    that holds nothing and has no current token is NaN in both (0/0, the
+    plain version's softmax over -inf).
+
+    float32: rtol = atol = 2e-4 against the plain version, the RALM
+    tests' bar.  bfloat16: within 1 output ulp of the float64 attention of
+    the same stored values (the kernel computes in float32 and rounds once:
+    half an ulp and float32's error), and so no farther from the plain
+    version than the plain version's own distance from float64 plus that
+    ulp: the plain version rounds the probabilities (and the current
+    token's score products) to bfloat16 before p·V, up to 56 ulps at one
+    held position on the CPU."""
+    from chamjax_torch.ops import decode_attend as da
+    dt = getattr(torch, dtype)
+    q, k, v, kh, vh = attend_inputs(b, T, 8, hd, dt, cuda_device)
+    chunks = da.cluster_size(b, 8, hd, dt, cuda_device.index)
+    n = attend_length(length, b, T, chunk_positions(8, hd, dt, chunks),
+                      cuda_device)
+    skv = (kh, vh) if self_kv else None
+    before = cuda_lib.launch_counts["decode_attend"]
+    got = da.attend(q, k, v, n, skv)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts["decode_attend"] == before + 1
+    assert got.dtype == dt and got.shape == (b, 1, 8, hd)
+    want = da.attend_reference(q, k, v, n, skv)
+    truth = attend_f64(q, k, v, n, skv)
+    assert torch.equal(got.isnan(), truth.isnan())
+    assert torch.equal(want.isnan(), truth.isnan())
+    held = ~truth.isnan()
+    if dtype == "float32":
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=2e-4, atol=2e-4)
+        return
+    assert (bf16_ulps(got, truth, truth)[held] <= 1.0).all()
+    plain_err = bf16_ulps(want, truth, truth)[held]
+    assert (bf16_ulps(got, want, truth)[held] <= plain_err + 1.0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("self_kv", [True, False])
+@pytest.mark.parametrize("length", ["1", "chunk-1", "chunk+1", "T-1",
+                                    "ragged"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_decode_attend_never_reads_past_length_on_card(cuda_device, dtype,
+                                                       length, self_kv):
+    """Every K and V position at or past a row's length set to NaN (Dec-S
+    shape: 64 rows, 512 positions, 8 heads of 64): the output does not
+    change, bit for bit.  Had the kernel read one, its row would be NaN."""
+    from chamjax_torch.ops import decode_attend as da
+    dt = getattr(torch, dtype)
+    q, k, v, kh, vh = attend_inputs(64, 512, 8, 64, dt, cuda_device, seed=1)
+    chunks = da.cluster_size(64, 8, 64, dt, cuda_device.index)
+    n = attend_length(length, 64, 512, chunk_positions(8, 64, dt, chunks),
+                      cuda_device)
+    skv = (kh, vh) if self_kv else None
+    clean = da.attend(q, k, v, n, skv)
+    past = (torch.arange(512, device=cuda_device)
+            >= n.reshape(-1, 1))[:, :, None, None].expand_as(k)
+    poisoned = da.attend(q, k.masked_fill(past, float("nan")),
+                         v.masked_fill(past, float("nan")), n, skv)
+    torch.cuda.synchronize()
+    assert torch.equal(clean.isnan(), poisoned.isnan())
+    assert torch.equal(clean.nan_to_num(), poisoned.nan_to_num())
+    # only a row with nothing held and no current token is NaN
+    empty = (n.reshape(-1).expand(64) == 0) & (not self_kv)
+    assert torch.equal(clean.isnan().reshape(64, -1).any(1), empty)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("preset", ["Dec-S", "EncDec-S", "Llama-S"])
+def test_decode_replay_launches_the_attend_kernel_on_card(cuda_device,
+                                                          preset):
+    """At the presets' widths (24 layers, 8 heads of 64, bfloat16), a
+    replay of the captured decode step adds one ``decode_attend`` launch a
+    layer, and an encoder-decoder's one more a layer (its cross-attention
+    over a retrieved context with per-row lengths); Llama's grouped step
+    keeps its own attention."""
+    import dataclasses
+    from chamjax_torch.benchmarks.ralm_device_bench import init_params
+    from chamjax_torch.config import MODEL_PRESETS
+    from chamjax_torch.models import encoder_forward
+    from chamjax_torch.models.transformer import build_cross_kv
+    from chamjax_torch.serving.ralm import step_fns
+    cfg = dataclasses.replace(MODEL_PRESETS[preset], dtype="bfloat16",
+                              max_seq_len=64)
+    params = init_params(cfg, 0, cuda_device)
+    enc_dec = cfg.model_type == "encoder-decoder"
+    *enc, dec = params if enc_dec else (params,)
+    step, cache_fn = step_fns(cfg)
+    cross = {}
+    if enc_dec:
+        src = torch.randint(1, cfg.vocab_size, (4, 40), device=cuda_device,
+                            dtype=torch.int32)
+        vl = torch.tensor([40, 17, 1, 33], dtype=torch.int32,
+                          device=cuda_device)
+        out = encoder_forward(enc[0], src, cfg.attention_heads,
+                              valid_len=vl)
+        cross = dict(cross_kv=build_cross_kv(dec, out, cfg.attention_heads),
+                     cross_valid_len=vl)
+    cache = cache_fn(cfg, 4, device=cuda_device)
+    tok = torch.ones(4, dtype=torch.int32, device=cuda_device)
+    _, _, cache = step(dec, tok, cache, **cross)        # the capture
+    before = cuda_lib.launch_counts["decode_attend"]
+    for _ in range(3):
+        _, _, cache = step(dec, tok, cache, **cross)
+    torch.cuda.synchronize()
+    assert len(cache.graphs) == 1
+    per = {"Dec-S": cfg.layers, "EncDec-S": 2 * cfg.layers, "Llama-S": 0}
+    assert cuda_lib.launch_counts["decode_attend"] == before + 3 * per[
+        preset]
 
 
 @pytest.mark.gpu
