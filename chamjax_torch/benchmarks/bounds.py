@@ -228,3 +228,17 @@ def decode_attend_bound(b: int, held: int, heads: int, head_dim: int,
     row = b * heads * head_dim
     nbytes = (2 * held * row + (4 if self_kv else 2) * row) * elem
     return roofline_ms(nbytes, 4 * (held + int(self_kv)) * row, spec)
+
+
+def latent_attend_bound(b: int, held: int, heads: int, latent: int,
+                        v_dim: int, elem: int, self_lat: bool,
+                        spec: GpuSpec = H100) -> Tuple[float, str]:
+    """``latent_attend``: the held latents (b · held · latent values, read
+    once for all heads), the current token's where given, q (b · heads ·
+    latent) and the output (b · heads · v_dim), ``elem`` bytes a value;
+    the scores' and p·V's multiply-adds (2 · (latent + v_dim) flops a head
+    and position) at the bf16 tensor-core rate."""
+    keys = held + int(self_lat)
+    nbytes = (b * keys * latent + b * heads * (latent + v_dim)) * elem
+    return roofline_ms(nbytes, 2 * b * heads * keys * (latent + v_dim), spec,
+                       spec.bf16_tflops)

@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from chamjax_torch.models.llama import LlamaParams
+from chamjax_torch.models.mla_moe import MlaMoeParams
 from chamjax_torch.models.transformer import (KVCache, ShardedKVCache,
                                               TPParams, TransformerParams)
 from chamjax_torch.parallel.mesh import Mesh
@@ -103,7 +104,13 @@ def shard_decoder_params(params: TransformerParams, mesh: Mesh,
     and ``b1`` by columns, the cross-attention's ``wq`` and its ``wkv``
     (k, then v) by heads and its ``wo`` by rows; embeddings, norms, the
     output projection and ``b2`` replicated, one copy a dp row.  A step
-    raises where the heads do not divide the tp size."""
+    raises where the heads do not divide the tp size.  The ``deepseek_v3``
+    family (``MlaMoeParams``) has no such form and raises here."""
+    if isinstance(params, MlaMoeParams):
+        raise NotImplementedError(
+            "shard_decoder_params: the deepseek_v3 family (latent attention, "
+            "routed experts) runs on one device; it has no tensor-parallel "
+            "or mesh form")
     grid = _grid(mesh, dp_axis, tp_axis)
     tp = len(grid[0])
     L = params.layers

@@ -40,10 +40,15 @@ from chamjax_torch.models import (
     encoder_forward,
     init_kv_cache,
 )
-from chamjax_torch.models.llama import init_llama_kv_cache, llama_step
+from chamjax_torch.models.llama import (init_llama_kv_cache, llama_prefill,
+                                        llama_step)
+from chamjax_torch.models.mla_moe import (MODEL_TYPE as MLA_MOE,
+                                          LatentCache, MlaMoeParams,
+                                          init_latent_cache, mla_moe_prefill,
+                                          mla_moe_step, reset_latent_cache)
 from chamjax_torch.models.transformer import (TPParams, build_cross_kv,
-                                              check_split, leaves,
-                                              reset_cache)
+                                              check_split, decoder_prefill,
+                                              leaves, reset_cache)
 from chamjax_torch.retrieval.interface import BaseRetriever
 from chamjax_torch.serving.profiling import StepProfiler
 from chamjax_torch.utils import graphs, tracing
@@ -86,9 +91,12 @@ def _ids_to_tokens_device(ids: torch.Tensor, tokens_per_doc: int, vocab: int,
 
 def step_fns(cfg: ModelConfig):
     """``(step, new_cache)`` of ``cfg``'s family: ``llama_step`` and
-    ``init_llama_kv_cache`` for llama, else ``decoder_step`` and
-    ``init_kv_cache``; ``step(params, tokens, cache, **cross)`` has the
-    config's heads (and rotary settings) bound."""
+    ``init_llama_kv_cache`` for llama, ``mla_moe_step`` and
+    ``init_latent_cache`` for ``deepseek_v3`` (an ``MlaMoeConfig``), else
+    ``decoder_step`` and ``init_kv_cache``; ``step(params, tokens, cache,
+    **cross)`` has the config's heads (and rotary settings) bound."""
+    if cfg.model_type == MLA_MOE:
+        return mla_moe_step, init_latent_cache
     if cfg.model_type == "llama":
         return (functools.partial(llama_step, heads=cfg.attention_heads,
                                   kv_heads=cfg.kv_heads,
@@ -96,6 +104,30 @@ def step_fns(cfg: ModelConfig):
                 init_llama_kv_cache)
     return (functools.partial(decoder_step, heads=cfg.attention_heads),
             init_kv_cache)
+
+
+def prefill_fn(cfg: ModelConfig):
+    """``prefill(params, tokens, cache) -> (logits, hidden, cache)`` of
+    ``cfg``'s family, a whole prompt (b, t) of every row into the cache."""
+    if cfg.model_type == MLA_MOE:
+        return mla_moe_prefill
+    if cfg.model_type == "llama":
+        return functools.partial(llama_prefill, heads=cfg.attention_heads,
+                                 kv_heads=cfg.kv_heads, theta=cfg.rope_theta)
+    return functools.partial(decoder_prefill, heads=cfg.attention_heads)
+
+
+def rewind(cache, prompt_len: int = 0):
+    """``cache`` back to its first ``prompt_len`` positions, in place: the
+    count set on the device and the host, the positions past it left to
+    be written again (no step reads at or past the count).  At 0 the cache
+    is emptied as ``reset_cache`` empties it."""
+    if prompt_len == 0:
+        return (reset_latent_cache(cache) if isinstance(cache, LatentCache)
+                else reset_cache(cache))
+    for t in leaves(cache.idx):
+        t.fill_(prompt_len)
+    return cache._replace(host_idx=prompt_len)
 
 
 def first_tokens(batch: int, device) -> torch.Tensor:
@@ -209,8 +241,14 @@ def _finish(device: torch.device) -> None:
 
 
 class RalmDecoder:
-    """Decoder-only RALM loop (reference ``ralmDecoder``), for the decoder
-    and the llama families.  Runs on the parameters' device."""
+    """Decoder-only RALM loop (reference ``ralmDecoder``), for the decoder,
+    the llama and the ``deepseek_v3`` families.  Runs on the parameters'
+    device.
+
+    ``prefill`` processes a prompt of every row once; from then on
+    ``reset_inference_state`` rewinds the cache to the prompt's end, so
+    that each generation continues the same prompt.  With no prompt it
+    empties the cache."""
 
     def __init__(
         self,
@@ -224,6 +262,11 @@ class RalmDecoder:
         query_set: Optional[np.ndarray] = None,
         use_query_set: bool = False,
     ):
+        if cfg.model_type == MLA_MOE and not isinstance(params,
+                                                        MlaMoeParams):
+            raise NotImplementedError(
+                "RalmDecoder: the deepseek_v3 family runs on one device "
+                "(MlaMoeParams); it has no tensor-parallel or mesh form")
         self.params = params
         self.cfg = cfg
         self.retriever = retriever
@@ -236,13 +279,24 @@ class RalmDecoder:
         self.device = params.embed.device
         self.prof = StepProfiler(self.device if self._device_path else None)
         self._step_fn, new_cache = step_fns(cfg)
-        self.cache: KVCache = new_cache(cfg, batch_size, device=self.device)
+        self.cache = new_cache(cfg, batch_size, device=self.device)
         self.tokens = first_tokens(batch_size, self.device)
+        self.prompt_len = 0
+        self.reset_inference_state()
+
+    def prefill(self, prompt: torch.Tensor) -> None:
+        """Process ``prompt`` (b, t) of every row into the cache, through
+        the family's prefill; later resets rewind to its end."""
+        self.cache = rewind(self.cache)
+        _, _, self.cache = prefill_fn(self.cfg)(self.params, prompt,
+                                                self.cache)
+        self.prompt_len = prompt.shape[1]
         self.reset_inference_state()
 
     def reset_inference_state(self) -> None:
-        """Back to an empty cache and the first token, in place."""
-        self.cache = reset_cache(self.cache)
+        """Back to the prompt's end (an empty cache where there is none)
+        and the first token, in place."""
+        self.cache = rewind(self.cache, self.prompt_len)
         self.tokens.fill_(1)
         self.step_count = 0
         self.last_result = None

@@ -62,6 +62,16 @@ Phases (any failure exits non-zero and prints no result):
      256 and 511 held positions and the cross-attention over 512, each
      within 1 bfloat16 ulp of the float64 attention, timed over a
      24-layer sweep beside its bound, its plain version and
+     ``scaled_dot_product_attention``;
+   - ``latent_attend`` (``csrc/latent_attend.cu``, a ``deepseek_v3``
+     decode step's latent attention) at Moonlight-16B-A3B's shapes: 128,
+     7168 and 7679 held positions of a 7680-position cache plus the
+     current token, held against its plain version within 2^-7 of the
+     largest value, once with a random current token and once with one
+     that carries weight at every length (the bar under half of what
+     leaving it out moves the plain version); its launches counted from 0
+     over a replay of a Moonlight-16B-A3B step (all 27 layers, 7168 held);
+     timed beside its bound, its plain version and
      ``scaled_dot_product_attention``.
 3. The main path: ``synthetic_dataset_device`` (1M x 128, 4096 clusters,
    seed 42) drawn on the card by the threefry kernel and held to
@@ -2380,6 +2390,116 @@ def decode_attend_phase(dev):
             f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms")
     return rows
+
+
+LATENT_HELD = (128, 7168, 7679)
+
+
+def latent_attend_check(dev, held: int, lean: bool) -> dict:
+    """The kernel against ``attend_reference`` at Moonlight-16B-A3B's
+    shapes (64 rows, 16 heads, a 7680-position bf16 cache), ``held``
+    positions and the current token.  ``lean``: the current token's latent
+    is the mean query, so its score tops most held ones at every length.
+    Raises where the kernel is off by more than 2^-7 of the largest value
+    (p is rounded to bf16 for P.V), or where that bar is not under half of
+    what leaving the current token out moves the plain version."""
+    import torch
+    from chamjax_torch.ops import latent_attend as la
+    g = torch.Generator(device=dev).manual_seed(held + lean)
+    b, T, H = 64, 7680, 16
+    lat = torch.randn((b, T, la.LATENT), generator=g, device=dev,
+                      dtype=torch.bfloat16)
+    q = torch.randn((b, H, la.LATENT), generator=g, device=dev,
+                    dtype=torch.bfloat16) * 3
+    own = (q.float().mean(1) if lean else
+           torch.randn((b, la.LATENT), generator=g, device=dev)
+           ).to(torch.bfloat16)
+    scale = 192 ** -0.5
+    idx = torch.tensor(held, dtype=torch.int32, device=dev)
+    got = la.attend(q, lat, idx, own, scale).float()
+    want = la.attend_reference(q, lat, idx, own, scale).float()
+    dropped = la.attend_reference(q, lat, idx, None, scale).float()
+    top = float(torch.maximum(lat[:, :held, :la.V_DIM].abs().amax(),
+                              own[:, :la.V_DIM].abs().amax()))
+    bar = 2.0 ** -7 * top
+    err = float((got - want).abs().max())
+    moved = float((dropped - want).abs().max())
+    name = f"latent_attend held {held}{' lean' if lean else ''}"
+    log(f"{name}: {err:.2e} from plain (bar {bar:.2e}); leaving the "
+        f"current token out moves plain {moved:.2e}")
+    if err > bar:
+        raise AssertionError(f"{name}: {err:.2e} from its plain version, "
+                             f"over 2^-7 of the largest value {top:.3f}")
+    if lean and moved <= 2 * bar:
+        raise AssertionError(f"{name}: the bar {bar:.2e} would pass a "
+                             f"kernel that leaves the current token out "
+                             f"({moved:.2e})")
+    return dict(held=held, lean=lean, max_abs_err=err, bar=bar,
+                dropped_moves=moved)
+
+
+def latent_step_launches(dev) -> int:
+    """``latent_attend`` launches of one replay of a Moonlight-16B-A3B
+    decode step (27 layers at the published widths, 64 rows, 7168 of the
+    8192-position cache held), counted from 0 just before the replay.  The
+    weights stay at the parameters' fills (norms 1, the rest 0): the
+    graph's launches do not depend on them.  The model, its cache and its
+    graph (~48 GB) are freed before the later phases: raises where more
+    than 1 GiB stays (cuBLAS keeps a workspace a stream, tens of MB)."""
+    import gc
+    import torch
+    from chamjax_torch.models import mla_moe as mm
+    from chamjax_torch.utils import cuda_lib
+    held_before = torch.cuda.memory_allocated(dev)
+    cfg = mm.MlaMoeConfig()
+    p = mm.MlaMoeParams(cfg, device=dev, dtype=mm.dtype_of(cfg))
+    cache = mm.init_latent_cache(cfg, 64, device=dev)
+    cache.idx.fill_(7168)
+    cache = cache._replace(host_idx=7168)
+    tokens = torch.ones((64,), dtype=torch.int32, device=dev)
+    _, _, cache = mm.mla_moe_step(p, tokens, cache)        # the capture
+    cache.idx.fill_(7168)
+    cache = cache._replace(host_idx=7168)
+    torch.cuda.synchronize(dev)
+    cuda_lib.launch_counts.clear()
+    mm.mla_moe_step(p, tokens, cache)                      # a replay
+    torch.cuda.synchronize(dev)
+    launches = cuda_lib.launch_counts["latent_attend"]
+    del p, cache, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    kept = torch.cuda.memory_allocated(dev) - held_before
+    if kept > 2 ** 30:
+        raise AssertionError(f"latent_attend: the Moonlight step keeps "
+                             f"{kept / 2 ** 30:.2f} GiB after it is freed")
+    if launches != cfg.num_hidden_layers:
+        raise AssertionError(f"latent_attend: {launches} launches a "
+                             f"Moonlight step replay, not one a layer "
+                             f"({cfg.num_hidden_layers})")
+    return launches
+
+
+def latent_attend_phase(dev) -> dict:
+    """Phase 2, the latent attention kernel of a ``deepseek_v3`` decode
+    step at Moonlight-16B-A3B's shapes: ``latent_attend_check`` at 128,
+    7168 and 7679 held positions (a random current token, and one that
+    leans on the mean query); the launches of a step replay
+    (``latent_step_launches``); then the timing rows of
+    ``benchmarks/latent_attend_timing.py`` (kernel, bound, plain version,
+    ``scaled_dot_product_attention``).  Returns the checks, the launches
+    and the rows, or raises."""
+    from chamjax_torch.benchmarks import latent_attend_timing
+    checks = [latent_attend_check(dev, held, lean)
+              for held in LATENT_HELD for lean in (False, True)]
+    launches = latent_step_launches(dev)
+    log(f"latent_attend: {launches} launches a Moonlight step replay")
+    rows = latent_attend_timing.run(dev)
+    for r in rows:
+        log(f"latent_attend held {r['held']}: {r['rel_err']:.2e} of the "
+            f"largest value from float64, kernel {r['ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms")
+    return dict(checks=checks, launches=launches, rows=rows)
 
 
 def device_events(prof, annotation: str):
@@ -5167,6 +5287,7 @@ def run_smoke(t_smoke, dev, corpus_job) -> int:
         variant_options = variants_phase(dev)
         threefry = threefry_phase(dev)
         attend = decode_attend_phase(dev)
+        latent = latent_attend_phase(dev)
         main = main_path(dev)
         stages = stages_phase(dev, main["ctx"])
         traced = trace_phase(dev, main["ctx"])
@@ -5328,6 +5449,24 @@ def run_smoke(t_smoke, dev, corpus_job) -> int:
         bound_by=mid["bound_by"], library_ms=mid["library_ms"],
         library=mid["library"], path="main path: the RALM decode step",
         options=attend))
+    # the deepseek_v3 step's latent attention: the JAX package has no such
+    # family; the row's times are at 7168 held positions (the cell's
+    # prompt), its launches one Moonlight-16B-A3B step replay's
+    doc = next(r for r in latent["rows"] if r["held"] == 7168)
+    kernels.append(dict(
+        name="latent_attend", route="cuda",
+        source="chamjax_torch/csrc/latent_attend.cu", replaces=None,
+        replaces_note="no counterpart: the JAX package has no deepseek_v3 "
+                      "family",
+        launches=latent["launches"],
+        max_abs_err=max(c["max_abs_err"] for c in latent["checks"]),
+        checks=latent["checks"],
+        max_rel_err=max(r["rel_err"] for r in latent["rows"]),
+        ms=doc["ms"], plain_ms=doc["plain_ms"], bound_ms=doc["bound_ms"],
+        bound_by=doc["bound_by"], library_ms=doc["library_ms"],
+        library=doc["library"],
+        path="main path: the deepseek_v3 RALM decode step",
+        options=latent["rows"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     # busy_share divides by the profiled window, which the profiler
     # stretches; busy_share_unprofiled divides the same kernel time a
