@@ -242,3 +242,16 @@ def latent_attend_bound(b: int, held: int, heads: int, latent: int,
     nbytes = (b * keys * latent + b * heads * (latent + v_dim)) * elem
     return roofline_ms(nbytes, 2 * b * heads * keys * (latent + v_dim), spec,
                        spec.bf16_tflops)
+
+
+def encode_attend_bound(b: int, sq: int, sk: int, heads: int, head_dim: int,
+                        elem: int, spec: GpuSpec = H100
+                        ) -> Tuple[float, str]:
+    """``encode_attend``: q and the output (b · sq · heads · head_dim values
+    each) and the held keys' K and V (b · sk · heads · head_dim each),
+    ``elem`` bytes a value, each read or written once; the scores' and
+    p·V's multiply-adds (2 · 2 · head_dim flops a query and held key) at
+    the bf16 tensor-core rate."""
+    row = b * heads * head_dim
+    nbytes = 2 * (sq + sk) * row * elem
+    return roofline_ms(nbytes, 4 * sq * sk * row, spec, spec.bf16_tflops)

@@ -270,6 +270,8 @@ def run(args, device=None, *, inspect: Optional[Callable] = None,
                 launches_adc_scan_tiles=launches,
                 launches_decode_attend=cuda_lib.launch_counts[
                     "decode_attend"],
+                launches_encode_attend=cuda_lib.launch_counts[
+                    "encode_attend"],
                 no_host_sync_checked=dev.type == "cuda", card=card)
             if inspect is not None:
                 row.update(inspect(preset, interval, loop))

@@ -33,7 +33,7 @@ from torch import nn
 
 from chamjax_torch import random as jr
 from chamjax_torch.config import ModelConfig
-from chamjax_torch.ops import decode_attend
+from chamjax_torch.ops import decode_attend, encode_attend
 from chamjax_torch.utils import graphs, tracing
 from chamjax_torch.utils.collectives import all_gather_to, all_reduce_sum
 from chamjax_torch.utils.device import resolve_device
@@ -352,7 +352,13 @@ def _split_heads(x, h):
 
 
 def _attn_full(q, k, v, causal: bool, valid_len=None):
-    """q,k,v: (b, t, h, hd) → (b, t, h, hd); scores and softmax in f32."""
+    """q,k,v: (b, t, h, hd) → (b, t, h, hd); scores and softmax in f32.
+    A bidirectional call on bf16 tensors on the card, at a head dim the
+    encoder's attention kernel takes, runs that kernel
+    (``ops/encode_attend.py``); the rest runs here."""
+    if (not causal and q.is_cuda and q.dtype == torch.bfloat16
+            and q.shape[-1] in encode_attend.HEAD_DIMS):
+        return encode_attend.attend(q, k, v, valid_len)
     hd = q.shape[-1]
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * hd ** -0.5
     tq, tk = q.shape[1], k.shape[1]
@@ -524,8 +530,10 @@ def _encoder_forward(params, tokens, heads, valid_len):
     for i in range(L.wqkv.shape[0]):
         y = _ln(x, L.ln1_scale[i], L.ln1_bias[i])
         q, k, v = torch.chunk(y @ L.wqkv[i], 3, dim=-1)
-        a = _attn_full(_split_heads(q, h), _split_heads(k, h),
-                       _split_heads(v, h), causal=False, valid_len=valid_len)
+        with tracing.annotate("encode.attend"):
+            a = _attn_full(_split_heads(q, h), _split_heads(k, h),
+                           _split_heads(v, h), causal=False,
+                           valid_len=valid_len)
         x = x + a.reshape(x.shape) @ L.wo[i]
         x = _ffn(x, L, i)
     return _ln(x, params.ln_f["scale"], params.ln_f["bias"])

@@ -29,7 +29,7 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 SOURCES = ("adc_scan_tiles", "adc_scan_flat", "adc_scan_variants",
-           "threefry", "decode_attend", "latent_attend")
+           "threefry", "decode_attend", "latent_attend", "encode_attend")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -71,6 +71,11 @@ SIGNATURES = {
             [_VP, _I64, _I64, _VP, _I64, _I64, _VP, _I64, _VP, _I, _VP]
             + [_I] * 4 + [_F, _VP], _I),
         "chamjax_latent_attend_chunks": ([_I, _VP], _I),
+    },
+    "encode_attend": {
+        "chamjax_encode_attend": (
+            [_VP, _I64, _I64, _I64] * 3 + [_VP, _I, _I, _VP] + [_I] * 5
+            + [_F, _VP], _I),
     },
 }
 

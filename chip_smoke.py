@@ -72,7 +72,14 @@ Phases (any failure exits non-zero and prints no result):
      leaving it out moves the plain version); its launches counted from 0
      over a replay of a Moonlight-16B-A3B step (all 27 layers, 7168 held);
      timed beside its bound, its plain version and
-     ``scaled_dot_product_attention``.
+     ``scaled_dot_product_attention``;
+   - ``encode_attend`` (``csrc/encode_attend.cu``, the encoder's
+     attention) at EncDec-S's shapes (64 rows, 8 heads of 64, the views of
+     a fused QKV product): the refill's 512 tokens a row without and with
+     per-row lengths, and the query encoder's one, each no farther from the
+     float64 attention than twice the plain version plus one bf16 ulp,
+     timed over the two encoder layers beside its bound, its plain version
+     and ``scaled_dot_product_attention``.
 3. The main path: ``synthetic_dataset_device`` (1M x 128, 4096 clusters,
    seed 42) drawn on the card by the threefry kernel and held to
    ``FLAGSHIP_FINGERPRINT`` (the JAX package's own draw of it: shapes,
@@ -2388,6 +2395,26 @@ def decode_attend_phase(dev):
         log(f"decode_attend {r['attention']} held {r['held']}: "
             f"{r['max_ulps']:.2f} ulps from float64, kernel {r['ms']:.4f} "
             f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms")
+    return rows
+
+
+def encode_attend_phase(dev):
+    """Phase 2, the encoder's attention kernel: at EncDec-S's shapes (64
+    rows, 8 heads of 64, bfloat16, q, k and v the views of a fused QKV
+    product) the refill's encoder over 512 tokens without and with per-row
+    lengths and the query encoder (s = 1), each held to the float64 bar
+    and timed beside its bound, its plain version and
+    ``scaled_dot_product_attention``
+    (``benchmarks/encode_attend_timing.py``).  Returns the rows, or
+    raises."""
+    from chamjax_torch.benchmarks import encode_attend_timing
+    rows = encode_attend_timing.run(dev)
+    for r in rows:
+        log(f"encode_attend {r['attention']} s {r['s']}: "
+            f"{r['max_ulps']:.2f} ulps from float64 (plain "
+            f"{r['plain_max_ulps']:.2f}), kernel {r['ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms")
     return rows
 
@@ -5288,6 +5315,7 @@ def run_smoke(t_smoke, dev, corpus_job) -> int:
         threefry = threefry_phase(dev)
         attend = decode_attend_phase(dev)
         latent = latent_attend_phase(dev)
+        encode = encode_attend_phase(dev)
         main = main_path(dev)
         stages = stages_phase(dev, main["ctx"])
         traced = trace_phase(dev, main["ctx"])
@@ -5467,6 +5495,24 @@ def run_smoke(t_smoke, dev, corpus_job) -> int:
         library=doc["library"],
         path="main path: the deepseek_v3 RALM decode step",
         options=latent["rows"]))
+    # the encoder's attention: no Pallas kernel on the TPU (XLA's einsums);
+    # the row's times are the refill's 512 tokens a row, its launches the
+    # RALM phase's timed steps
+    refill = next(r for r in encode if r["attention"] == "refill")
+    kernels.append(dict(
+        name="encode_attend", route="cuda",
+        source="chamjax_torch/csrc/encode_attend.cu",
+        replaces="chamjax/models/transformer.py:169",
+        replaces_note="XLA's einsums, mask and softmax; no pallas_call",
+        launches=sum(r["launches_encode_attend"] for r in ralm["rows"]),
+        launches_ralm={r["preset"]: r["launches_encode_attend"]
+                       for r in ralm["rows"]},
+        max_abs_err=None, max_ulps=max(r["max_ulps"] for r in encode),
+        ms=refill["ms"], plain_ms=refill["plain_ms"],
+        bound_ms=refill["bound_ms"], bound_by=refill["bound_by"],
+        library_ms=refill["library_ms"], library=refill["library"],
+        path="main path: the encoder-decoder RALM refill and query encoder",
+        options=encode))
     print(json.dumps({"kernels": kernels}), flush=True)
     # busy_share divides by the profiled window, which the profiler
     # stretches; busy_share_unprofiled divides the same kernel time a

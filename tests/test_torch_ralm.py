@@ -416,6 +416,7 @@ def test_bench_runs_on_cpu_at_a_tiny_size():
         assert r["cached"] == 2 and r["tok_per_s"] > 0 and r["card"] == "cpu"
         assert r["launches_adc_scan_tiles"] == 0     # CPU: the plain path
         assert r["launches_decode_attend"] == 0
+        assert r["launches_encode_attend"] == 0
         assert not r["no_host_sync_checked"]
     with pytest.raises(ValueError, match="embed_dim"):
         bench.model_configs(bench.parse_args(["--presets", "Dec-S,Dec-L"]))

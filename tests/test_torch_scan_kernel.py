@@ -150,7 +150,8 @@ def test_cuda_loader_layout():
     sm_90a into the package's build directory."""
     assert cuda_lib.SOURCES == ("adc_scan_tiles", "adc_scan_flat",
                                 "adc_scan_variants", "threefry",
-                                "decode_attend", "latent_attend")
+                                "decode_attend", "latent_attend",
+                                "encode_attend")
     for name in cuda_lib.SOURCES:
         src = (cuda_lib.CSRC_DIR / f"{name}.cu").read_text()
         assert cuda_lib.library_path(name).parent == cuda_lib.BUILD_DIR
@@ -177,7 +178,7 @@ def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
         assert after[name] != before[name], name
         assert after[name].parent == cuda_lib.BUILD_DIR
     for name in ("threefry", "decode_attend",         # include no header
-                 "latent_attend"):
+                 "latent_attend", "encode_attend"):
         assert after[name] == before[name], name
     src = csrc / "adc_scan_flat.cu"
     src.write_bytes(src.read_bytes() + b"\n")

@@ -116,7 +116,8 @@ def test_ralm_step_spans_nest_under_the_profiler(retriever, tmp_path,
     ``ralm.retrieve``; the retriever's ``retrieve`` and the search's stages
     sit in ``ralm.retrieve``, the decode step's ``decode.attend`` (and
     ``decode.cross``) a layer in ``ralm.model``, and the encoder-decoder's
-    ``ralm.refill`` in ``ralm.model``."""
+    ``ralm.refill`` in ``ralm.model``, with an ``encode.attend`` an encoder
+    layer for the query encoder and for the refill."""
     _, r = retriever
     kw = dict(MODEL, model_type="encoder-decoder" if enc_dec else "decoder",
               encoder_layers=1)
@@ -138,6 +139,7 @@ def test_ralm_step_spans_nest_under_the_profiler(retriever, tmp_path,
     assert _inside(ranges, "ralm.model", "decode.cross") == (
         cfg.layers if enc_dec else 0)
     assert _inside(ranges, "ralm.model", "ralm.refill") == int(enc_dec)
+    assert _inside(ranges, "ralm.model", "encode.attend") == 2 * int(enc_dec)
     assert len(loop.get_profiling()["time_step"]) == 1
 
 
@@ -310,6 +312,31 @@ def test_refill_reader_divides_by_refills():
     assert _read("refill_ms.ralm", "ralm", t) == pytest.approx(0.39)
     del ranges["ralm.refill"]                       # a decoder-only loop
     assert _read("refill_ms.ralm", "ralm", t) is None
+
+
+def test_encode_attend_reader_divides_by_refills():
+    """The ``encode.attend`` runs of each whole refill replay, a refill: 0.24
+    ms here (100 + 140 µs); a refill map with no such run (a program whose
+    encoder opens no span) and a decoder-only cell give nothing."""
+    runs = [("_fill_cross_kv_from_ids", 2), ("_encoder_forward", 3),
+            ("encode.attend", 1), ("_encoder_forward", 2),
+            ("encode.attend", 1), ("_encoder_forward", 1),
+            ("_build_cross_kv", 2), ("_fill_cross_kv_from_ids", 1)]
+    durs = [5.0, 1.0, 2.0, 3.0, 4.0, 100.0, 6.0, 7.0, 140.0, 8.0, 300.0,
+            400.0, 9.0]
+    refill = _replays("_fill_cross_kv_from_ids", runs, [0.0, 3000.0], durs)
+    step = _replays("_decoder_step", [("_decoder_step", 1)], [1500.0],
+                    [50.0], corr0=10)
+    t = _trace({**refill[0], **step[0]}, refill[1] + step[1],
+               refill[2] + step[2])
+    assert _read("encode_attend_ms.ralm", "ralm", t) == pytest.approx(0.24)
+    assert _read("encode_attend_ms.ralm", "search", t) is None
+    assert _read("encode_attend_ms.ralm", "ralm", None) is None
+    bare = [(s if s != "encode.attend" else "_encoder_forward", n)
+            for s, n in runs]
+    before = _replays("_fill_cross_kv_from_ids", bare, [0.0, 3000.0], durs)
+    assert _read("encode_attend_ms.ralm", "ralm", _trace(*before)) is None
+    assert _read("encode_attend_ms.ralm", "ralm", _trace(*step)) is None
 
 
 def test_host_idle_reader_takes_the_median_batch():
