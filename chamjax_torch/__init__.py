@@ -19,15 +19,20 @@ Module names mirror ``chamjax/`` so each counterpart is easy to find:
   host memory, each batch's probed windows staged to the card.
 - ``chamjax_torch.models``  — the decoder and encoder-decoder transformer
   (``init_decoder``, ``init_encoder_decoder``, ``decoder_prefill``,
-  ``decoder_step``, ``encoder_forward``) and the llama family
-  (``init_llama``, ``llama_prefill``, ``llama_step``), with in-place KV
-  caches; ``models.convert`` carries the JAX package's parameters across.
+  ``decoder_step``, ``encoder_forward``), the llama family
+  (``init_llama``, ``llama_prefill``, ``llama_step``) and the
+  ``deepseek_v3`` family (``models.mla_moe``: latent attention over a
+  compressed cache, routed experts), with in-place caches; a decode step's
+  attention is the kernel ``csrc/decode_attend.cu`` (``latent_attend.cu``
+  for ``deepseek_v3``), the encoder's ``csrc/encode_attend.cu``;
+  ``models.convert`` carries the JAX package's parameters across.
 - ``chamjax_torch.retrieval`` — the retriever contract and the in-process
   retrievers ``LocalRetriever`` (over a ``PackedIVF``) and
   ``DeviceRetriever`` (over a ``DeviceIVF``), whose ``retrieve_device``
   takes and returns tensors on the card.
 - ``chamjax_torch.serving`` — ``RalmDecoder`` and ``RalmEncoderDecoder``:
-  decode steps fused with the on-card retrieval, and ``StepProfiler``.
+  decode steps fused with the on-card retrieval, each family's functions
+  chosen once by ``serving.ralm.family``; tik-tok and ``StepProfiler``.
 - ``chamjax_torch.ir``      — the BEIR-style IR harness: metrics, the
   loader and synth corpus, lexical, sparse, exact and ANN search, the
   trainable ``DualEncoder`` / ``SparseEncoder`` and the rerankers.

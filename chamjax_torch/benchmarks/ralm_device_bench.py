@@ -49,12 +49,11 @@ from chamjax_torch.data.datasets import clustered_rows
 from chamjax_torch.data.hard import GEN as HARD_GEN
 from chamjax_torch.data.hard import make_hard_corpus
 from chamjax_torch.index import build_ivfpq, build_ivfpq_device
-from chamjax_torch.models import init_decoder, init_encoder_decoder
-from chamjax_torch.models.llama import init_llama
 from chamjax_torch.retrieval.interface import BaseRetriever
 from chamjax_torch.retrieval.local import DeviceRetriever, LocalRetriever
 from chamjax_torch.searcher import auto_seg
-from chamjax_torch.serving.ralm import RalmDecoder, RalmEncoderDecoder
+from chamjax_torch.serving.ralm import (RalmDecoder, RalmEncoderDecoder,
+                                        family)
 from chamjax_torch.utils import cuda_lib
 from chamjax_torch.utils.device import card_description, resolve_device
 
@@ -197,11 +196,7 @@ def make_loop(mcfg: ModelConfig, params, retriever, args, interval: int):
 
 
 def init_params(mcfg: ModelConfig, seed: int, device):
-    if mcfg.model_type == "encoder-decoder":
-        return init_encoder_decoder(seed, mcfg, device=device)
-    if mcfg.model_type == "llama":
-        return init_llama(seed, mcfg, device=device)
-    return init_decoder(seed, mcfg, device=device)
+    return family(mcfg).init(seed, mcfg, device=device)
 
 
 @contextlib.contextmanager

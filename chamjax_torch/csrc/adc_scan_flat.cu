@@ -70,6 +70,7 @@
 #include <stdint.h>
 
 #include "adc_scan_stage.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -131,8 +132,4 @@ extern "C" int chamjax_adc_scan_distances(
   if (scan_len % 1024) return static_cast<int>(cudaErrorInvalidValue);
   return run(codes_t, n_cols, starts, lens, nullptr, luts, out, bp, m,
              scan_len, 0, 0, stream);
-}
-
-extern "C" const char* chamjax_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -62,6 +62,7 @@
 #include <stdint.h>
 
 #include "adc_scan_stage.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -117,8 +118,4 @@ extern "C" int chamjax_adc_scan_tiles(const void* codes_tiled,
   LaunchFn go = lut_bf16 ? pick<true>(out_mode, body)
                          : pick<false>(out_mode, body);
   return static_cast<int>(go(a, static_cast<cudaStream_t>(stream)));
-}
-
-extern "C" const char* chamjax_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -64,6 +64,7 @@
 #include <stdint.h>
 
 #include "adc_scan_stage.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -179,8 +180,4 @@ extern "C" int chamjax_run_block_variant(const void* codes_tiled,
                                          void* stream) {
   return run(codes_tiled, 0, starts, lut_idx, luts, out, bw, m, seg,
              kBlockBf16t, never, stream);
-}
-
-extern "C" const char* chamjax_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

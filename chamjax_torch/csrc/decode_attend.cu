@@ -60,6 +60,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -344,23 +346,6 @@ void shape_for(int h, int hd, int* threads, size_t* smem) {
   *smem = sizeof(float) * (passes * h * hd + 2 * passes * h + 3 * h);
 }
 
-inline cudaLaunchConfig_t config_for(int b, int chunks, int threads,
-                                     size_t smem, cudaLaunchAttribute* cluster,
-                                     cudaStream_t stream) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(chunks, b);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cluster->id = cudaLaunchAttributeClusterDimension;
-  cluster->val.clusterDim.x = chunks;
-  cluster->val.clusterDim.y = 1;
-  cluster->val.clusterDim.z = 1;
-  cfg.attrs = cluster;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
 template <typename T>
 int launch(const Args& a, int b, int chunks, cudaStream_t stream) {
   int threads;
@@ -371,35 +356,21 @@ int launch(const Args& a, int b, int chunks, cudaStream_t stream) {
   }
   cudaLaunchAttribute cluster;
   const cudaLaunchConfig_t cfg =
-      config_for(b, chunks, threads, smem, &cluster, stream);
+      chamjax::row_clusters(b, chunks, threads, smem, &cluster, stream);
   return static_cast<int>(
       cudaLaunchKernelEx(&cfg, decode_attend_kernel<T>, a));
 }
 
 // the most CTAs a row (8, 4, 2, 1) at which every row's cluster is resident
-// at once on this card: one wave (a second wave of clusters doubles the
-// time of the few it holds)
+// at once on this card
 template <typename T>
 int plan(int b, int h, int hd, int* chunks) {
   int threads;
   size_t smem;
   shape_for<T>(h, hd, &threads, &smem);
   if (!threads) return static_cast<int>(cudaErrorInvalidValue);
-  for (int c = kMaxChunks; c > 1; c /= 2) {
-    cudaLaunchAttribute cluster;
-    const cudaLaunchConfig_t cfg =
-        config_for(b, c, threads, smem, &cluster, nullptr);
-    int resident = 0;
-    const cudaError_t err = cudaOccupancyMaxActiveClusters(
-        &resident, decode_attend_kernel<T>, &cfg);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (resident >= b) {
-      *chunks = c;
-      return 0;
-    }
-  }
-  *chunks = 1;
-  return 0;
+  return static_cast<int>(chamjax::resident_chunks(
+      decode_attend_kernel<T>, b, kMaxChunks, threads, smem, chunks));
 }
 
 }  // namespace
@@ -437,8 +408,4 @@ extern "C" int chamjax_decode_attend_chunks(int b, int h, int hd, int dtype,
     case 1: return plan<__nv_bfloat16>(b, h, hd, chunks);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-extern "C" const char* chamjax_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

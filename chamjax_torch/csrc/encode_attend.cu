@@ -58,6 +58,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;           // one warpgroup
@@ -390,26 +392,10 @@ encode_attend_kernel(const Args a) {
   }
 }
 
-// above 48 KB of shared memory a kernel has to ask for it, once a device
-// (so that no launch inside a graph capture asks again)
-template <int HD>
-cudaError_t allow_smem() {
-  constexpr int kDevices = 64;
-  static bool done[kDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < kDevices && done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(encode_attend_kernel<HD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(Shape<HD>::kSmem));
-  if (err == cudaSuccess && dev < kDevices) done[dev] = true;
-  return err;
-}
-
 template <int HD>
 cudaError_t launch(const Args& a, int b, cudaStream_t stream) {
-  const cudaError_t err = allow_smem<HD>();
+  const cudaError_t err =
+      chamjax::allow_smem<encode_attend_kernel<HD>>(Shape<HD>::kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.sq + kBM - 1) / kBM, a.h, b);
   encode_attend_kernel<HD><<<grid, kThreads, Shape<HD>::kSmem, stream>>>(a);
@@ -445,8 +431,4 @@ extern "C" int chamjax_encode_attend(
     case 128: return static_cast<int>(launch<128>(a, b, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-extern "C" const char* chamjax_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -54,6 +54,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -370,39 +372,6 @@ latent_attend_kernel(const Args a) {
   cluster.sync();     // the other CTAs' reads of this one's shared memory
 }
 
-inline cudaLaunchConfig_t config_for(int b, int chunks,
-                                     cudaLaunchAttribute* cluster,
-                                     cudaStream_t stream) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(chunks, b);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = kSmem;
-  cfg.stream = stream;
-  cluster->id = cudaLaunchAttributeClusterDimension;
-  cluster->val.clusterDim.x = chunks;
-  cluster->val.clusterDim.y = 1;
-  cluster->val.clusterDim.z = 1;
-  cfg.attrs = cluster;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-// above 48 KB of shared memory a kernel has to ask for it, once a device
-// (so that no launch inside a graph capture asks again)
-inline cudaError_t allow_smem() {
-  constexpr int kDevices = 64;
-  static bool done[kDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < kDevices && done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(latent_attend_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(kSmem));
-  if (err == cudaSuccess && dev < kDevices) done[dev] = true;
-  return err;
-}
-
 }  // namespace
 
 // Strides in values; chunks: the CTAs a row, from
@@ -418,7 +387,7 @@ extern "C" int chamjax_latent_attend(
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (b == 0) return 0;
-  cudaError_t err = allow_smem();
+  cudaError_t err = chamjax::allow_smem<latent_attend_kernel>(kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Args a{static_cast<const __nv_bfloat16*>(q),
                static_cast<const __nv_bfloat16*>(lat),
@@ -427,8 +396,9 @@ extern "C" int chamjax_latent_attend(
                static_cast<__nv_bfloat16*>(out),
                q_sb, q_sh, lat_sb, lat_st, self_sb, len_sb, T, h, scale};
   cudaLaunchAttribute cluster;
-  const cudaLaunchConfig_t cfg = config_for(
-      b, chunks, &cluster, static_cast<cudaStream_t>(stream));
+  const cudaLaunchConfig_t cfg = chamjax::row_clusters(
+      b, chunks, kThreads, kSmem, &cluster,
+      static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaLaunchKernelEx(&cfg, latent_attend_kernel, a));
 }
 
@@ -436,24 +406,8 @@ extern "C" int chamjax_latent_attend(
 // at once on the current device
 extern "C" int chamjax_latent_attend_chunks(int b, int* chunks) {
   if (b < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem();
+  cudaError_t err = chamjax::allow_smem<latent_attend_kernel>(kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  for (int c = kMaxChunks; c > 1; c /= 2) {
-    cudaLaunchAttribute cluster;
-    const cudaLaunchConfig_t cfg = config_for(b, c, &cluster, nullptr);
-    int resident = 0;
-    err = cudaOccupancyMaxActiveClusters(&resident, latent_attend_kernel,
-                                         &cfg);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (resident >= b) {
-      *chunks = c;
-      return 0;
-    }
-  }
-  *chunks = 1;
-  return 0;
-}
-
-extern "C" const char* chamjax_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  return static_cast<int>(chamjax::resident_chunks(
+      latent_attend_kernel, b, kMaxChunks, kThreads, kSmem, chunks));
 }

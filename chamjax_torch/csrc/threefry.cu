@@ -74,6 +74,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+
 namespace {
 
 enum Form : int {
@@ -593,8 +595,4 @@ extern "C" int chamjax_threefry_logit(const void* d, long long n, void* out,
                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(d), n, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" const char* chamjax_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -281,8 +281,14 @@ def init_latent_cache(cfg: MlaMoeConfig, batch: int, device=None
     return LatentCache(lat=lat, idx=idx, routes=rt, graphs=graphs.Graphs())
 
 
-def reset_latent_cache(cache: LatentCache) -> LatentCache:
-    """Empty ``cache`` in place; its storage and graphs stay."""
+def reset_latent_cache(cache: LatentCache, prompt_len: int = 0
+                       ) -> LatentCache:
+    """Empty ``cache`` in place; its storage and graphs stay.  Above 0,
+    rewind it to its first ``prompt_len`` positions, as ``reset_cache``
+    does."""
+    if prompt_len:
+        cache.idx.fill_(prompt_len)
+        return cache._replace(host_idx=prompt_len)
     for t in (cache.lat, cache.idx, cache.routes):
         t.zero_()
     return cache._replace(host_idx=0)

@@ -285,10 +285,18 @@ def _zero_cache(cfg: ModelConfig, batch: int, max_len: Optional[int],
     return KVCache(k=k, v=v, idx=idx, graphs=graphs.Graphs())
 
 
-def reset_cache(cache: KVCache) -> KVCache:
+def reset_cache(cache: KVCache, prompt_len: int = 0) -> KVCache:
     """Empty ``cache`` in place: zero K, V and ``idx`` on the device and the
     count on the host.  Its storage stays, so the graphs captured on it stay
-    valid (the JAX package builds a fresh zero cache: the same values)."""
+    valid (the JAX package builds a fresh zero cache: the same values).
+
+    Above 0, rewind it to its first ``prompt_len`` positions instead: the
+    count set on the device and the host, the positions past it left to be
+    written again (no step reads at or past the count)."""
+    if prompt_len:
+        for t in leaves(cache.idx):
+            t.fill_(prompt_len)
+        return cache._replace(host_idx=prompt_len)
     for t in leaves((cache.k, cache.v, cache.idx)):
         t.zero_()
     return cache._replace(host_idx=0)

@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import functools
 import time
-from typing import Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -38,13 +38,15 @@ from chamjax_torch.models import (
     KVCache,
     decoder_step,
     encoder_forward,
+    init_decoder,
+    init_encoder_decoder,
     init_kv_cache,
 )
-from chamjax_torch.models.llama import (init_llama_kv_cache, llama_prefill,
-                                        llama_step)
+from chamjax_torch.models.llama import (init_llama, init_llama_kv_cache,
+                                        llama_prefill, llama_step)
 from chamjax_torch.models.mla_moe import (MODEL_TYPE as MLA_MOE,
-                                          LatentCache, MlaMoeParams,
-                                          init_latent_cache, mla_moe_prefill,
+                                          MlaMoeParams, init_latent_cache,
+                                          init_mla_moe, mla_moe_prefill,
                                           mla_moe_step, reset_latent_cache)
 from chamjax_torch.models.transformer import (TPParams, build_cross_kv,
                                               check_split, decoder_prefill,
@@ -89,45 +91,44 @@ def _ids_to_tokens_device(ids: torch.Tensor, tokens_per_doc: int, vocab: int,
     return (base % max(vocab - 2, 1)).to(torch.int32).reshape(b, -1) + 1
 
 
-def step_fns(cfg: ModelConfig):
-    """``(step, new_cache)`` of ``cfg``'s family: ``llama_step`` and
-    ``init_llama_kv_cache`` for llama, ``mla_moe_step`` and
-    ``init_latent_cache`` for ``deepseek_v3`` (an ``MlaMoeConfig``), else
-    ``decoder_step`` and ``init_kv_cache``; ``step(params, tokens, cache,
-    **cross)`` has the config's heads (and rotary settings) bound."""
-    if cfg.model_type == MLA_MOE:
-        return mla_moe_step, init_latent_cache
-    if cfg.model_type == "llama":
-        return (functools.partial(llama_step, heads=cfg.attention_heads,
-                                  kv_heads=cfg.kv_heads,
-                                  theta=cfg.rope_theta),
-                init_llama_kv_cache)
-    return (functools.partial(decoder_step, heads=cfg.attention_heads),
-            init_kv_cache)
+class Family(NamedTuple):
+    """A model family's functions, as the loops and the benchmark call
+    them: ``init(key, cfg, device=None)`` its parameters (a pair for the
+    encoder-decoder), ``step(params, tokens, cache, **cross)`` with the
+    config's heads (and rotary settings) bound, ``prefill(params, tokens,
+    cache) -> (logits, hidden, cache)`` a whole prompt (b, t) of every row
+    into the cache, ``new_cache(cfg, batch, device=None)``, and
+    ``rewind(cache, prompt_len=0)``, which takes the cache back to its
+    first ``prompt_len`` positions in place (at 0 it empties it)."""
+
+    init: Callable
+    step: Callable
+    prefill: Callable
+    new_cache: Callable
+    rewind: Callable
 
 
-def prefill_fn(cfg: ModelConfig):
-    """``prefill(params, tokens, cache) -> (logits, hidden, cache)`` of
-    ``cfg``'s family, a whole prompt (b, t) of every row into the cache."""
-    if cfg.model_type == MLA_MOE:
-        return mla_moe_prefill
-    if cfg.model_type == "llama":
-        return functools.partial(llama_prefill, heads=cfg.attention_heads,
-                                 kv_heads=cfg.kv_heads, theta=cfg.rope_theta)
-    return functools.partial(decoder_prefill, heads=cfg.attention_heads)
-
-
-def rewind(cache, prompt_len: int = 0):
-    """``cache`` back to its first ``prompt_len`` positions, in place: the
-    count set on the device and the host, the positions past it left to
-    be written again (no step reads at or past the count).  At 0 the cache
-    is emptied as ``reset_cache`` empties it."""
-    if prompt_len == 0:
-        return (reset_latent_cache(cache) if isinstance(cache, LatentCache)
-                else reset_cache(cache))
-    for t in leaves(cache.idx):
-        t.fill_(prompt_len)
-    return cache._replace(host_idx=prompt_len)
+def family(cfg: ModelConfig) -> Family:
+    """The functions of ``cfg``'s family, by its ``model_type``: the one
+    place outside ``models/`` that picks them.  The decoder's step is
+    ``decoder_step`` as this module names it when this is called."""
+    kind = cfg.model_type
+    if kind == MLA_MOE:
+        return Family(init_mla_moe, mla_moe_step, mla_moe_prefill,
+                      init_latent_cache, reset_latent_cache)
+    if kind == "llama":
+        rope = dict(heads=cfg.attention_heads, kv_heads=cfg.kv_heads,
+                    theta=cfg.rope_theta)
+        return Family(init_llama, functools.partial(llama_step, **rope),
+                      functools.partial(llama_prefill, **rope),
+                      init_llama_kv_cache, reset_cache)
+    if kind not in ("decoder", "encoder-decoder"):
+        raise ValueError(f"family: unknown model_type {kind!r}")
+    heads = cfg.attention_heads
+    return Family(init_decoder if kind == "decoder" else init_encoder_decoder,
+                  functools.partial(decoder_step, heads=heads),
+                  functools.partial(decoder_prefill, heads=heads),
+                  init_kv_cache, reset_cache)
 
 
 def first_tokens(batch: int, device) -> torch.Tensor:
@@ -278,8 +279,9 @@ class RalmDecoder:
         self.use_query_set = use_query_set
         self.device = params.embed.device
         self.prof = StepProfiler(self.device if self._device_path else None)
-        self._step_fn, new_cache = step_fns(cfg)
-        self.cache = new_cache(cfg, batch_size, device=self.device)
+        self.family = family(cfg)
+        self.cache = self.family.new_cache(cfg, batch_size,
+                                           device=self.device)
         self.tokens = first_tokens(batch_size, self.device)
         self.prompt_len = 0
         self.reset_inference_state()
@@ -287,16 +289,16 @@ class RalmDecoder:
     def prefill(self, prompt: torch.Tensor) -> None:
         """Process ``prompt`` (b, t) of every row into the cache, through
         the family's prefill; later resets rewind to its end."""
-        self.cache = rewind(self.cache)
-        _, _, self.cache = prefill_fn(self.cfg)(self.params, prompt,
-                                                self.cache)
+        self.cache = self.family.rewind(self.cache)
+        _, _, self.cache = self.family.prefill(self.params, prompt,
+                                               self.cache)
         self.prompt_len = prompt.shape[1]
         self.reset_inference_state()
 
     def reset_inference_state(self) -> None:
         """Back to the prompt's end (an empty cache where there is none)
         and the first token, in place."""
-        self.cache = rewind(self.cache, self.prompt_len)
+        self.cache = self.family.rewind(self.cache, self.prompt_len)
         self.tokens.fill_(1)
         self.step_count = 0
         self.last_result = None
@@ -318,7 +320,7 @@ class RalmDecoder:
     def single_step(self) -> None:
         with self.prof.step_span():
             with self.prof.model_span():
-                logits, hidden, self.cache = self._step_fn(
+                logits, hidden, self.cache = self.family.step(
                     self.params, self.tokens, self.cache)
                 self.tokens.copy_(torch.argmax(logits, dim=-1))
                 if not self._device_path:
@@ -394,8 +396,9 @@ class RalmEncoderDecoder:
         self.device = dec_params.embed.device
         self.prof = StepProfiler(self.device if hasattr(
             retriever, "retrieve_device") else None)
-        self.cache: KVCache = init_kv_cache(cfg, batch_size,
-                                            device=self.device)
+        self.family = family(cfg)
+        self.cache: KVCache = self.family.new_cache(cfg, batch_size,
+                                                    device=self.device)
         self.tokens = first_tokens(batch_size, self.device)
         self._cross = CrossKV(enc_params, dec_params, cfg, self.tok_len)
         self.reset_inference_state()
@@ -403,7 +406,7 @@ class RalmEncoderDecoder:
     def reset_inference_state(self) -> None:
         """Back to an empty cache, the first token and no cross K/V, in
         place."""
-        self.cache = reset_cache(self.cache)
+        self.cache = self.family.rewind(self.cache)
         self.tokens.fill_(1)
         self.step_count = 0
         self.cross_kv = None

@@ -34,11 +34,10 @@ import torch
 
 from chamjax_torch.config import ModelConfig
 from chamjax_torch.models import decoder_step, encoder_forward
-from chamjax_torch.models.transformer import reset_cache
 from chamjax_torch.retrieval.interface import BaseRetriever
 from chamjax_torch.serving.profiling import StepProfiler
-from chamjax_torch.serving.ralm import (CrossKV, _ids_to_tokens,
-                                        first_tokens, step_fns)
+from chamjax_torch.serving.ralm import (CrossKV, Family, _ids_to_tokens,
+                                        family, first_tokens)
 
 
 def _pull(t: torch.Tensor) -> np.ndarray:
@@ -47,15 +46,17 @@ def _pull(t: torch.Tensor) -> np.ndarray:
 
 
 class _BatchState:
-    def __init__(self, cfg: ModelConfig, batch: int, device: torch.device):
-        self.cache = step_fns(cfg)[1](cfg, batch, device=device)
+    def __init__(self, fam: Family, cfg: ModelConfig, batch: int,
+                 device: torch.device):
+        self._rewind = fam.rewind
+        self.cache = fam.new_cache(cfg, batch, device=device)
         self.tokens = first_tokens(batch, device)
         self.reset()
 
     def reset(self) -> None:
         """Back to an empty cache and the first token, in place (the graphs
         captured on them stay valid)."""
-        self.cache = reset_cache(self.cache)
+        self.cache = self._rewind(self.cache)
         self.tokens.fill_(1)
         self.step = 0
         self.sent = False
@@ -104,8 +105,8 @@ class _Scheduler:
 
 class TikTokDecoder(_Scheduler):
     """Two-batch pipelined decoder-only RALM (reference
-    ``ralmTikTokDecoder``), for the decoder and the llama families.  Runs
-    on the parameters' device."""
+    ``ralmTikTokDecoder``), for the decoder, the llama and the
+    ``deepseek_v3`` families.  Runs on the parameters' device."""
 
     def __init__(
         self,
@@ -125,10 +126,11 @@ class TikTokDecoder(_Scheduler):
         self.nprobe = nprobe
         self.k = k or cfg.k
         self.prof = StepProfiler()
-        self._step_fn = step_fns(cfg)[0]
+        fam = family(cfg)
+        self._step_fn = fam.step
         device = params.embed.device
         self.states: Dict[str, _BatchState] = {
-            name: _BatchState(cfg, batch_size, device)
+            name: _BatchState(fam, cfg, batch_size, device)
             for name in ("tik", "tok")}
         self.reset_inference_state()
 
@@ -207,10 +209,10 @@ class TikTokDecoder(_Scheduler):
 
 
 class _EncDecBatchState(_BatchState):
-    def __init__(self, cfg: ModelConfig, batch: int, device: torch.device,
-                 cross: CrossKV):
+    def __init__(self, fam: Family, cfg: ModelConfig, batch: int,
+                 device: torch.device, cross: CrossKV):
         self._cross = cross           # this batch's cross K/V and graphs
-        super().__init__(cfg, batch, device)
+        super().__init__(fam, cfg, batch, device)
 
     def reset(self) -> None:
         super().reset()
@@ -249,8 +251,9 @@ class TikTokEncoderDecoder(_Scheduler):
         self.tok_len = retrieval_token_len or cfg.retrieval_token_len
         self.prof = StepProfiler()
         self.device = dec_params.embed.device
+        fam = family(cfg)
         self.states: Dict[str, _EncDecBatchState] = {
-            name: _EncDecBatchState(cfg, batch_size, self.device,
+            name: _EncDecBatchState(fam, cfg, batch_size, self.device,
                                     CrossKV(enc_params, dec_params, cfg,
                                             self.tok_len))
             for name in ("tik", "tok")}

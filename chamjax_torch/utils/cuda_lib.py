@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels.
 
 Each ``chamjax_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into a shared library with a plain C interface, at first use,
-into ``chamjax_torch/build/`` (named by a hash of the source, the local
+(``sm_90a``) into a shared library with a plain C interface (its entry
+points in ``SIGNATURES``; the ``launch.cuh`` it includes gives it the
+error string ``check`` reads), at first use, into
+``chamjax_torch/build/`` (named by a hash of the source, the local
 headers it includes and the flags, so an edit to any of them rebuilds),
-and loaded with ``ctypes``.  Nothing here runs
-at import time: the CPU tests import every module on a machine with no
-``nvcc``.
+and loaded with ``ctypes``.  Nothing is built at import time: the CPU
+tests import every module on a machine with no ``nvcc``.
 
 ``launch_counts`` counts kernel launches by name; each wrapper adds one
 where it launches its kernel, and nowhere else.
@@ -28,8 +29,8 @@ from typing import Dict, Iterable
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-SOURCES = ("adc_scan_tiles", "adc_scan_flat", "adc_scan_variants",
-           "threefry", "decode_attend", "latent_attend", "encode_attend")
+# one library a source: the stems of csrc/*.cu (a .cuh is included)
+SOURCES = tuple(sorted(p.stem for p in CSRC_DIR.glob("*.cu")))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

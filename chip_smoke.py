@@ -2952,7 +2952,7 @@ def ralm_precision(dev, argv):
     import numpy as np
     import torch
     from chamjax_torch.benchmarks import ralm_device_bench as bench
-    from chamjax_torch.serving.ralm import step_fns
+    from chamjax_torch.serving.ralm import family
     cfgs = bench.model_configs(bench.parse_args(
         argv + ["--presets", ",".join(PRECISION_PRESETS)]))
     out = {}
@@ -2961,16 +2961,17 @@ def ralm_precision(dev, argv):
         card = bench.init_params(cfg, 0, dev)
         ref = bench.init_params(f32, 0, "cpu")
         ref.load_state_dict(card.state_dict())      # bf16 → f32: exact
-        step, new_cache = step_fns(cfg)
+        fam = family(cfg)
         toks = np.random.default_rng(5).integers(
             0, cfg.vocab_size, (PRECISION_STEPS, PRECISION_BATCH)).astype(
                 np.int32)
-        c_card = new_cache(cfg, PRECISION_BATCH, device=dev)
-        c_ref = new_cache(f32, PRECISION_BATCH, device="cpu")
+        c_card = fam.new_cache(cfg, PRECISION_BATCH, device=dev)
+        c_ref = fam.new_cache(f32, PRECISION_BATCH, device="cpu")
         errs = []
         for t in toks:
-            lg, _, c_card = step(card, torch.from_numpy(t).to(dev), c_card)
-            lr, _, c_ref = step(ref, torch.from_numpy(t), c_ref)
+            lg, _, c_card = fam.step(card, torch.from_numpy(t).to(dev),
+                                     c_card)
+            lr, _, c_ref = fam.step(ref, torch.from_numpy(t), c_ref)
             lg = lg.float().cpu()
             if not bool(torch.isfinite(lg).all()):
                 raise AssertionError(f"{name}: non-finite bf16 logits")
@@ -4537,12 +4538,13 @@ class DecodeSteps:
         from chamjax_torch.parallel import (shard_decoder_params,
                                             shard_kv_cache,
                                             shard_llama_params)
-        from chamjax_torch.serving.ralm import first_tokens, step_fns
+        from chamjax_torch.serving.ralm import family, first_tokens
         from chamjax_torch.utils import graphs
-        self._step, new_cache = step_fns(cfg)
+        fam = family(cfg)
+        self._step = fam.step
         *enc, dec = params if cfg.model_type == "encoder-decoder" else (
             params,)
-        self.cache = new_cache(cfg, batch, device=dev)
+        self.cache = fam.new_cache(cfg, batch, device=dev)
         if mesh is not None:
             dec = (shard_llama_params(dec, mesh, kv_heads=cfg.kv_heads)
                    if cfg.model_type == "llama"

@@ -693,7 +693,7 @@ def test_model_steps_on_card_match_cpu(cuda_device, family):
     from chamjax_torch import models
     from chamjax_torch.benchmarks.ralm_device_bench import init_params
     from chamjax_torch.models.transformer import build_cross_kv
-    from chamjax_torch.serving.ralm import step_fns
+    from chamjax_torch.serving import ralm
     cfg = ralm_config(family)
     card = init_params(cfg, 0, cuda_device)
     cpu = init_params(cfg, 1, "cpu")
@@ -703,7 +703,8 @@ def test_model_steps_on_card_match_cpu(cuda_device, family):
         c.load_state_dict(h.state_dict())
     rng = np.random.default_rng(3)
     toks = rng.integers(0, cfg.vocab_size, (3, 2)).astype(np.int32)
-    step, cache_fn = step_fns(cfg)
+    fam = ralm.family(cfg)
+    step, cache_fn = fam.step, fam.new_cache
     cross = {}
     if family == "encoder-decoder":
         src = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 6)).astype(
@@ -818,12 +819,13 @@ def test_captured_steps_equal_eager_on_card(cuda_device, family):
     from chamjax_torch.benchmarks.ralm_device_bench import init_params
     from chamjax_torch.models.transformer import build_cross_kv
     from chamjax_torch.models import encoder_forward
-    from chamjax_torch.serving.ralm import step_fns
+    from chamjax_torch.serving import ralm
     from chamjax_torch.utils import graphs
     cfg = ralm_config(family)
     params = init_params(cfg, 0, cuda_device)
     *enc, dec = params if family == "encoder-decoder" else (params,)
-    step, cache_fn = step_fns(cfg)
+    fam = ralm.family(cfg)
+    step, cache_fn = fam.step, fam.new_cache
     rng = np.random.default_rng(5)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 2)).astype(
         np.int32)).to(cuda_device)
@@ -1193,13 +1195,14 @@ def test_decode_replay_launches_the_attend_kernel_on_card(cuda_device,
     from chamjax_torch.config import MODEL_PRESETS
     from chamjax_torch.models import encoder_forward
     from chamjax_torch.models.transformer import build_cross_kv
-    from chamjax_torch.serving.ralm import step_fns
+    from chamjax_torch.serving import ralm
     cfg = dataclasses.replace(MODEL_PRESETS[preset], dtype="bfloat16",
                               max_seq_len=64)
     params = init_params(cfg, 0, cuda_device)
     enc_dec = cfg.model_type == "encoder-decoder"
     *enc, dec = params if enc_dec else (params,)
-    step, cache_fn = step_fns(cfg)
+    fam = ralm.family(cfg)
+    step, cache_fn = fam.step, fam.new_cache
     cross = {}
     if enc_dec:
         src = torch.randint(1, cfg.vocab_size, (4, 40), device=cuda_device,
@@ -1534,8 +1537,9 @@ def _tp_run(family, cfg, params, devices, steps=4, b=4):
     from chamjax_torch.models.transformer import build_cross_kv
     from chamjax_torch.parallel import (make_mesh, shard_decoder_params,
                                         shard_kv_cache, shard_llama_params)
-    from chamjax_torch.serving.ralm import step_fns
-    step, new_cache = step_fns(cfg)
+    from chamjax_torch.serving import ralm
+    fam = ralm.family(cfg)
+    step, new_cache = fam.step, fam.new_cache
     *enc, dec = params if family == "encoder-decoder" else (params,)
     dev = dec.embed.device
     cache = new_cache(cfg, b, device=dev)

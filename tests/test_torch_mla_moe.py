@@ -234,9 +234,11 @@ def test_ralm_loop_prefills_and_rewinds_to_the_prompt(tiny):
     loop = RalmDecoder(tiny.p, TINY, rec, 3, nprobe=2, k=2)
     loop.prefill(prompt)
     assert loop.cache.host_idx == int(loop.cache.idx) == 6
+    ptr = loop.cache.lat.data_ptr()
     runs = []
     for _ in range(2):
         loop.reset_inference_state()
+        assert loop.cache.lat.data_ptr() == ptr
         loop.tokens.copy_(tiny.tokens[:, 6])
         served = []
         for _ in range(3):
@@ -304,9 +306,11 @@ def test_dec_loop_prefills_a_prompt_and_rewinds_to_it():
         want.append(tok)
     loop = RalmDecoder(p, cfg, _Retriever(), 2)
     loop.prefill(prompt)
+    ptr = loop.cache.k.data_ptr()
     for _ in range(2):
         loop.reset_inference_state()
         assert loop.cache.host_idx == int(loop.cache.idx) == 4
+        assert loop.cache.k.data_ptr() == ptr
         loop.tokens.copy_(first)
         got = []
         for _ in range(3):

@@ -148,12 +148,12 @@ def test_wrapper_rejects_bad_inputs():
 def test_cuda_loader_layout():
     """Every kernel source is where the loader looks, and builds for
     sm_90a into the package's build directory."""
-    assert cuda_lib.SOURCES == ("adc_scan_tiles", "adc_scan_flat",
-                                "adc_scan_variants", "threefry",
-                                "decode_attend", "latent_attend",
-                                "encode_attend")
+    assert set(cuda_lib.SOURCES) == {
+        p.stem for p in cuda_lib.CSRC_DIR.glob("*.cu")}
+    assert set(cuda_lib.SIGNATURES) == set(cuda_lib.SOURCES)
     for name in cuda_lib.SOURCES:
-        src = (cuda_lib.CSRC_DIR / f"{name}.cu").read_text()
+        src = cuda_lib._source_bytes(cuda_lib.CSRC_DIR / f"{name}.cu",
+                                     set()).decode()
         assert cuda_lib.library_path(name).parent == cuda_lib.BUILD_DIR
         # every bound entry point is defined with a plain C interface
         for fn in cuda_lib.SIGNATURES[name]:
@@ -162,27 +162,35 @@ def test_cuda_loader_layout():
     assert "arch=compute_90a,code=sm_90a" in cuda_lib.NVCC_FLAGS
 
 
+def _includes(csrc, header: str) -> set:
+    return {n for n in cuda_lib.SOURCES
+            if f'#include "{header}"' in (csrc / f"{n}.cu").read_text()}
+
+
 def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
-    """An edit to the shared staged body (adc_scan_stage.cuh) names a new
-    library for every source that includes it (the two scans and the
-    kernel study's variants, instantiations of the same body); an edit to
-    a source names a new library for that source alone."""
+    """An edit to a shared header names a new library for exactly the
+    sources that include it (``launch.cuh``, the host launch code;
+    ``adc_scan_stage.cuh``, the staged body, which the two scans and the
+    kernel study's variants alone include); an edit to a source names a
+    new library for that source alone."""
     csrc = tmp_path / "csrc"
     shutil.copytree(cuda_lib.CSRC_DIR, csrc)
     monkeypatch.setattr(cuda_lib, "CSRC_DIR", csrc)
-    before = {n: cuda_lib.library_path(n) for n in cuda_lib.SOURCES}
-    header = csrc / "adc_scan_stage.cuh"
-    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    scans = {"adc_scan_tiles", "adc_scan_flat", "adc_scan_variants"}
+    assert _includes(csrc, "adc_scan_stage.cuh") == scans
+    assert _includes(csrc, "launch.cuh")
     after = {n: cuda_lib.library_path(n) for n in cuda_lib.SOURCES}
-    for name in ("adc_scan_tiles", "adc_scan_flat", "adc_scan_variants"):
-        assert after[name] != before[name], name
-        assert after[name].parent == cuda_lib.BUILD_DIR
-    for name in ("threefry", "decode_attend",         # include no header
-                 "latent_attend", "encode_attend"):
-        assert after[name] == before[name], name
+    for header, users in (("launch.cuh", _includes(csrc, "launch.cuh")),
+                          ("adc_scan_stage.cuh", scans)):
+        before = after
+        path = csrc / header
+        path.write_bytes(path.read_bytes() + b"\n// edited\n")
+        after = {n: cuda_lib.library_path(n) for n in cuda_lib.SOURCES}
+        assert {n for n in cuda_lib.SOURCES
+                if after[n] != before[n]} == users, header
+        assert all(p.parent == cuda_lib.BUILD_DIR for p in after.values())
     src = csrc / "adc_scan_flat.cu"
     src.write_bytes(src.read_bytes() + b"\n")
     again = {n: cuda_lib.library_path(n) for n in cuda_lib.SOURCES}
-    assert again["adc_scan_flat"] != after["adc_scan_flat"]
-    assert again["adc_scan_tiles"] == after["adc_scan_tiles"]
-    assert again["adc_scan_variants"] == after["adc_scan_variants"]
+    assert {n for n in cuda_lib.SOURCES
+            if again[n] != after[n]} == {"adc_scan_flat"}

@@ -325,3 +325,42 @@ def test_reset_keeps_the_states_buffers():
     loop.batch_inference(6)
     for n, s in loop.states.items():
         assert torch.equal(s.tokens, first[n])
+
+
+class _DeviceRetriever:
+    """A fused-path retriever: the same ids for every query."""
+
+    def retrieve_device(self, q, nprobe, k):
+        ids = torch.zeros((q.shape[0], k), dtype=torch.int64)
+        return RetrievalResult(ids=ids, dists=ids.float())
+
+
+def test_tiktok_runs_deepseek_v3_family():
+    """The ``deepseek_v3`` family (its latent cache and its own rewind)
+    through the tik-tok loop: each state's tokens and latent cache equal a
+    ``RalmDecoder``'s greedy run over the same parameters (neither loop
+    feeds retrieval back into the model), and a reset keeps each state's
+    latent storage and repeats the run."""
+    from chamjax_torch.models.mla_moe import init_mla_moe
+    from test_torch_mla_moe import TINY
+    p = init_mla_moe(11, TINY, device="cpu")
+    first = torch.tensor([5, 9], dtype=torch.int32)
+    seq = tralm.RalmDecoder(p, TINY, _DeviceRetriever(), 2,
+                            retrieval_interval=2, k=2)
+    seq.tokens.copy_(first)
+    seq.batch_inference(8)
+    loop = ttiktok.TikTokDecoder(p, TINY, _DeviceRetriever(), batch_size=2,
+                                 retrieval_interval=2, k=2)
+    ptrs = {n: s.cache.lat.data_ptr() for n, s in loop.states.items()}
+    for _ in range(2):
+        for s in loop.states.values():
+            s.tokens.copy_(first)
+        loop.batch_inference(8)
+        for n, s in loop.states.items():
+            assert s.step == 8 and s.cache.host_idx == int(s.cache.idx) == 8
+            assert torch.equal(s.tokens, seq.tokens)
+            assert torch.equal(s.cache.lat, seq.cache.lat)
+        loop.reset_inference_state()
+        for n, s in loop.states.items():
+            assert s.cache.lat.data_ptr() == ptrs[n]
+            assert s.cache.host_idx == 0 and not s.cache.lat.any()
