@@ -566,10 +566,42 @@ def build_cross_kv(
 
 
 def _build_cross_kv(dec_params, enc_out, heads):
-    L, b, s = dec_params.cross_layers.wkv.shape[0], *enc_out.shape[:2]
-    kv = enc_out[None] @ dec_params.cross_layers.wkv[:, None]  # (L,b,s,2d)
-    k, v = torch.chunk(kv, 2, dim=-1)
-    return (k.reshape(L, b, s, heads, -1), v.reshape(L, b, s, heads, -1))
+    wkv = dec_params.cross_layers.wkv
+    shape = (wkv.shape[0], *enc_out.shape[:2], heads, wkv.shape[1] // heads)
+    kv = (wkv.new_empty(shape), wkv.new_empty(shape))
+    write_cross_kv(dec_params, enc_out, heads, kv)
+    return kv
+
+
+def write_cross_kv(
+    dec_params: TransformerParams,
+    enc_out: torch.Tensor,        # (b, s, d)
+    heads: int,
+    out: Tuple[torch.Tensor, torch.Tensor],
+) -> None:
+    """Write the cross K/V of :func:`build_cross_kv` into ``out``, a
+    contiguous (k, v) pair, each (layers, b, s, h, hd) in the weights'
+    dtype, in place: one strided-batched GEMM a half over the layers, from
+    the encoder output (batch stride 0) and a column view of ``wkv`` into
+    the buffer.  Nothing else is written: no broadcast operand, no
+    (layers, b, s, 2d) product, no copy.  A stage span,
+    ``cross_kv.write``."""
+    wkv = dec_params.cross_layers.wkv
+    L, d = wkv.shape[:2]
+    b, s = enc_out.shape[:2]
+    shape = (L, b, s, heads, d // heads)
+    for buf in out:
+        if (buf.shape != shape or buf.dtype != wkv.dtype
+                or buf.device != enc_out.device or not buf.is_contiguous()):
+            raise ValueError(
+                f"write_cross_kv: needs contiguous {wkv.dtype} buffers of "
+                f"shape {shape} on {enc_out.device}, got {buf.dtype} "
+                f"{tuple(buf.shape)} on {buf.device}"
+                + ("" if buf.is_contiguous() else ", not contiguous"))
+    with tracing.annotate("cross_kv.write"):
+        e = enc_out.reshape(1, b * s, d).expand(L, -1, -1)
+        torch.bmm(e, wkv[:, :, :d], out=out[0].view(L, b * s, d))
+        torch.bmm(e, wkv[:, :, d:], out=out[1].view(L, b * s, d))
 
 
 # ---------------------------------------------------------------------------

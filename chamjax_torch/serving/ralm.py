@@ -50,7 +50,8 @@ from chamjax_torch.models.mla_moe import (MODEL_TYPE as MLA_MOE,
                                           mla_moe_step, reset_latent_cache)
 from chamjax_torch.models.transformer import (TPParams, build_cross_kv,
                                               check_split, decoder_prefill,
-                                              leaves, reset_cache)
+                                              leaves, reset_cache,
+                                              write_cross_kv)
 from chamjax_torch.retrieval.interface import BaseRetriever
 from chamjax_torch.serving.profiling import StepProfiler
 from chamjax_torch.utils import graphs, tracing
@@ -139,10 +140,15 @@ def first_tokens(batch: int, device) -> torch.Tensor:
 
 def _fill_cross_kv(enc, dec, ret_tokens, out, heads) -> None:
     """Encode the retrieved tokens and write the decoder's cross K/V into
-    the buffers ``out`` in place, leaf by leaf (one pair, or one a grid
-    position on tensor-parallel parameters)."""
+    the buffers ``out`` in place: straight from the GEMMs on
+    ``TransformerParams`` (``write_cross_kv``); on tensor-parallel
+    parameters a copy, leaf by leaf, of ``build_cross_kv``'s grid."""
+    enc_out = encoder_forward(enc, ret_tokens, heads)
+    if not isinstance(dec, TPParams):
+        write_cross_kv(dec, enc_out, heads, out)
+        return
     for buf, new in zip(leaves(out), leaves(build_cross_kv(
-            dec, encoder_forward(enc, ret_tokens, heads), heads))):
+            dec, enc_out, heads))):
         buf.copy_(new)
 
 

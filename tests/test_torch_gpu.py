@@ -1043,6 +1043,97 @@ def test_stage_maps_split_every_replay_on_card(ralm_retriever, family,
 
 
 # ---------------------------------------------------------------------------
+# the refill's cross-K/V write (models/transformer.py::write_cross_kv)
+# ---------------------------------------------------------------------------
+
+
+def encdec_s_refill(device):
+    """EncDec-S at its published widths (bf16, 24 decoder layers), a
+    ``CrossKV`` over its parameters, and 64 rows of 512 retrieved tokens:
+    the benchmark's refill."""
+    from chamjax_torch.benchmarks.ralm_device_bench import init_params
+    from chamjax_torch.config import MODEL_PRESETS
+    from chamjax_torch.serving.ralm import CrossKV, _ids_to_tokens_device
+    cfg = MODEL_PRESETS["EncDec-S"]
+    enc, dec = init_params(cfg, 0, device)
+    ids = torch.randint(0, 10 ** 6, (64, cfg.k),
+                        generator=torch.Generator().manual_seed(5))
+    toks = _ids_to_tokens_device(ids.to(device), cfg.retrieval_token_len,
+                                 cfg.vocab_size)[:, :cfg.max_seq_len]
+    return cfg, enc, dec, CrossKV(enc, dec, cfg, cfg.retrieval_token_len), \
+        toks
+
+
+@pytest.mark.gpu
+def test_refill_writes_the_broadcast_cross_kv_on_card(cuda_device):
+    """A replay of the captured refill leaves in the loop's buffers what
+    ``build_cross_kv`` gives over the same encoder output (the one writer,
+    bit for bit), and that is the broadcast product the refill computed
+    before the writer (``enc_out[None] @ wkv[:, None]``, chunked), bit for
+    bit where cuBLAS keeps its kernel for the new GEMM shape, else within
+    one bf16 ulp; the test prints which."""
+    from chamjax_torch.models import encoder_forward
+    from chamjax_torch.models.transformer import build_cross_kv
+    from chamjax_torch.utils import graphs
+    cfg, enc, dec, cross, toks = encdec_s_refill(cuda_device)
+    H = cfg.attention_heads
+    cross.from_tokens(toks)                             # the capture
+    for t in cross.kv:
+        t.fill_(float("nan"))
+    kv = cross.from_tokens(toks)                        # a replay
+    out = encoder_forward(enc, toks, H)
+    assert all(torch.equal(a, w) for a, w in
+               zip(kv, build_cross_kv(dec, out, H)))
+    with graphs.disable_capture():
+        old = out[None] @ dec.cross_layers.wkv[:, None]
+    parent = [x.reshape(*kv[0].shape) for x in torch.chunk(old, 2, dim=-1)]
+    exact = all(torch.equal(a, p) for a, p in zip(kv, parent))
+    print("refill cross K/V against the broadcast product:",
+          "bit-equal" if exact else "within one bf16 ulp")
+    for a, p in zip(kv, parent):
+        a, p = a.float(), p.float()
+        top = torch.maximum(a.abs(), p.abs()).clamp_min(
+            torch.finfo(torch.bfloat16).tiny)
+        ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+        assert ((a - p).abs() <= ulp).all()
+
+
+@pytest.mark.gpu
+def test_refill_writes_cross_kv_by_gemms_alone_on_card(cuda_device,
+                                                       tmp_path):
+    """The captured refill's stage map holds one ``cross_kv.write`` run and
+    no ``_build_cross_kv`` run; in a profiler trace of its replays that run
+    is two GEMM kernels (one strided-batched GEMM for K, one for V over
+    every layer), each with at most the memset cuBLAS makes of its own
+    workspace: no copy and no elementwise kernel."""
+    from portbench import spans
+    from portbench import trace as ptrace
+    _cfg, _enc, _dec, cross, toks = encdec_s_refill(cuda_device)
+    cross.from_tokens(toks)
+    torch.cuda.synchronize()
+    (g,) = cross.graphs._graphs.values()
+    (nodes,) = [n for span, n in g.stages if span == "cross_kv.write"]
+    assert 2 <= nodes <= 4
+    assert "_build_cross_kv" not in {span for span, _ in g.stages}
+    with tracing.trace(str(tmp_path)):
+        for _ in range(4):
+            cross.from_tokens(toks)
+        torch.cuda.synchronize()
+    (path,) = tmp_path.glob("*.pt.trace.json")
+    reps = spans.split_replays(ptrace.parse(str(path)), "_fill_cross_kv")
+    whole = [runs for _, runs in reps if runs is not None]
+    assert len(reps) == 4 and 2 * len(whole) >= len(reps)
+    for runs in whole:
+        names = [a[0] for span, acts in runs if span == "cross_kv.write"
+                 for a in acts]
+        gemms = [n for n in names if not n.startswith("Memset")]
+        assert len(names) == nodes and len(gemms) == 2, names
+        assert not [n for n in gemms if any(
+            w in n.lower() for w in ("elementwise", "copy", "memcpy",
+                                     "reduce", "fill"))], names
+
+
+# ---------------------------------------------------------------------------
 # the decode step's attention kernel (csrc/decode_attend.cu)
 # ---------------------------------------------------------------------------
 

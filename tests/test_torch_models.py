@@ -252,6 +252,90 @@ def test_cross_kv_and_cross_step_match_chamjax(enc_dec):
         close(thid, hid, dtype)
 
 
+CROSS_SHAPES = [(3, 2, 6, 64, 4), (2, 1, 5, 32, 2), (4, 3, 1, 48, 3),
+                (1, 1, 1, 16, 1), (2, 4, 7, 96, 8)]      # (L, b, s, d, h)
+
+
+def cross_case(L, b, s, d, h, dtype=torch.float32):
+    """A decoder with cross-attention whose ``wkv`` is drawn from a seed,
+    and an encoder output drawn from it too."""
+    cfg = tconfig.ModelConfig(model_type="encoder-decoder", embed_dim=d,
+                              ffn_embed_dim=2 * d, layers=L,
+                              attention_heads=h, vocab_size=11,
+                              max_seq_len=8)
+    dec = tt.TransformerParams(cfg, n_layers=L, n_out=11,
+                               cross_attention=True, device="cpu",
+                               dtype=dtype)
+    g = torch.Generator().manual_seed(L * 1000 + b * 100 + s * 10 + h)
+    dec.cross_layers.wkv.copy_(torch.randn(L, d, 2 * d, generator=g))
+    return dec, torch.randn(b, s, d, generator=g).to(dtype)
+
+
+def cross_buffers(L, b, s, d, h, dtype=torch.float32):
+    return tuple(torch.full((L, b, s, h, d // h), float("nan"), dtype=dtype)
+                 for _ in range(2))
+
+
+@pytest.mark.parametrize("L,b,s,d,h", CROSS_SHAPES)
+def test_write_cross_kv_is_the_broadcast_product(L, b, s, d, h):
+    """The writer's buffers equal the broadcast product over every layer,
+    chunked into K and V and split into heads, bit for bit in f32.  At
+    s = 1 the broadcast is vector-matrix products, which the CPU's BLAS
+    sums in another order than the writer's GEMMs over b rows (or its own
+    vector path at b = 1): there both must lie within f32's bound for a
+    d-term dot product (d · eps · |e|·|w|) of the float64 product."""
+    dec, enc_out = cross_case(L, b, s, d, h)
+    wkv = dec.cross_layers.wkv
+    kv = enc_out[None] @ wkv[:, None]
+    want = [x.reshape(L, b, s, h, -1) for x in torch.chunk(kv, 2, dim=-1)]
+    out = cross_buffers(L, b, s, d, h)
+    tt.write_cross_kv(dec, enc_out, h, out)
+    if s > 1:
+        assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+        return
+    exact = enc_out.double()[None] @ wkv.double()[:, None]
+    bound = d * torch.finfo(torch.float32).eps * (
+        enc_out.double().abs()[None] @ wkv.double().abs()[:, None])
+    got = torch.cat([x.reshape(L, b, s, d) for x in out], dim=-1)
+    assert ((got.double() - exact).abs() <= bound).all()
+    assert ((kv.double() - exact).abs() <= bound).all()
+
+
+@pytest.mark.parametrize("L,b,s,d,h", CROSS_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_build_cross_kv_is_the_writer(L, b, s, d, h, dtype):
+    """``build_cross_kv`` returns what the writer writes, bit for bit, as
+    contiguous (L, b, s, h, hd) tensors in the weights' dtype."""
+    dec, enc_out = cross_case(L, b, s, d, h, dtype)
+    got = tt.build_cross_kv(dec, enc_out, h)
+    out = cross_buffers(L, b, s, d, h, dtype)
+    tt.write_cross_kv(dec, enc_out, h, out)
+    for g, o in zip(got, out):
+        assert g.dtype == dtype and g.is_contiguous()
+        assert torch.equal(g, o)
+
+
+@pytest.mark.parametrize("which", [0, 1])
+@pytest.mark.parametrize("fault", ["shape", "heads", "dtype", "strided"])
+def test_write_cross_kv_refuses_a_wrong_buffer(fault, which):
+    """A K (0) or V (1) buffer of another shape (or head split), another
+    dtype, or one that is not contiguous is refused before anything is
+    written."""
+    L, b, s, d, h = CROSS_SHAPES[0]
+    dec, enc_out = cross_case(L, b, s, d, h)
+    out = [torch.zeros(L, b, s, h, d // h) for _ in range(2)]
+    out[which] = {
+        "shape": lambda: torch.zeros(L, b, s + 1, h, d // h),
+        "heads": lambda: torch.zeros(L, b, s, 2 * h, d // (2 * h)),
+        "dtype": lambda: torch.zeros(L, b, s, h, d // h,
+                                     dtype=torch.bfloat16),
+        "strided": lambda: torch.zeros(L, b, s, h, 2 * d // h)[..., ::2],
+    }[fault]()
+    with pytest.raises(ValueError, match="write_cross_kv"):
+        tt.write_cross_kv(dec, enc_out, h, tuple(out))
+    assert not any(t.any() for t in out)
+
+
 def test_gelu_is_jax_default_tanh():
     """jax.nn.gelu defaults to the tanh approximation; torch's to erf,
     which differs by up to ~5e-4 here."""

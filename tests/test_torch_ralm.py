@@ -374,6 +374,39 @@ def test_ralm_encoder_decoder_matches_chamjax(retrievers, interval):
                                        16)
 
 
+@pytest.mark.parametrize("source", ["tokens", "ids"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cross_kv_refills_its_buffers_in_place(source, dtype):
+    """``CrossKV`` on plain parameters writes each refill into the same two
+    buffers (the storage the decode step's graph reads), and what they
+    hold equals ``build_cross_kv`` of the encoder's output over the same
+    retrieved tokens, bit for bit; a second refill, over other tokens into
+    buffers filled with NaN, writes every element."""
+    cfg = tconfig.ModelConfig(**dict(MODEL, model_type="encoder-decoder",
+                                     encoder_layers=2, dtype=dtype,
+                                     retrieval_token_len=4, k=3))
+    enc, dec = tt.init_encoder_decoder(11, cfg, device="cpu")
+    cross = tralm.CrossKV(enc, dec, cfg, cfg.retrieval_token_len)
+    b, H = 2, cfg.attention_heads
+    ptrs = None
+    for seed in (1, 2):
+        ids = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, 4000, (b, cfg.k)))
+        toks = tralm._ids_to_tokens_device(ids, cfg.retrieval_token_len,
+                                           cfg.vocab_size)
+        kv = (cross.from_ids(ids) if source == "ids"
+              else cross.from_tokens(toks))
+        assert kv is cross.kv and kv[0].shape == (
+            cfg.layers, b, toks.shape[1], H, cfg.embed_dim // H)
+        if ptrs is None:
+            ptrs = [t.data_ptr() for t in kv]
+        assert [t.data_ptr() for t in kv] == ptrs
+        want = tt.build_cross_kv(dec, tt.encoder_forward(enc, toks, H), H)
+        assert all(torch.equal(a, w) for a, w in zip(kv, want))
+        for t in kv:
+            t.fill_(float("nan"))
+
+
 def test_ralm_host_path_with_dummy_retriever():
     """A retriever without retrieve_device takes the host path (numpy
     queries, numpy ids → host token synthesis), as in chamjax."""

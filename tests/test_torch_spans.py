@@ -339,6 +339,32 @@ def test_encode_attend_reader_divides_by_refills():
     assert _read("encode_attend_ms.ralm", "ralm", _trace(*step)) is None
 
 
+def test_cross_kv_reader_divides_by_refills():
+    """The ``cross_kv.write`` runs of each whole refill replay, a refill:
+    0.7 ms here (300 + 400 µs, the K and V GEMMs of two layers); the
+    parent's map, whose K/V sits in ``_build_cross_kv`` and a copy at the
+    root, and a decoder-only cell give nothing."""
+    runs = [("_fill_cross_kv_from_ids", 2), ("_encoder_forward", 3),
+            ("encode.attend", 1), ("_encoder_forward", 2),
+            ("encode.attend", 1), ("_encoder_forward", 1),
+            ("cross_kv.write", 4)]
+    durs = [5.0, 1.0, 2.0, 3.0, 4.0, 100.0, 6.0, 7.0, 140.0, 8.0, 100.0,
+            200.0, 150.0, 250.0]
+    refill = _replays("_fill_cross_kv_from_ids", runs, [0.0, 3000.0], durs)
+    step = _replays("_decoder_step", [("_decoder_step", 1)], [1500.0],
+                    [50.0], corr0=10)
+    t = _trace({**refill[0], **step[0]}, refill[1] + step[1],
+               refill[2] + step[2])
+    assert _read("cross_kv_ms.ralm", "ralm", t) == pytest.approx(0.7)
+    assert _read("cross_kv_ms.ralm", "search", t) is None
+    assert _read("cross_kv_ms.ralm", "ralm", None) is None
+    parent = runs[:-1] + [("_build_cross_kv", 3),
+                          ("_fill_cross_kv_from_ids", 1)]
+    before = _replays("_fill_cross_kv_from_ids", parent, [0.0, 3000.0], durs)
+    assert _read("cross_kv_ms.ralm", "ralm", _trace(*before)) is None
+    assert _read("cross_kv_ms.ralm", "ralm", _trace(*step)) is None
+
+
 def test_host_idle_reader_takes_the_median_batch():
     """The card's idle µs inside each ``retrieve`` range that starts in the
     window and holds a whole search replay: 30 and 50 here (busy 10 + 20
