@@ -22,9 +22,13 @@ Module names mirror ``chamjax/`` so each counterpart is easy to find:
   ``decoder_step``, ``encoder_forward``), the llama family
   (``init_llama``, ``llama_prefill``, ``llama_step``) and the
   ``deepseek_v3`` family (``models.mla_moe``: latent attention over a
-  compressed cache, routed experts), with in-place caches; a decode step's
-  attention is the kernel ``csrc/decode_attend.cu`` (``latent_attend.cu``
-  for ``deepseek_v3``), the encoder's ``csrc/encode_attend.cu``;
+  compressed cache, routed experts) and the ``kimi_linear`` family
+  (``models.kimi_linear``: KDA layers with a recurrent state beside latent
+  attention, a held share of the routed experts, a cache rewound by a
+  snapshot), with in-place caches; a decode step's attention is the kernel
+  ``csrc/decode_attend.cu`` (``latent_attend.cu`` for ``deepseek_v3`` and
+  ``kimi_linear``, whose KDA layers take ``kda_decode.cu``), the encoder's
+  ``csrc/encode_attend.cu``;
   ``models.convert`` carries the JAX package's parameters across.
 - ``chamjax_torch.retrieval`` — the retriever contract and the in-process
   retrievers ``LocalRetriever`` (over a ``PackedIVF``) and

@@ -255,3 +255,14 @@ def encode_attend_bound(b: int, sq: int, sk: int, heads: int, head_dim: int,
     row = b * heads * head_dim
     nbytes = 2 * (sq + sk) * row * elem
     return roofline_ms(nbytes, 4 * sq * sk * row, spec, spec.bf16_tflops)
+
+
+def kda_decode_bound(bh: int, head_dim: int, spec: GpuSpec = H100
+                     ) -> Tuple[float, str]:
+    """``kda_decode``: each of ``bh`` (row, head) states (head_dim² float32)
+    read and written once, q, k, v and alpha (head_dim float32 each) and
+    beta read, o (head_dim bfloat16) written; the decay, Sᵀk, the rank-1
+    update and Sᵀq (7 flops a state entry) at the fp32 rate."""
+    K = head_dim
+    nbytes = bh * (2 * K * K * 4 + 4 * K * 4 + 4 + K * 2)
+    return roofline_ms(nbytes, 7 * bh * K * K, spec)

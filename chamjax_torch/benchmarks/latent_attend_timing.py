@@ -23,7 +23,11 @@ attention of the same values: off by at most 2^-7 of the largest value
 (the kernel rounds the probabilities to bfloat16, 2^-9 of each, for its
 tensor-core p·V, and the output to bfloat16).
 
-    python -m chamjax_torch.benchmarks.latent_attend_timing [--out FILE]
+With ``--kimi``, the same rows at the Kimi-Linear-48B-A3B step's shapes:
+32 heads (two 16-row tiles of the MMA in a CTA of 8 warps) over a
+16,896-position cache, 128, 8192, 16,384 and 16,895 held.
+
+    python -m chamjax_torch.benchmarks.latent_attend_timing [--kimi] [--out FILE]
 
 Needs the card and the CUDA toolkit; prints one JSON line a row and the
 card.
@@ -49,6 +53,7 @@ LAYERS, B, T, HEADS = 4, 64, 7680, 16
 LATENT, V_DIM = la.LATENT, la.V_DIM
 SCALE = 192 ** -0.5
 HELD = (128, 2048, 7168, 7679)
+KIMI = dict(heads=32, cache=16896, held=(128, 8192, 16384, 16895))
 
 
 def rel_err(got, q, lat, held: int, own) -> float:
@@ -62,18 +67,19 @@ def rel_err(got, q, lat, held: int, own) -> float:
                  / kk[..., :V_DIM].abs().max())
 
 
-def run(dev, layers: int = LAYERS) -> List[Dict]:
+def run(dev, layers: int = LAYERS, heads: int = HEADS, cache: int = T,
+        held_rows=HELD) -> List[Dict]:
     """The rows, each held against float64 before it is timed; raises where
     the kernel is off by more than 2^-7 of the largest value."""
     g = torch.Generator(device=dev).manual_seed(0)
-    lat = torch.randn((layers, B, T, LATENT), generator=g, device=dev,
+    lat = torch.randn((layers, B, cache, LATENT), generator=g, device=dev,
                       dtype=torch.bfloat16)
-    q = torch.randn((B, HEADS, LATENT), generator=g, device=dev,
+    q = torch.randn((B, heads, LATENT), generator=g, device=dev,
                     dtype=torch.bfloat16) * 3
     own = torch.randn((B, LATENT), generator=g, device=dev,
                       dtype=torch.bfloat16)
     rows = []
-    for held in HELD:
+    for held in held_rows:
         idx = torch.tensor(held, dtype=torch.int32, device=dev)
 
         def sweep(fn):
@@ -90,27 +96,30 @@ def run(dev, layers: int = LAYERS) -> List[Dict]:
         if err > 2.0 ** -7:
             raise AssertionError(f"latent_attend held {held}: {err:.2e} "
                                  f"of the largest value from float64")
-        bound_ms, bound_by = latent_attend_bound(B, held, HEADS, LATENT,
+        bound_ms, bound_by = latent_attend_bound(B, held, heads, LATENT,
                                                  V_DIM, 2, True)
         before = cuda_lib.launch_counts["latent_attend"]
         ms = event_ms(kernel, launches=3, reps=5) / layers
         launches = cuda_lib.launch_counts["latent_attend"] - before
         rows.append(dict(
-            held=held, b=B, heads=HEADS, latent=LATENT, v_dim=V_DIM,
-            dtype="bfloat16", chunks=la.cluster_size(B, dev.index),
+            held=held, b=B, heads=heads, latent=LATENT, v_dim=V_DIM,
+            dtype="bfloat16", chunks=la.cluster_size(B, dev.index, heads),
             rel_err=err, ms=ms, bound_ms=bound_ms, bound_by=bound_by,
             roofline_pct=100 * bound_ms / ms,
             plain_ms=event_ms(plain, launches=1, reps=3) / layers,
             library_ms=event_ms(library, launches=3, reps=5) / layers,
-            library="torch.nn.functional.scaled_dot_product_attention "
-                    "(16 queries of one head, held positions, no "
-                    "current token)",
+            library=f"torch.nn.functional.scaled_dot_product_attention "
+                    f"({heads} queries of one head, held positions, no "
+                    f"current token)",
             launches=launches))
     return rows
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kimi", action="store_true",
+                    help="Kimi-Linear-48B-A3B's shapes (32 heads, 16,896 "
+                         "positions)")
     ap.add_argument("--out", help="also write the lines to this file")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -118,7 +127,9 @@ def main(argv=None) -> int:
         return 1
     for name, text in cuda_lib.build(("latent_attend",)).items():
         print(f"nvcc {name}: {text.strip()}", flush=True)
-    lines = [json.dumps(r) for r in run(torch.device("cuda", 0))]
+    shapes = ({"heads": KIMI["heads"], "cache": KIMI["cache"],
+               "held_rows": KIMI["held"]} if args.kimi else {})
+    lines = [json.dumps(r) for r in run(torch.device("cuda", 0), **shapes)]
     lines.append(json.dumps(dict(card=card_description())))
     print("\n".join(lines), flush=True)
     if args.out:

@@ -1,12 +1,13 @@
 // Single-query latent attention against a compressed cache, for Hopper
 // (sm_90a): the decode step's attention of the DeepSeek-V3 block
 // (chamjax_torch/ops/latent_attend.py::attend; plain version
-// attend_reference), as models/mla_moe.py absorbs it.
+// attend_reference), as models/mla_moe.py absorbs it, and of the
+// latent-attention layers of Kimi-Linear (models/kimi_linear.py).
 //
 // It replaces no Pallas kernel: the JAX package has no latent-attention
 // family.  Each cached position holds one latent of D = 576 values, the
-// normed c_kv (512) and the roped k_pe (64), shared by every head.  The
-// step's h <= 16 queries a row are [q_lat | q_pe] (576 each), and
+// normed c_kv (512) and the k_pe (64), shared by every head.  The step's
+// h <= 32 queries a row are [q_lat | q_pe] (576 each), and
 //
 // out[b, h, :] = sum_j softmax_j(q[b, h, :] . lat[b, j, :] * scale)
 //                lat[b, j, :512]
@@ -32,19 +33,25 @@
 //   the batch and one CUDA graph captures it; no position at or past the
 //   length is read.  The current token is the position after the last
 //   held one.
-// - A CTA of 4 warps streams tiles of 32 positions (32 x 1152 bytes) into
+// - The heads are MT tiles of 16 rows (MT = 1 up to 16 heads, 2 up to 32),
+//   each the M = 16 of the MMA and each taken by a group of 4 warps; the
+//   groups share the CTA's tiles, so a latent is read once for all heads.
+//   MT = 1 is the kernel as it was written for 16 heads, instruction for
+//   instruction (PERF.md).
+// - A CTA of 4 warps a group streams tiles of 32 positions (32 x 1152 bytes) into
 //   shared memory with cp.async, two tiles in flight, each row padded by
 //   16 bytes so that ldmatrix reads no two rows from one bank.
-// - S = Q K^T: each warp holds its quarter of the 576 dims of Q (16 heads)
+// - S = Q K^T: each warp holds its quarter of the 576 dims of its group's
+//   16 heads of Q
 //   in registers as A fragments and takes the partial scores of all 32
-//   positions; the four partials are summed through shared memory, and
+//   positions; a group's four partials are summed through shared memory, and
 //   every warp keeps the same online softmax (running max and sum in
 //   float32).  P, in registers, is the A operand of P.V, and each warp
 //   owns 128 of the 512 output columns (V is the first 512 values of the
 //   tile already in shared memory: one read serves K and V).
-// - The combine stays on chip: each CTA leaves its 16 x 512 state and its
-//   max and sum in shared memory, and after a cluster barrier each CTA
-//   merges 16 / cluster heads from every CTA's shared memory (distributed
+// - The combine stays on chip: each CTA leaves its 16·MT x 512 state and
+//   its max and sum in shared memory, and after a cluster barrier each CTA
+//   merges 16·MT / cluster heads from every CTA's shared memory (distributed
 //   shared memory) and writes them.  No scratch in device memory and no
 //   second launch.
 
@@ -62,25 +69,33 @@ namespace {
 
 constexpr int kD = 576;                 // a latent: c_kv 512 + k_pe 64
 constexpr int kDV = 512;                // the values: c_kv
-constexpr int kM = 16;                  // heads a row at most: the MMA's M
+constexpr int kMTile = 16;              // heads an M tile: the MMA's M
+constexpr int kMaxMTiles = 2;           // heads a row at most: 32
 constexpr int kTile = 32;               // positions a tile
 constexpr int kStages = 2;              // tiles in flight
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
+constexpr int kGroupWarps = 4;          // warps an M tile
 constexpr int kPitch = kD + 8;          // a tile row in shared memory
-constexpr int kKSteps = kD / kWarps / 16;   // S: a warp's k-steps (9)
-constexpr int kCols = kDV / kWarps;     // P.V: a warp's output columns
+constexpr int kKSteps = kD / kGroupWarps / 16;   // S: a warp's k-steps (9)
+constexpr int kCols = kDV / kGroupWarps;    // P.V: a warp's output columns
 constexpr int kNTiles = kCols / 8;      // ... in 8-column MMA tiles (16)
 constexpr int kSRegs = kTile / 8 * 4;   // S: a lane's accumulators (16)
 constexpr int kChunks16 = kD * 2 / 16;  // 16-byte pieces a position (72)
 constexpr int kMaxChunks = 8;           // CTAs a row at most: one cluster
 
 constexpr size_t kTileBytes = size_t(kTile) * kPitch * 2;
-constexpr size_t kSmem = kStages * kTileBytes              // tiles
-                         + size_t(kWarps) * kSRegs * 32 * 4  // S partials
-                         + 2 * kM * 4;                     // max, sum
-static_assert(kM * kDV * 4 <= kStages * kTileBytes,
-              "the final state fits in the tiles' room");
+
+// the CTA of MT M tiles
+template <int MT>
+struct Cta {
+  static constexpr int kM = kMTile * MT;         // heads a row at most
+  static constexpr int kWarps = kGroupWarps * MT;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr size_t kSmem = kStages * kTileBytes              // tiles
+                                  + size_t(kWarps) * kSRegs * 32 * 4  // S partials
+                                  + 2 * kM * 4;                     // max, sum
+  static_assert(kM * kDV * 4 <= kStages * kTileBytes,
+                "the final state fits in the tiles' room");
+};
 
 struct Args {
   const __nv_bfloat16* q;     // (b, h, 576): rows q_sb, heads q_sh apart
@@ -150,8 +165,12 @@ __device__ __forceinline__ unsigned q_pair(const Args& a, int row, int head,
       a.q + row * a.q_sb + head * a.q_sh + dim));
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
+template <int MT>
+__global__ void __launch_bounds__(Cta<MT>::kThreads, MT == 1 ? 2 : 1)
 latent_attend_kernel(const Args a) {
+  constexpr int kM = Cta<MT>::kM;
+  constexpr int kWarps = Cta<MT>::kWarps;
+  constexpr int kThreads = Cta<MT>::kThreads;
   extern __shared__ __align__(16) unsigned char sm_raw[];
   __nv_bfloat16* tiles = reinterpret_cast<__nv_bfloat16*>(sm_raw);
   float* red = reinterpret_cast<float*>(sm_raw + kStages * kTileBytes);
@@ -164,6 +183,10 @@ latent_attend_kernel(const Args a) {
   const int row = blockIdx.y;
   const int t = threadIdx.x, warp = t / 32, lane = t % 32;
   const int g = lane / 4, tig = lane % 4;
+  // this warp's M tile (its heads 16·grp ...) and place in the tile's group
+  const int grp = MT == 1 ? 0 : warp / kGroupWarps;
+  const int wq = MT == 1 ? warp : warp % kGroupWarps;
+  const int hg = kMTile * grp;
   const bool own = a.self != nullptr;
 
   const int held = a.len ? min(max(a.len[row * a.len_sb], 0), a.T) : a.T;
@@ -198,15 +221,15 @@ latent_attend_kernel(const Args a) {
     cp_commit();
   }
 
-  // Q: this warp's 9 k-steps of A fragments (dims 144·warp ...)
+  // Q: this warp's 9 k-steps of A fragments (dims 144·wq ...)
   unsigned qa[kKSteps][4];
 #pragma unroll
   for (int s = 0; s < kKSteps; ++s) {
-    const int d0 = (warp * kKSteps + s) * 16 + 2 * tig;
-    qa[s][0] = q_pair(a, row, g, d0);
-    qa[s][1] = q_pair(a, row, g + 8, d0);
-    qa[s][2] = q_pair(a, row, g, d0 + 8);
-    qa[s][3] = q_pair(a, row, g + 8, d0 + 8);
+    const int d0 = (wq * kKSteps + s) * 16 + 2 * tig;
+    qa[s][0] = q_pair(a, row, hg + g, d0);
+    qa[s][1] = q_pair(a, row, hg + g + 8, d0);
+    qa[s][2] = q_pair(a, row, hg + g, d0 + 8);
+    qa[s][3] = q_pair(a, row, hg + g + 8, d0 + 8);
   }
 
   float o[kNTiles][4];
@@ -228,7 +251,7 @@ latent_attend_kernel(const Args a) {
     for (int i = 0; i < kSRegs; ++i) s[i] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < kKSteps; ++ks) {
-      const int d0 = (warp * kKSteps + ks) * 16;
+      const int d0 = (wq * kKSteps + ks) * 16;
 #pragma unroll
       for (int jp = 0; jp < kTile / 16; ++jp) {
         unsigned b[4];
@@ -245,7 +268,9 @@ latent_attend_kernel(const Args a) {
     for (int i = 0; i < kSRegs; ++i) {
       float v = 0.f;
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) v += red[(w * kSRegs + i) * 32 + lane];
+      for (int w = 0; w < kGroupWarps; ++w) {
+        v += red[((kGroupWarps * grp + w) * kSRegs + i) * 32 + lane];
+      }
       s[i] = v;
     }
 
@@ -302,7 +327,7 @@ latent_attend_kernel(const Args a) {
       for (int jp = 0; jp < kNTiles / 2; ++jp) {
         unsigned b[4];
         const int pos = 16 * ks + 8 * ((lane >> 3) & 1) + (lane & 7);
-        const int col = warp * kCols + 16 * jp + 8 * (lane >> 4);
+        const int col = wq * kCols + 16 * jp + 8 * (lane >> 4);
         ldsm4_t(b, tile + pos * kPitch + col);
         mma(o[2 * jp], pa[ks], b[0], b[1]);
         mma(o[2 * jp + 1], pa[ks], b[2], b[3]);
@@ -323,17 +348,17 @@ latent_attend_kernel(const Args a) {
   __syncthreads();            // the tiles' room becomes the final state
 #pragma unroll
   for (int j = 0; j < kNTiles; ++j) {
-    const int col = warp * kCols + 8 * j + 2 * tig;
-    ofin[g * kDV + col] = o[j][0];
-    ofin[g * kDV + col + 1] = o[j][1];
-    ofin[(g + 8) * kDV + col] = o[j][2];
-    ofin[(g + 8) * kDV + col + 1] = o[j][3];
+    const int col = wq * kCols + 8 * j + 2 * tig;
+    ofin[(hg + g) * kDV + col] = o[j][0];
+    ofin[(hg + g) * kDV + col + 1] = o[j][1];
+    ofin[(hg + g + 8) * kDV + col] = o[j][2];
+    ofin[(hg + g + 8) * kDV + col + 1] = o[j][3];
   }
-  if (warp == 0 && tig == 0) {
-    fin[g] = m0;
-    fin[g + 8] = m1;
-    fin[kM + g] = l0;
-    fin[kM + g + 8] = l1;
+  if (wq == 0 && tig == 0) {
+    fin[hg + g] = m0;
+    fin[hg + g + 8] = m1;
+    fin[kM + hg + g] = l0;
+    fin[kM + hg + g + 8] = l1;
   }
   cluster.sync();
 
@@ -372,42 +397,60 @@ latent_attend_kernel(const Args a) {
   cluster.sync();     // the other CTAs' reads of this one's shared memory
 }
 
+template <int MT>
+int launch(const Args& a, int b, int chunks, cudaStream_t stream) {
+  using C = Cta<MT>;
+  if (C::kM % chunks) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = chamjax::allow_smem<latent_attend_kernel<MT>>(C::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute cluster;
+  const cudaLaunchConfig_t cfg = chamjax::row_clusters(
+      b, chunks, C::kThreads, C::kSmem, &cluster, stream);
+  return static_cast<int>(
+      cudaLaunchKernelEx(&cfg, latent_attend_kernel<MT>, a));
+}
+
+template <int MT>
+int resident(int b, int* chunks) {
+  using C = Cta<MT>;
+  cudaError_t err = chamjax::allow_smem<latent_attend_kernel<MT>>(C::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(chamjax::resident_chunks(
+      latent_attend_kernel<MT>, b, kMaxChunks, C::kThreads, C::kSmem,
+      chunks));
+}
+
 }  // namespace
 
 // Strides in values; chunks: the CTAs a row, from
-// chamjax_latent_attend_chunks.  Returns a cudaError_t
+// chamjax_latent_attend_chunks for the same h.  Returns a cudaError_t
 // (cudaErrorInvalidValue for a shape the kernel does not take).
 extern "C" int chamjax_latent_attend(
     const void* q, long long q_sb, long long q_sh, const void* lat,
     long long lat_sb, long long lat_st, const void* self, long long self_sb,
     const void* len, int len_sb, void* out, int b, int T, int h, int chunks,
     float scale, void* stream) {
-  if (b < 0 || b > 65535 || T < 0 || h < 1 || h > kM || chunks < 1 ||
-      chunks > kMaxChunks || kM % chunks) {
+  if (b < 0 || b > 65535 || T < 0 || h < 1 || h > kMTile * kMaxMTiles ||
+      chunks < 1 || chunks > kMaxChunks) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (b == 0) return 0;
-  cudaError_t err = chamjax::allow_smem<latent_attend_kernel>(kSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const Args a{static_cast<const __nv_bfloat16*>(q),
                static_cast<const __nv_bfloat16*>(lat),
                static_cast<const __nv_bfloat16*>(self),
                static_cast<const int*>(len),
                static_cast<__nv_bfloat16*>(out),
                q_sb, q_sh, lat_sb, lat_st, self_sb, len_sb, T, h, scale};
-  cudaLaunchAttribute cluster;
-  const cudaLaunchConfig_t cfg = chamjax::row_clusters(
-      b, chunks, kThreads, kSmem, &cluster,
-      static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaLaunchKernelEx(&cfg, latent_attend_kernel, a));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return h <= kMTile ? launch<1>(a, b, chunks, st)
+                     : launch<2>(a, b, chunks, st);
 }
 
 // the most CTAs a row (8, 4, 2, 1) at which every row's cluster is resident
-// at once on the current device
-extern "C" int chamjax_latent_attend_chunks(int b, int* chunks) {
-  if (b < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = chamjax::allow_smem<latent_attend_kernel>(kSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(chamjax::resident_chunks(
-      latent_attend_kernel, b, kMaxChunks, kThreads, kSmem, chunks));
+// at once on the current device, for h heads
+extern "C" int chamjax_latent_attend_chunks(int b, int h, int* chunks) {
+  if (b < 1 || h < 1 || h > kMTile * kMaxMTiles) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return h <= kMTile ? resident<1>(b, chunks) : resident<2>(b, chunks);
 }

@@ -334,7 +334,8 @@ def swiglu(x: torch.Tensor, gate_up: torch.Tensor, down: torch.Tensor
 def grouped_mm(x: torch.Tensor, w: torch.Tensor, offs: torch.Tensor
                ) -> torch.Tensor:
     """Rows ``x`` (n, K) sorted by group against ``w`` (G, K, N): the rows
-    ``[offs[g-1], offs[g])`` times ``w[g]`` → (n, N).  On the card one
+    ``[offs[g-1], offs[g])`` times ``w[g]`` → (n, N); rows past the last
+    offset belong to no group and are left unwritten.  On the card one
     grouped GEMM (``torch._grouped_mm``, bfloat16 with float32
     accumulation) over offsets on the device; on the CPU a loop over the
     groups."""
@@ -363,22 +364,41 @@ def route(cfg: MlaMoeConfig, h2: torch.Tensor, router: torch.Tensor,
     return top, w * cfg.routed_scaling_factor
 
 
-def moe(cfg: MlaMoeConfig, params: MlaMoeParams, m: int, h2: torch.Tensor
+def moe(cfg: MlaMoeConfig, params: MlaMoeParams, m: int, h2: torch.Tensor,
+        held: Optional[Tuple[int, int]] = None
         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The routed layer ``m`` on ``h2`` (n, d) → (its output (n, d), the
     chosen experts (n, topk)).  The rows are sorted by expert on the
     device, every routed row runs through its expert in one grouped
     product each way, and the weighted sum over a row's experts is taken
-    in float32.  Spans: ``moe.route``, ``moe.experts``, ``moe.shared``."""
+    in float32.  Spans: ``moe.route``, ``moe.experts``, ``moe.shared``.
+
+    ``held``: the experts ``[lo, hi)`` whose weights ``params`` holds
+    (``expert_gate_up[m][e - lo]``), the chip's share under expert
+    parallelism; None (or all of them) holds every expert.  The router
+    scores and weighs all ``n_routed_experts``; a route to an expert not
+    held is sorted past the last group, runs through no product and adds
+    nothing, so the output is the held experts' part (and the shared
+    experts'), with no host sync and no held route dropped."""
     n, d = h2.shape
     E, k = cfg.n_routed_experts, cfg.num_experts_per_tok
+    if held is not None and tuple(held) == (0, E):
+        held = None
     with tracing.annotate("moe.route"):
         top, w = route(cfg, h2, params.router[m], params.e_bias[m])
         flat = top.reshape(-1)
-        order = torch.argsort(flat, stable=True)
-        counts = torch.zeros(E, dtype=torch.int32, device=h2.device)
-        counts.index_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
-        offs = torch.cumsum(counts, 0, dtype=torch.int32)
+        if held is None:
+            groups, key = E, flat
+        else:       # the experts not held: one group past the last
+            lo, hi = held
+            mine = (flat >= lo) & (flat < hi)
+            groups = hi - lo
+            key = torch.where(mine, flat - lo, groups)
+        order = torch.argsort(key, stable=True)
+        counts = torch.zeros(groups + (held is not None), dtype=torch.int32,
+                             device=h2.device)
+        counts.index_add_(0, key, torch.ones_like(key, dtype=torch.int32))
+        offs = torch.cumsum(counts[:groups], 0, dtype=torch.int32)
     with tracing.annotate("moe.experts"):
         xs = h2.index_select(0, order // k)
         gu = grouped_mm(xs, params.expert_gate_up[m], offs)
@@ -386,6 +406,8 @@ def moe(cfg: MlaMoeConfig, params: MlaMoeParams, m: int, h2: torch.Tensor
         a = (F.silu(gu[:, :fe].float()) * gu[:, fe:].float()).to(h2.dtype)
         y = grouped_mm(a, params.expert_down[m], offs)
         back = torch.empty_like(y).index_copy_(0, order, y)
+        if held is not None:    # rows past the last group were not written
+            back = torch.where(mine[:, None], back, 0)
         out = (back.view(n, k, d).float() * w[..., None]).sum(1)
     with tracing.annotate("moe.shared"):
         shared = swiglu(h2, params.shared_gate_up[m], params.shared_down[m])
@@ -410,22 +432,24 @@ def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     scale: float, chunk: int = 512) -> torch.Tensor:
-    """q, k (r, t, H, dq) and v (r, t, H, dv) → (r, t, H, dv): position i
-    sees positions ≤ i; scores and softmax in float32, the probabilities
-    rounded to ``v``'s dtype for p·V; queries taken ``chunk`` at a time
-    against the keys up to the chunk's end."""
+                     scale: float, chunk: int = 512,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q, k (r, t, H, dq) and v (r, t, H, dv) → (r, t, H, dv), into ``out``
+    where given: position i sees positions ≤ i; scores and softmax in
+    float32, the probabilities rounded to ``v``'s dtype for p·V; queries
+    taken ``chunk`` at a time against the keys up to the chunk's end."""
     r, t, H, dq = q.shape
-    out = torch.empty((r, t, H, v.shape[-1]), dtype=v.dtype, device=v.device)
+    if out is None:
+        out = torch.empty((r, t, H, v.shape[-1]), dtype=v.dtype,
+                          device=v.device)
     kt = k.permute(0, 2, 3, 1).reshape(r * H, dq, t)
     vh = v.permute(0, 2, 1, 3).reshape(r * H, t, -1)
     for s in range(0, t, chunk):
         e = min(s + chunk, t)
         qh = q[:, s:e].permute(0, 2, 1, 3).reshape(r * H, e - s, dq)
-        sc = bmm_f32(qh, kt[..., :e]) * scale
-        qpos = torch.arange(s, e, device=q.device)[:, None]
-        kpos = torch.arange(e, device=q.device)[None, :]
-        sc = sc.masked_fill(kpos > qpos, float("-inf"))
+        sc = bmm_f32(qh, kt[..., :e]).mul_(scale)
+        pos = torch.arange(s, e, device=q.device)        # the diagonal block
+        sc[..., s:e].masked_fill_(pos[None, :] > pos[:, None], float("-inf"))
         p = torch.softmax(sc, dim=-1).to(v.dtype)
         o = p @ vh[:, :e]
         out[:, s:e] = o.view(r, H, e - s, -1).transpose(1, 2)
@@ -437,6 +461,45 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def mla_prefill(params, l: int, h: torch.Tensor, lat: torch.Tensor,
+                rot: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                rows: Optional[int] = None) -> torch.Tensor:
+    """MLA layer ``l`` of ``params`` over every position of ``h`` (r, t,
+    d), decompressed and causal, ``rows`` rows at a time (all by default);
+    its latents written into ``lat`` (r, max_len, 576).  ``rot``: the cos
+    and sin (t, rope/2) of the positions, or None where no rotation is
+    applied.  Returns the layer's output (r, t, d)."""
+    cfg = params.cfg
+    r, t, _ = h.shape
+    H, nope, rope_d = (cfg.num_attention_heads, cfg.qk_nope_head_dim,
+                       cfg.qk_rope_head_dim)
+    kr = cfg.kv_lora_rank
+    q = (h @ params.wq[l]).view(r, t, H, nope + rope_d)
+    kv = h @ params.wkv_a[l]
+    c = rms_norm(kv[..., :kr], params.kv_norm[l], cfg.rms_norm_eps)
+    k_pe = kv[..., kr:] if rot is None else rope(kv[..., kr:], *rot)
+    lat[:, :t] = torch.cat([c, k_pe], dim=-1)
+    if rot is not None:
+        q = torch.cat([q[..., :nope], rope(q[..., nope:], rot[0][:, None],
+                                           rot[1][:, None])], dim=-1)
+    rows = rows or r
+    o = None if rows >= r else torch.empty(
+        (r, t, H, cfg.v_head_dim), dtype=h.dtype, device=h.device)
+    for j in range(0, r, rows):
+        kvb = (c[j:j + rows] @ params.wkv_b[l]).view(-1, t, H,
+                                                      nope + cfg.v_head_dim)
+        n = kvb.shape[0]
+        kh = torch.cat([kvb[..., :nope],
+                        k_pe[j:j + rows, :, None].expand(n, t, H, rope_d)],
+                       dim=-1)
+        oj = causal_attention(q[j:j + rows], kh, kvb[..., nope:], cfg.scale,
+                              out=None if o is None else o[j:j + rows])
+        o = oj if o is None else o
+        del kvb, kh
+    del q, kv
+    return o.reshape(r, t, -1) @ params.wo[l]
+
+
 def _prefill_rows(params: MlaMoeParams, tokens: torch.Tensor,
                   cache: LatentCache, r0: int):
     """Rows ``r0 ..`` of the prompt ``tokens`` (r, t): every layer over
@@ -444,26 +507,12 @@ def _prefill_rows(params: MlaMoeParams, tokens: torch.Tensor,
     into the cache; returns the last position's hidden state (r, d)."""
     cfg = params.cfg
     r, t = tokens.shape
-    H, nope, rope_d = (cfg.num_attention_heads, cfg.qk_nope_head_dim,
-                       cfg.qk_rope_head_dim)
-    kr, eps = cfg.kv_lora_rank, cfg.rms_norm_eps
-    cos, sin = params.rope_cos[:t], params.rope_sin[:t]
+    eps = cfg.rms_norm_eps
+    rot = (params.rope_cos[:t], params.rope_sin[:t])
     x = params.embed.index_select(0, tokens.reshape(-1).long()).view(r, t, -1)
     for l in range(cfg.layers):
         h = rms_norm(x, params.attn_norm[l], eps)
-        q = (h @ params.wq[l]).view(r, t, H, nope + rope_d)
-        kv = h @ params.wkv_a[l]
-        c = rms_norm(kv[..., :kr], params.kv_norm[l], eps)
-        k_pe = rope(kv[..., kr:], cos, sin)
-        cache.lat[l, r0:r0 + r, :t] = torch.cat([c, k_pe], dim=-1)
-        q_pe = rope(q[..., nope:], cos[:, None], sin[:, None])
-        kvb = (c @ params.wkv_b[l]).view(r, t, H, -1)
-        kh = torch.cat([kvb[..., :nope],
-                        k_pe[:, :, None].expand(r, t, H, rope_d)], dim=-1)
-        qh = torch.cat([q[..., :nope], q_pe], dim=-1)
-        o = causal_attention(qh, kh, kvb[..., nope:], cfg.scale)
-        del q, kv, kvb, kh, qh
-        x = x + o.reshape(r, t, -1) @ params.wo[l]
+        x = x + mla_prefill(params, l, h, cache.lat[l, r0:r0 + r], rot)
         y, top = _ffn(cfg, params, l, rms_norm(x, params.ffn_norm[l], eps)
                       .view(r * t, -1))
         if top is not None:
@@ -495,36 +544,55 @@ def mla_moe_prefill(params: MlaMoeParams, tokens: torch.Tensor,
     return hidden @ params.head, hidden, cache._replace(host_idx=t)
 
 
+def mla_decode(params, l: int, h: torch.Tensor, x: torch.Tensor,
+               lat: torch.Tensor, idx: torch.Tensor, at: torch.Tensor,
+               rot: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+               ) -> torch.Tensor:
+    """MLA layer ``l`` of ``params`` on ``h`` (b, d), absorbed, over the
+    latents ``lat`` (b, max_len, 576) held below ``idx`` and the token's
+    own, added to the residual ``x``; the latent written at ``at``.
+    ``rot``: the cos and sin (1, rope/2) of the position, or None where no
+    rotation is applied.  Span: ``decode.latent`` around the kernel."""
+    cfg = params.cfg
+    b = h.shape[0]
+    H, nope = cfg.num_attention_heads, cfg.qk_nope_head_dim
+    kr = cfg.kv_lora_rank
+    q = (h @ params.wq[l]).view(b, H, -1)
+    kv = h @ params.wkv_a[l]
+    col = torch.cat([rms_norm(kv[:, :kr], params.kv_norm[l],
+                              cfg.rms_norm_eps),
+                     kv[:, kr:] if rot is None else rope(kv[:, kr:], *rot)],
+                    dim=-1)                                       # (b, 576)
+    q_lat = torch.bmm(q[..., :nope].transpose(0, 1), params.uk_t[l])
+    q_pe = q[..., nope:]
+    qq = torch.cat([q_lat.transpose(0, 1),
+                    q_pe if rot is None else
+                    rope(q_pe, rot[0][:, None], rot[1][:, None])],
+                   dim=-1)                                        # (b, H, 576)
+    with tracing.annotate("decode.latent"):   # held positions < idx
+        o_lat = latent_attend.attend(qq, lat, idx, self_lat=col,
+                                     scale=cfg.scale, v_dim=kr)
+    o = torch.bmm(o_lat.transpose(0, 1), params.uv[l])        # (H, b, dv)
+    x = x + o.transpose(0, 1).reshape(b, -1) @ params.wo[l]
+    lat.index_copy_(1, at, col[:, None])
+    return x
+
+
 def _mla_moe_step(params: MlaMoeParams, tokens: torch.Tensor, state):
     """The device core of :func:`mla_moe_step`: reads no device value on
     the host, writes each layer's latent and routes at ``idx`` in place
     and advances ``idx``."""
     lat, idx, routes = state
     cfg = params.cfg
-    b = tokens.shape[0]
-    H, nope = cfg.num_attention_heads, cfg.qk_nope_head_dim
-    kr, eps = cfg.kv_lora_rank, cfg.rms_norm_eps
+    eps = cfg.rms_norm_eps
     at = idx.long().reshape(1)
-    cos = params.rope_cos.index_select(0, at)           # (1, rope/2)
-    sin = params.rope_sin.index_select(0, at)
+    rot = (params.rope_cos.index_select(0, at),             # (1, rope/2)
+           params.rope_sin.index_select(0, at))
     x = params.embed.index_select(0, tokens.reshape(-1).long())   # (b, d)
     chosen = []
     for l in range(cfg.layers):
         h = rms_norm(x, params.attn_norm[l], eps)
-        q = (h @ params.wq[l]).view(b, H, -1)
-        kv = h @ params.wkv_a[l]
-        col = torch.cat([rms_norm(kv[:, :kr], params.kv_norm[l], eps),
-                         rope(kv[:, kr:], cos, sin)], dim=-1)     # (b, 576)
-        q_lat = torch.bmm(q[..., :nope].transpose(0, 1), params.uk_t[l])
-        qq = torch.cat([q_lat.transpose(0, 1),
-                        rope(q[..., nope:], cos[:, None], sin[:, None])],
-                       dim=-1)                                    # (b, H, 576)
-        with tracing.annotate("decode.latent"):   # held positions < idx
-            o_lat = latent_attend.attend(qq, lat[l], idx, self_lat=col,
-                                         scale=cfg.scale, v_dim=kr)
-        o = torch.bmm(o_lat.transpose(0, 1), params.uv[l])        # (H, b, dv)
-        x = x + o.transpose(0, 1).reshape(b, -1) @ params.wo[l]
-        lat[l].index_copy_(1, at, col[:, None])
+        x = mla_decode(params, l, h, x, lat[l], idx, at, rot)
         y, top = _ffn(cfg, params, l, rms_norm(x, params.ffn_norm[l], eps))
         if top is not None:
             chosen.append(top)

@@ -1,12 +1,14 @@
 """Single-query latent attention against a compressed cache: the attention
-of a decode step of the DeepSeek-V3 block (``models/mla_moe.py``), after
+of a decode step of the DeepSeek-V3 block (``models/mla_moe.py``) and of
+Kimi-Linear's latent-attention layers (``models/kimi_linear.py``), after
 the key and value up-projections are absorbed into the query and the
 output.
 
 Every head reads the same latent a position, ``[c_kv | k_pe]``; the value
 is its first ``v_dim`` entries.  ``attend`` launches the hand-written
 kernel ``chamjax_torch/csrc/latent_attend.cu`` on a CUDA tensor (bfloat16,
-576-wide latents, 512-wide values, up to 16 heads) and runs the plain
+576-wide latents, 512-wide values, up to 32 heads: one or two 16-row
+tiles of the MMA) and runs the plain
 version ``attend_reference`` on a CPU tensor.  The plain version keeps
 scores, softmax and p·V in float32; the kernel rounds the probabilities to
 bfloat16 for its tensor-core p·V and the output once.  The JAX package has
@@ -27,7 +29,7 @@ from chamjax_torch.utils import cuda_lib
 # the kernel's shape (csrc/latent_attend.cu)
 LATENT = 576            # c_kv 512 + k_pe 64
 V_DIM = 512
-MAX_HEADS = 16          # the MMA's M
+MAX_HEADS = 32          # two tiles of the MMA's M (16)
 
 
 def attend_reference(q: torch.Tensor, lat: torch.Tensor,
@@ -55,14 +57,16 @@ def attend_reference(q: torch.Tensor, lat: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def cluster_size(b: int, device: int) -> int:
-    """The CTAs a row on card ``device``: the most of 8, 4, 2, 1 at which
-    the clusters of all ``b`` rows are resident at once, asked once a
-    batch."""
+def cluster_size(b: int, device: int, heads: int = 16) -> int:
+    """The CTAs a row on card ``device`` for ``heads`` heads (the kernel
+    takes up to 16 in a CTA of 4 warps, up to 32 in one of 8): the most of
+    8, 4, 2, 1 at which the clusters of all ``b`` rows are resident at
+    once, asked once a batch."""
     lib = cuda_lib.load("latent_attend")
     chunks = ctypes.c_int(0)
     with torch.cuda.device(device):
-        err = lib.chamjax_latent_attend_chunks(b, ctypes.byref(chunks))
+        err = lib.chamjax_latent_attend_chunks(b, heads,
+                                               ctypes.byref(chunks))
     cuda_lib.check(lib, err, "latent_attend cluster size")
     return chunks.value
 
@@ -138,7 +142,7 @@ def attend(q: torch.Tensor, lat: torch.Tensor,
         err = lib.chamjax_latent_attend(
             q.data_ptr(), q.stride(0), q.stride(1), lat.data_ptr(),
             lat.stride(0), lat.stride(1), *own, *lens, out.data_ptr(), b,
-            lat.shape[1], h, cluster_size(b, dev.index),
+            lat.shape[1], h, cluster_size(b, dev.index, h),
             scale * math.log2(math.e), stream)
     cuda_lib.check(lib, err, "latent_attend")
     cuda_lib.launch_counts["latent_attend"] += 1

@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from chamjax_torch.models.llama import LlamaParams
+from chamjax_torch.models.kimi_linear import KimiLinearParams
 from chamjax_torch.models.mla_moe import MlaMoeParams
 from chamjax_torch.models.transformer import (KVCache, ShardedKVCache,
                                               TPParams, TransformerParams)
@@ -105,12 +106,13 @@ def shard_decoder_params(params: TransformerParams, mesh: Mesh,
     (k, then v) by heads and its ``wo`` by rows; embeddings, norms, the
     output projection and ``b2`` replicated, one copy a dp row.  A step
     raises where the heads do not divide the tp size.  The ``deepseek_v3``
-    family (``MlaMoeParams``) has no such form and raises here."""
-    if isinstance(params, MlaMoeParams):
+    and ``kimi_linear`` families (``MlaMoeParams``, ``KimiLinearParams``)
+    have no such form and raise here."""
+    if isinstance(params, (MlaMoeParams, KimiLinearParams)):
         raise NotImplementedError(
-            "shard_decoder_params: the deepseek_v3 family (latent attention, "
-            "routed experts) runs on one device; it has no tensor-parallel "
-            "or mesh form")
+            f"shard_decoder_params: the {params.cfg.model_type} family "
+            f"(latent attention, routed experts) runs on one device; it has "
+            f"no tensor-parallel or mesh form")
     grid = _grid(mesh, dp_axis, tp_axis)
     tp = len(grid[0])
     L = params.layers

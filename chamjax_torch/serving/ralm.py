@@ -42,6 +42,12 @@ from chamjax_torch.models import (
     init_encoder_decoder,
     init_kv_cache,
 )
+from chamjax_torch.models.kimi_linear import (MODEL_TYPE as KIMI_LINEAR,
+                                              KimiLinearParams,
+                                              init_kimi_cache,
+                                              init_kimi_linear,
+                                              kimi_prefill, kimi_step,
+                                              reset_kimi_cache)
 from chamjax_torch.models.llama import (init_llama, init_llama_kv_cache,
                                         llama_prefill, llama_step)
 from chamjax_torch.models.mla_moe import (MODEL_TYPE as MLA_MOE,
@@ -117,6 +123,9 @@ def family(cfg: ModelConfig) -> Family:
     if kind == MLA_MOE:
         return Family(init_mla_moe, mla_moe_step, mla_moe_prefill,
                       init_latent_cache, reset_latent_cache)
+    if kind == KIMI_LINEAR:
+        return Family(init_kimi_linear, kimi_step, kimi_prefill,
+                      init_kimi_cache, reset_kimi_cache)
     if kind == "llama":
         rope = dict(heads=cfg.attention_heads, kv_heads=cfg.kv_heads,
                     theta=cfg.rope_theta)
@@ -247,9 +256,13 @@ def _finish(device: torch.device) -> None:
         torch.cuda.set_sync_debug_mode(mode)
 
 
+# the families that run on one device, by the parameters they take
+ONE_DEVICE = {MLA_MOE: MlaMoeParams, KIMI_LINEAR: KimiLinearParams}
+
+
 class RalmDecoder:
     """Decoder-only RALM loop (reference ``ralmDecoder``), for the decoder,
-    the llama and the ``deepseek_v3`` families.  Runs on the parameters'
+    the llama, the ``deepseek_v3`` and the ``kimi_linear`` families.  Runs on the parameters'
     device.
 
     ``prefill`` processes a prompt of every row once; from then on
@@ -269,11 +282,12 @@ class RalmDecoder:
         query_set: Optional[np.ndarray] = None,
         use_query_set: bool = False,
     ):
-        if cfg.model_type == MLA_MOE and not isinstance(params,
-                                                        MlaMoeParams):
+        one = ONE_DEVICE.get(cfg.model_type)
+        if one is not None and not isinstance(params, one):
             raise NotImplementedError(
-                "RalmDecoder: the deepseek_v3 family runs on one device "
-                "(MlaMoeParams); it has no tensor-parallel or mesh form")
+                f"RalmDecoder: the {cfg.model_type} family runs on one "
+                f"device ({one.__name__}); it has no tensor-parallel or "
+                f"mesh form")
         self.params = params
         self.cfg = cfg
         self.retriever = retriever

@@ -71,7 +71,10 @@ SIGNATURES = {
         "chamjax_latent_attend": (
             [_VP, _I64, _I64, _VP, _I64, _I64, _VP, _I64, _VP, _I, _VP]
             + [_I] * 4 + [_F, _VP], _I),
-        "chamjax_latent_attend_chunks": ([_I, _VP], _I),
+        "chamjax_latent_attend_chunks": ([_I, _I, _VP], _I),
+    },
+    "kda_decode": {
+        "chamjax_kda_decode": ([_VP] * 7 + [_I, _VP], _I),
     },
     "encode_attend": {
         "chamjax_encode_attend": (

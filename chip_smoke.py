@@ -69,10 +69,22 @@ Phases (any failure exits non-zero and prints no result):
      current token, held against its plain version within 2^-7 of the
      largest value, once with a random current token and once with one
      that carries weight at every length (the bar under half of what
-     leaving it out moves the plain version); its launches counted from 0
-     over a replay of a Moonlight-16B-A3B step (all 27 layers, 7168 held);
-     timed beside its bound, its plain version and
+     leaving it out moves the plain version), and the same at
+     Kimi-Linear-48B-A3B's 32 heads over a 16,896-position cache (128,
+     16,384 and 16,895 held); its launches counted from 0 over a replay of
+     a Moonlight-16B-A3B step (all 27 layers, 7168 held) and of a
+     Kimi-Linear-48B-A3B step (its 7 MLA layers, 16,384 held); timed at
+     both shapes beside its bound, its plain version and
      ``scaled_dot_product_attention``;
+   - ``kda_decode`` (``csrc/kda_decode.cu``, a ``kimi_linear`` decode
+     step's KDA recurrence) at Kimi-Linear-48B-A3B's shapes (64 rows, 32
+     heads, 128 x 128 float32 states): four chained steps against its
+     plain version on the same inputs (the state within 1e-5 and o within
+     2^-7 of their largest, both bars under half of what skipping the
+     decay or the rank-1 update moves); its launches the Kimi step
+     replay's (one a KDA layer, 20); timed over the 20 layers' states
+     beside its bound, its plain version and an in-place multiply of the
+     state;
    - ``encode_attend`` (``csrc/encode_attend.cu``, the encoder's
      attention) at EncDec-S's shapes (64 rows, 8 heads of 64, the views of
      a fused QKV product): the refill's 512 tokens a row without and with
@@ -2420,11 +2432,15 @@ def encode_attend_phase(dev):
 
 
 LATENT_HELD = (128, 7168, 7679)
+# Kimi-Linear-48B-A3B's MLA layers: 32 heads over a 16,896-position cache
+LATENT_HELD_KIMI = (128, 16384, 16895)
 
 
-def latent_attend_check(dev, held: int, lean: bool) -> dict:
-    """The kernel against ``attend_reference`` at Moonlight-16B-A3B's
-    shapes (64 rows, 16 heads, a 7680-position bf16 cache), ``held``
+def latent_attend_check(dev, held: int, lean: bool, heads: int = 16,
+                        cache: int = 7680) -> dict:
+    """The kernel against ``attend_reference`` at 64 rows, ``heads``
+    heads and a ``cache``-position bf16 cache (Moonlight-16B-A3B's 16 over
+    7680 by default; Kimi-Linear-48B-A3B's 32 over 16,896), ``held``
     positions and the current token.  ``lean``: the current token's latent
     is the mean query, so its score tops most held ones at every length.
     Raises where the kernel is off by more than 2^-7 of the largest value
@@ -2432,8 +2448,8 @@ def latent_attend_check(dev, held: int, lean: bool) -> dict:
     what leaving the current token out moves the plain version."""
     import torch
     from chamjax_torch.ops import latent_attend as la
-    g = torch.Generator(device=dev).manual_seed(held + lean)
-    b, T, H = 64, 7680, 16
+    g = torch.Generator(device=dev).manual_seed(held + lean + heads)
+    b, T, H = 64, cache, heads
     lat = torch.randn((b, T, la.LATENT), generator=g, device=dev,
                       dtype=torch.bfloat16)
     q = torch.randn((b, H, la.LATENT), generator=g, device=dev,
@@ -2451,7 +2467,8 @@ def latent_attend_check(dev, held: int, lean: bool) -> dict:
     bar = 2.0 ** -7 * top
     err = float((got - want).abs().max())
     moved = float((dropped - want).abs().max())
-    name = f"latent_attend held {held}{' lean' if lean else ''}"
+    name = (f"latent_attend{'' if heads == 16 else f' {heads} heads'} held "
+            f"{held}{' lean' if lean else ''}")
     log(f"{name}: {err:.2e} from plain (bar {bar:.2e}); leaving the "
         f"current token out moves plain {moved:.2e}")
     if err > bar:
@@ -2461,8 +2478,8 @@ def latent_attend_check(dev, held: int, lean: bool) -> dict:
         raise AssertionError(f"{name}: the bar {bar:.2e} would pass a "
                              f"kernel that leaves the current token out "
                              f"({moved:.2e})")
-    return dict(held=held, lean=lean, max_abs_err=err, bar=bar,
-                dropped_moves=moved)
+    return dict(held=held, lean=lean, heads=heads, cache=cache,
+                max_abs_err=err, bar=bar, dropped_moves=moved)
 
 
 def latent_step_launches(dev) -> int:
@@ -2506,27 +2523,163 @@ def latent_step_launches(dev) -> int:
     return launches
 
 
+def kimi_step_launches(dev) -> dict:
+    """``kda_decode`` and ``latent_attend`` launches of one replay of a
+    Kimi-Linear-48B-A3B decode step (27 layers at the published widths, 64
+    rows, a quarter of the routed experts held, 16,384 of the
+    16,896-position cache held), counted from 0 just before the replay;
+    raises unless they are one a KDA layer (20) and one an MLA layer (7).
+    The weights stay at the parameters' fills, as in
+    ``latent_step_launches``; the model, its cache and its graph (~42 GB)
+    are freed before the later phases."""
+    import gc
+    import torch
+    from chamjax_torch.models import kimi_linear as kl
+    from chamjax_torch.utils import cuda_lib
+    held_before = torch.cuda.memory_allocated(dev)
+    cfg = kl.KimiLinearConfig(experts_held=(0, 64))
+    p = kl.KimiLinearParams(cfg, device=dev, dtype=kl.dtype_of(cfg))
+    cache = kl.init_kimi_cache(cfg, 64, device=dev)
+    cache.idx.fill_(16384)
+    cache = cache._replace(host_idx=16384)
+    tokens = torch.ones((64,), dtype=torch.int32, device=dev)
+    _, _, cache = kl.kimi_step(p, tokens, cache)           # the capture
+    cache.idx.fill_(16384)
+    cache = cache._replace(host_idx=16384)
+    torch.cuda.synchronize(dev)
+    cuda_lib.launch_counts.clear()
+    kl.kimi_step(p, tokens, cache)                         # a replay
+    torch.cuda.synchronize(dev)
+    launches = {name: cuda_lib.launch_counts[name]
+                for name in ("kda_decode", "latent_attend")}
+    want = {"kda_decode": cfg.kda_layer_count,
+            "latent_attend": cfg.mla_layers}
+    del p, cache, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    kept = torch.cuda.memory_allocated(dev) - held_before
+    if kept > 2 ** 30:
+        raise AssertionError(f"kimi step: keeps {kept / 2 ** 30:.2f} GiB "
+                             f"after it is freed")
+    if launches != want:
+        raise AssertionError(f"kimi step: {launches} launches a replay, "
+                             f"not one a layer of each kind ({want})")
+    return launches
+
+
 def latent_attend_phase(dev) -> dict:
     """Phase 2, the latent attention kernel of a ``deepseek_v3`` decode
-    step at Moonlight-16B-A3B's shapes: ``latent_attend_check`` at 128,
-    7168 and 7679 held positions (a random current token, and one that
-    leans on the mean query); the launches of a step replay
-    (``latent_step_launches``); then the timing rows of
-    ``benchmarks/latent_attend_timing.py`` (kernel, bound, plain version,
-    ``scaled_dot_product_attention``).  Returns the checks, the launches
-    and the rows, or raises."""
-    from chamjax_torch.benchmarks import latent_attend_timing
+    step at Moonlight-16B-A3B's shapes and of a ``kimi_linear`` one at
+    Kimi-Linear-48B-A3B's: ``latent_attend_check`` at 128, 7168 and 7679
+    held positions (16 heads) and at 128, 16,384 and 16,895 (32 heads), a
+    random current token and one that leans on the mean query; the
+    launches of a Moonlight step replay (``latent_step_launches``) and of
+    a Kimi step replay (``kimi_step_launches``); then the timing rows of
+    ``benchmarks/latent_attend_timing.py`` at both shapes (kernel, bound,
+    plain version, ``scaled_dot_product_attention``).  Returns the checks,
+    the launches and the rows, or raises."""
+    from chamjax_torch.benchmarks import latent_attend_timing as lt
     checks = [latent_attend_check(dev, held, lean)
               for held in LATENT_HELD for lean in (False, True)]
+    checks += [latent_attend_check(dev, held, lean, lt.KIMI["heads"],
+                                   lt.KIMI["cache"])
+               for held in LATENT_HELD_KIMI for lean in (False, True)]
     launches = latent_step_launches(dev)
     log(f"latent_attend: {launches} launches a Moonlight step replay")
-    rows = latent_attend_timing.run(dev)
-    for r in rows:
-        log(f"latent_attend held {r['held']}: {r['rel_err']:.2e} of the "
-            f"largest value from float64, kernel {r['ms']:.4f} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
-            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms")
-    return dict(checks=checks, launches=launches, rows=rows)
+    kimi = kimi_step_launches(dev)
+    log(f"kimi step replay: {kimi['latent_attend']} latent_attend and "
+        f"{kimi['kda_decode']} kda_decode launches")
+    rows = lt.run(dev)
+    rows_kimi = lt.run(dev, heads=lt.KIMI["heads"], cache=lt.KIMI["cache"],
+                       held_rows=lt.KIMI["held"])
+    for r in rows + rows_kimi:
+        log(f"latent_attend {r['heads']} heads held {r['held']}: "
+            f"{r['rel_err']:.2e} of the largest value from float64, kernel "
+            f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms")
+    return dict(checks=checks, launches=launches, kimi=kimi, rows=rows,
+                rows_kimi=rows_kimi)
+
+
+def kda_decode_check(dev, steps: int = 4) -> dict:
+    """``kda_decode.step`` on the card against ``step_reference`` on the
+    same inputs, at the Kimi-Linear-48B-A3B step's shapes (64 rows, 32
+    heads, a 128 x 128 float32 state a row and head), ``steps`` steps
+    chained on each side from one random state; decays α = exp(−softplus)
+    spread over (0.5, 1), a third of the channels above 0.99.  Raises
+    where the state is off by more than 1e-5 of its largest entry or o
+    by more than 2^-7 of its largest (both sides round o to bf16, so one
+    ulp), or where either bar is not under half of what a kernel that
+    skips the decay or the rank-1 update would move."""
+    import torch
+    from chamjax_torch.ops import kda_decode as kd
+    g = torch.Generator(device=dev).manual_seed(24)
+    B, H, K = 64, 32, kd.HEAD_DIM
+    start = torch.randn((B, H, K, K), generator=g, device=dev)
+    ins = []
+    for _ in range(steps):
+        q = torch.nn.functional.normalize(torch.randn(
+            (B, H, K), generator=g, device=dev), dim=-1) * K ** -0.5
+        k = torch.nn.functional.normalize(torch.randn(
+            (B, H, K), generator=g, device=dev), dim=-1)
+        v = torch.randn((B, H, K), generator=g, device=dev)
+        a = -torch.nn.functional.softplus(torch.empty(
+            (B, H, K), device=dev).uniform_(-7.0, 0.0, generator=g))
+        beta = torch.rand((B, H), generator=g, device=dev)
+        ins.append((q, k, v, torch.exp(a), beta))
+
+    def chain(fn, alpha_one=False, beta_zero=False):
+        s, outs = start.clone(), []
+        for q, k, v, alpha, beta in ins:
+            outs.append(fn(s, q, k, v,
+                           torch.ones_like(alpha) if alpha_one else alpha,
+                           torch.zeros_like(beta) if beta_zero else beta,
+                           torch.bfloat16).float())
+        return s, torch.stack(outs)
+
+    got_s, got_o = chain(kd.step)
+    want_s, want_o = chain(kd.step_reference)
+    s_top, o_top = float(want_s.abs().max()), float(want_o.abs().max())
+    s_err = float((got_s - want_s).abs().max()) / s_top
+    o_err = float((got_o - want_o).abs().max()) / o_top
+    moves = {}
+    for name, kw in (("no_decay", dict(alpha_one=True)),
+                     ("no_update", dict(beta_zero=True))):
+        s, o = chain(kd.step_reference, **kw)
+        moves[name] = dict(state=float((s - want_s).abs().max()) / s_top,
+                           o=float((o - want_o).abs().max()) / o_top)
+    log(f"kda_decode {steps} steps: state {s_err:.2e}, o {o_err:.2e} of the "
+        f"largest from plain (bars 1e-5, 2^-7); a kernel skipping the decay "
+        f"moves {moves['no_decay']}, the update {moves['no_update']}")
+    if s_err > 1e-5 or o_err > 2.0 ** -7:
+        raise AssertionError(f"kda_decode: state {s_err:.2e}, o {o_err:.2e} "
+                             f"of the largest from its plain version")
+    for name, m in moves.items():
+        if m["state"] <= 2 * 1e-5 or m["o"] <= 2 * 2.0 ** -7:
+            raise AssertionError(f"kda_decode: the bars would pass a kernel "
+                                 f"with {name} ({m})")
+    return dict(steps=steps, b=B, heads=H, head_dim=K, state_rel_err=s_err,
+                o_rel_err=o_err, broken_moves=moves)
+
+
+def kda_decode_phase(dev) -> dict:
+    """Phase 2, the KDA decode kernel of a ``kimi_linear`` decode step at
+    Kimi-Linear-48B-A3B's shapes: ``kda_decode_check`` (the kernel against
+    its plain version on the same inputs, four chained steps); then the
+    timing row of ``benchmarks/kda_decode_timing.py`` (held against
+    float64 first; kernel, bound, plain version, and an in-place multiply
+    of the state as the library's rate for the same bytes).  Returns the
+    check and the row, or raises."""
+    from chamjax_torch.benchmarks import kda_decode_timing
+    check = kda_decode_check(dev)
+    row = kda_decode_timing.run(dev)
+    log(f"kda_decode: state {row['state_rel_err']:.2e}, o "
+        f"{row['o_rel_err']:.2e} of the largest from float64, kernel "
+        f"{row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}), plain {row['plain_ms']:.4f} ms, library "
+        f"{row['library_ms']:.4f} ms")
+    return dict(check=check, row=row)
 
 
 def device_events(prof, annotation: str):
@@ -5317,6 +5470,7 @@ def run_smoke(t_smoke, dev, corpus_job) -> int:
         threefry = threefry_phase(dev)
         attend = decode_attend_phase(dev)
         latent = latent_attend_phase(dev)
+        kda = kda_decode_phase(dev)
         encode = encode_attend_phase(dev)
         main = main_path(dev)
         stages = stages_phase(dev, main["ctx"])
@@ -5479,24 +5633,50 @@ def run_smoke(t_smoke, dev, corpus_job) -> int:
         bound_by=mid["bound_by"], library_ms=mid["library_ms"],
         library=mid["library"], path="main path: the RALM decode step",
         options=attend))
-    # the deepseek_v3 step's latent attention: the JAX package has no such
-    # family; the row's times are at 7168 held positions (the cell's
-    # prompt), its launches one Moonlight-16B-A3B step replay's
+    # the deepseek_v3 and kimi_linear steps' latent attention: the JAX
+    # package has no such family; the row's times are at 7168 held
+    # positions (Moonlight's cell's prompt), its launches one
+    # Moonlight-16B-A3B step replay's; the 32-head instantiation's times at
+    # 16,384 held and launches a Kimi-Linear-48B-A3B step replay's beside
     doc = next(r for r in latent["rows"] if r["held"] == 7168)
+    doc32 = next(r for r in latent["rows_kimi"] if r["held"] == 16384)
     kernels.append(dict(
         name="latent_attend", route="cuda",
         source="chamjax_torch/csrc/latent_attend.cu", replaces=None,
         replaces_note="no counterpart: the JAX package has no deepseek_v3 "
-                      "family",
+                      "or kimi_linear family",
         launches=latent["launches"],
+        launches_kimi=latent["kimi"]["latent_attend"],
         max_abs_err=max(c["max_abs_err"] for c in latent["checks"]),
         checks=latent["checks"],
-        max_rel_err=max(r["rel_err"] for r in latent["rows"]),
+        max_rel_err=max(r["rel_err"]
+                        for r in latent["rows"] + latent["rows_kimi"]),
         ms=doc["ms"], plain_ms=doc["plain_ms"], bound_ms=doc["bound_ms"],
         bound_by=doc["bound_by"], library_ms=doc["library_ms"],
         library=doc["library"],
-        path="main path: the deepseek_v3 RALM decode step",
-        options=latent["rows"]))
+        heads32=dict(held=doc32["held"], ms=doc32["ms"],
+                     plain_ms=doc32["plain_ms"],
+                     bound_ms=doc32["bound_ms"],
+                     bound_by=doc32["bound_by"],
+                     library_ms=doc32["library_ms"]),
+        path="main path: the deepseek_v3 and kimi_linear RALM decode steps",
+        options=latent["rows"] + latent["rows_kimi"]))
+    # the kimi_linear step's KDA recurrence: the JAX package has no such
+    # family; the row's launches one Kimi-Linear-48B-A3B step replay's
+    kr = kda["row"]
+    kernels.append(dict(
+        name="kda_decode", route="cuda",
+        source="chamjax_torch/csrc/kda_decode.cu", replaces=None,
+        replaces_note="no counterpart: the JAX package has no kimi_linear "
+                      "family",
+        launches=latent["kimi"]["kda_decode"],
+        max_abs_err=None, max_rel_err=max(
+            kda["check"]["state_rel_err"], kda["check"]["o_rel_err"],
+            kr["state_rel_err"], kr["o_rel_err"]),
+        check=kda["check"], ms=kr["ms"], plain_ms=kr["plain_ms"],
+        bound_ms=kr["bound_ms"], bound_by=kr["bound_by"],
+        library_ms=kr["library_ms"], library=kr["library"],
+        path="main path: the kimi_linear RALM decode step"))
     # the encoder's attention: no Pallas kernel on the TPU (XLA's einsums);
     # the row's times are the refill's 512 tokens a row, its launches the
     # RALM phase's timed steps

@@ -11,22 +11,27 @@ import pytest
 import torch
 
 from chamjax_torch.config import MODEL_PRESETS, ModelConfig
+from chamjax_torch.models.kimi_linear import KimiCache, KimiLinearParams
 from chamjax_torch.models.llama import LlamaParams
 from chamjax_torch.models.mla_moe import LatentCache, MlaMoeParams
 from chamjax_torch.models.transformer import KVCache, TransformerParams
 from chamjax_torch.serving.ralm import family
+from test_torch_kimi_linear import TINY as KIMI_TINY
 from test_torch_mla_moe import TINY
 
 CPU = torch.device("cpu")
 PARAMS = {"decoder": TransformerParams, "encoder-decoder": tuple,
-          "llama": LlamaParams, "deepseek_v3": MlaMoeParams}
+          "llama": LlamaParams, "deepseek_v3": MlaMoeParams,
+          "kimi_linear": KimiLinearParams}
 
 
 def tiny(name: str):
     """Preset ``name`` at a tiny width (its family and heads kept), or
-    the tiny ``deepseek_v3`` config."""
+    the tiny ``deepseek_v3`` or ``kimi_linear`` config."""
     if name == "deepseek_v3":
         return TINY
+    if name == "kimi_linear":
+        return KIMI_TINY
     cfg = MODEL_PRESETS[name]
     return dataclasses.replace(
         cfg, embed_dim=4 * cfg.attention_heads, ffn_embed_dim=64, layers=1,
@@ -34,10 +39,12 @@ def tiny(name: str):
 
 
 def _storage(cache):
-    return cache.lat if isinstance(cache, LatentCache) else cache.k
+    return (cache.lat if isinstance(cache, (LatentCache, KimiCache))
+            else cache.k)
 
 
-@pytest.mark.parametrize("name", [*MODEL_PRESETS, "deepseek_v3"])
+@pytest.mark.parametrize("name", [*MODEL_PRESETS, "deepseek_v3",
+                                  "kimi_linear"])
 def test_family_prefills_steps_and_rewinds_to_the_prompt(name):
     """Each family's record: ``init`` gives the family's parameters,
     ``new_cache`` its cache, and after ``prefill`` of a prompt a
@@ -50,8 +57,8 @@ def test_family_prefills_steps_and_rewinds_to_the_prompt(name):
     assert isinstance(params, PARAMS[cfg.model_type])
     dec = params[1] if cfg.model_type == "encoder-decoder" else params
     cache = fam.new_cache(cfg, 2, device=CPU)
-    assert isinstance(cache, LatentCache if name == "deepseek_v3"
-                      else KVCache)
+    assert isinstance(cache, {"deepseek_v3": LatentCache,
+                              "kimi_linear": KimiCache}.get(name, KVCache))
     g = torch.Generator().manual_seed(5)
     prompt = torch.randint(1, cfg.vocab_size, (2, 3), generator=g,
                            dtype=torch.int32)

@@ -206,7 +206,7 @@ def test_latent_attend_refuses_shapes_the_kernel_does_not_take():
     lat = torch.zeros(2, 8, 576, dtype=torch.bfloat16)
     latent_attend._check(q, lat, None, None)
     with pytest.raises(ValueError, match="shape"):
-        latent_attend._check(torch.zeros(2, 17, 576, dtype=torch.bfloat16),
+        latent_attend._check(torch.zeros(2, 33, 576, dtype=torch.bfloat16),
                              lat, None, None)
     with pytest.raises(ValueError, match="dtype"):
         latent_attend._check(q.float(), lat.float(), None, None)
