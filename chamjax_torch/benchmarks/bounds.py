@@ -266,3 +266,25 @@ def kda_decode_bound(bh: int, head_dim: int, spec: GpuSpec = H100
     K = head_dim
     nbytes = bh * (2 * K * K * 4 + 4 * K * 4 + 4 + K * 2)
     return roofline_ms(nbytes, 7 * bh * K * K, spec)
+
+
+def add_ln_bound(rows: int, width: int, delta: bool, bias: bool,
+                 elem: int = 2, spec: GpuSpec = H100) -> Tuple[float, str]:
+    """``add_ln``: x and ``delta`` (where given) read, ``x_new`` (where
+    anything is added) and y written, ``rows · width`` values each, and the
+    per-column scale, shift and ``bias`` (where given) once, ``elem`` bytes
+    a value; the adds, the two sums and the normalisation (10 flops a
+    value) at the fp32 rate."""
+    n = rows * width
+    full = 2 + int(delta) + int(delta or bias)
+    return roofline_ms((full * n + (2 + int(bias)) * width) * elem, 10 * n,
+                       spec)
+
+
+def bias_gelu_bound(rows: int, width: int, elem: int = 2,
+                    spec: GpuSpec = H100) -> Tuple[float, str]:
+    """``bias_gelu``: g read and the output written (``rows · width``
+    values each) and b once, ``elem`` bytes a value; the add and the tanh
+    form (10 flops a value, the tanh counted as one) at the fp32 rate."""
+    n = rows * width
+    return roofline_ms((2 * n + width) * elem, 10 * n, spec)

@@ -28,12 +28,11 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from chamjax_torch import random as jr
 from chamjax_torch.config import ModelConfig
-from chamjax_torch.ops import decode_attend, encode_attend
+from chamjax_torch.ops import block_norm, decode_attend, encode_attend
 from chamjax_torch.utils import graphs, tracing
 from chamjax_torch.utils.collectives import all_gather_to, all_reduce_sum
 from chamjax_torch.utils.device import resolve_device
@@ -343,15 +342,36 @@ def fill_prefix(kv, layer: int, kh: torch.Tensor, vh: torch.Tensor) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _add_ln(x, delta, bias, scale, ln_bias, eps=1e-5):
+    """The junction between two sublayers: the residual ``(x + delta) +
+    bias`` (each add rounded, as ``x + a @ w + b`` groups; either may be
+    None) and its layernorm (statistics in f32, the normalised row rounded
+    before the scale and shift) → ``(x_new, y)``.  One ``add_ln`` launch on
+    bf16 rows on the card at a width the kernel has, the plain chain
+    elsewhere (``block_norm.add_ln`` decides).  A stage span,
+    ``block.norm``."""
+    with tracing.annotate("block.norm"):
+        return block_norm.add_ln(x, delta, bias, scale, ln_bias, eps)
+
+
 def _ln(x, scale, bias, eps=1e-5):
-    xf = x.float()
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = xf.var(dim=-1, keepdim=True, correction=0)   # jnp.var: population
-    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * scale + bias
+    return _add_ln(x, None, None, scale, bias, eps)[1]
 
 
-def _gelu(x):
-    return F.gelu(x, approximate="tanh")    # jax.nn.gelu's default
+def _bias_gelu(g, b):
+    """``gelu_tanh(g + b)`` (jax.nn.gelu's default form): one
+    ``bias_gelu`` launch on bf16 rows on the card at a width the kernel
+    has, the plain chain elsewhere.  A stage span, ``block.act``."""
+    with tracing.annotate("block.act"):
+        return block_norm.bias_gelu(g, b)
+
+
+def _next_ln(stack, ln_f, i):
+    """The layernorm after layer ``i``'s FFN: the next layer's ``ln1``, or
+    ``ln_f`` after the last."""
+    if i + 1 < stack.ln1_scale.shape[0]:
+        return stack.ln1_scale[i + 1], stack.ln1_bias[i + 1]
+    return ln_f["scale"], ln_f["bias"]
 
 
 def _split_heads(x, h):
@@ -382,9 +402,11 @@ def _attn_full(q, k, v, causal: bool, valid_len=None):
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
 
 
-def _ffn(x, L, i):
-    y = _ln(x, L.ln2_scale[i], L.ln2_bias[i])
-    return x + _gelu(y @ L.w1[i] + L.b1[i]) @ L.w2[i] + L.b2[i]
+def _ffn(x, y, L, i, ln_f):
+    """Layer ``i``'s FFN on ``y``, ``x``'s ``ln2``: the residual after it and
+    the layernorm that follows (``_next_ln``) → ``(x_new, y_next)``."""
+    g = _bias_gelu(y @ L.w1[i], L.b1[i])
+    return _add_ln(x, g @ L.w2[i], L.b2[i], *_next_ln(L, ln_f, i))
 
 
 def _embed(params, tokens):
@@ -403,17 +425,17 @@ def _decoder_prefill(params, tokens, kv, heads):
     h = heads
     x = _embed(params, tokens) + params.pos[:t][None]
     L = params.layers
+    y = _ln(x, L.ln1_scale[0], L.ln1_bias[0])
     for i in range(L.wqkv.shape[0]):
-        y = _ln(x, L.ln1_scale[i], L.ln1_bias[i])
         q, k, v = torch.chunk(y @ L.wqkv[i], 3, dim=-1)
         qh, kh, vh = (_split_heads(z, h) for z in (q, k, v))
         a = _attn_full(qh, kh, vh, causal=True)
-        x = x + a.reshape(x.shape) @ L.wo[i]
-        x = _ffn(x, L, i)
+        x, y = _add_ln(x, a.reshape(x.shape) @ L.wo[i], None,
+                       L.ln2_scale[i], L.ln2_bias[i])
+        x, y = _ffn(x, y, L, i, params.ln_f)
         fill_prefix(kv, i, kh, vh)
     kv[2].fill_(t)
-    hidden = _ln(x, params.ln_f["scale"], params.ln_f["bias"])
-    return hidden @ params.out_proj, hidden
+    return y @ params.out_proj, y
 
 
 @torch.no_grad()
@@ -446,8 +468,8 @@ def _decoder_step(params, tokens, kv, heads, cross_kv, cross_valid_len):
     x = x[:, None, :]                                       # (b, 1, d)
     L, C = params.layers, params.cross_layers
     ks_new, vs_new = [], []
+    y = _ln(x, L.ln1_scale[0], L.ln1_bias[0])
     for i in range(L.wqkv.shape[0]):
-        y = _ln(x, L.ln1_scale[i], L.ln1_bias[i])
         q, k, v = torch.chunk(y @ L.wqkv[i], 3, dim=-1)
         qh = _split_heads(q, h)                             # (b, 1, h, hd)
         kh = _split_heads(k, h)
@@ -455,19 +477,21 @@ def _decoder_step(params, tokens, kv, heads, cross_kv, cross_valid_len):
         with tracing.annotate("decode.attend"):   # cached positions < idx
             a = decode_attend.attend(qh, k_cache[i], v_cache[i], idx,
                                      self_kv=(kh, vh))
-        x = x + a.reshape(x.shape) @ L.wo[i]
+        ln = ((C.ln_scale[i], C.ln_bias[i]) if cross_kv is not None
+              else (L.ln2_scale[i], L.ln2_bias[i]))
+        x, y = _add_ln(x, a.reshape(x.shape) @ L.wo[i], None, *ln)
         if cross_kv is not None:
-            y = _ln(x, C.ln_scale[i], C.ln_bias[i])
             cq = _split_heads(y @ C.wq[i], h)
             with tracing.annotate("decode.cross"):
                 ca = decode_attend.attend(cq, cross_kv[0][i], cross_kv[1][i],
                                           cross_valid_len)
-            x = x + ca.reshape(x.shape) @ C.wo[i]
-        x = _ffn(x, L, i)
+            x, y = _add_ln(x, ca.reshape(x.shape) @ C.wo[i], None,
+                           L.ln2_scale[i], L.ln2_bias[i])
+        x, y = _ffn(x, y, L, i, params.ln_f)
         ks_new.append(kh)
         vs_new.append(vh)
     write_column(kv, torch.stack(ks_new), torch.stack(vs_new))
-    hidden = _ln(x[:, 0, :], params.ln_f["scale"], params.ln_f["bias"])
+    hidden = y[:, 0, :]
     return hidden @ params.out_proj, hidden
 
 
@@ -535,16 +559,17 @@ def _encoder_forward(params, tokens, heads, valid_len):
     h = heads
     x = _embed(params, tokens) + params.pos[:s][None]
     L = params.layers
+    y = _ln(x, L.ln1_scale[0], L.ln1_bias[0])
     for i in range(L.wqkv.shape[0]):
-        y = _ln(x, L.ln1_scale[i], L.ln1_bias[i])
         q, k, v = torch.chunk(y @ L.wqkv[i], 3, dim=-1)
         with tracing.annotate("encode.attend"):
             a = _attn_full(_split_heads(q, h), _split_heads(k, h),
                            _split_heads(v, h), causal=False,
                            valid_len=valid_len)
-        x = x + a.reshape(x.shape) @ L.wo[i]
-        x = _ffn(x, L, i)
-    return _ln(x, params.ln_f["scale"], params.ln_f["bias"])
+        x, y = _add_ln(x, a.reshape(x.shape) @ L.wo[i], None,
+                       L.ln2_scale[i], L.ln2_bias[i])
+        x, y = _ffn(x, y, L, i, params.ln_f)
+    return y
 
 
 @torch.no_grad()
@@ -680,21 +705,23 @@ def check_split(params: TPParams, heads: int, batch: int) -> None:
                          f"split over tp={params.tp}, dp={params.dp}")
 
 
-def _tp_block(params: TPParams, i: int, l: int, x, attn, cross=None):
-    """Layer ``l`` of the decoder family on dp row ``i``: ``attn(j, rank,
-    y)`` (and ``cross``) give a tp position's heads, (b, t, heads/tp·hd),
-    which its rows of ``wo`` project to a partial."""
+def _tp_block(params: TPParams, i: int, l: int, x, y, attn, cross=None):
+    """Layer ``l`` of the decoder family on dp row ``i`` from ``x`` and
+    ``y``, its ``ln1``: ``attn(j, rank, y)`` (and ``cross``) give a tp
+    position's heads, (b, t, heads/tp·hd), which its rows of ``wo`` project
+    to a partial.  Returns ``(x, y)`` after the layer, ``y`` the layernorm
+    that follows (``_next_ln``)."""
     S = params.shared_rows[i]
-    y = _ln(x, S.ln1_scale[l], S.ln1_bias[l])
-    x = x + tp_sum(params, i, y,
-                   lambda j, r, yj: mm_f32(attn(j, r, yj), r.wo[l]))
+    ln = ((S.c_ln_scale[l], S.c_ln_bias[l]) if cross is not None
+          else (S.ln2_scale[l], S.ln2_bias[l]))
+    x, y = _add_ln(x, tp_sum(params, i, y, lambda j, r, yj: mm_f32(
+        attn(j, r, yj), r.wo[l])), None, *ln)
     if cross is not None:
-        y = _ln(x, S.c_ln_scale[l], S.c_ln_bias[l])
-        x = x + tp_sum(params, i, y,
-                       lambda j, r, yj: mm_f32(cross(j, r, yj), r.cwo[l]))
-    y = _ln(x, S.ln2_scale[l], S.ln2_bias[l])
-    return x + tp_sum(params, i, y, lambda j, r, yj: mm_f32(
-        _gelu(yj @ r.w1[l] + r.b1[l]), r.w2[l])) + S.b2[l]
+        x, y = _add_ln(x, tp_sum(params, i, y, lambda j, r, yj: mm_f32(
+            cross(j, r, yj), r.cwo[l])), None, S.ln2_scale[l], S.ln2_bias[l])
+    return _add_ln(x, tp_sum(params, i, y, lambda j, r, yj: mm_f32(
+        _bias_gelu(yj @ r.w1[l], r.b1[l]), r.w2[l])), S.b2[l],
+        *_next_ln(S, S.ln_f, l))
 
 
 def _qkv(r, y, l, hr):
@@ -710,15 +737,15 @@ def _tp_decoder_prefill(params, tokens, kv, heads):
         S = params.shared_rows[i]
         x = (_embed(S, tp_row(tokens, i, params.dp, S.embed.device))
              + S.pos[:t][None])
+        h = _ln(x, S.ln1_scale[0], S.ln1_bias[0])
         for l in range(S.ln1_scale.shape[0]):
             def attn(j, r, y):
                 qh, kh, vh = _qkv(r, y, l, hr)
                 fill_prefix((ks[i][j], vs[i][j]), l, kh, vh)
                 return _attn_full(qh, kh, vh, causal=True).flatten(2)
-            x = _tp_block(params, i, l, x, attn)
+            x, h = _tp_block(params, i, l, x, h, attn)
         for idx in idxs[i]:
             idx.fill_(t)
-        h = _ln(x, S.ln_f["scale"], S.ln_f["bias"])
         logits.append(h @ S.out_proj)
         hidden.append(h)
     return tp_gather(params, logits), tp_gather(params, hidden)
@@ -737,6 +764,7 @@ def _tp_decoder_step(params, tokens, kv, heads, cross_kv, cross_valid_len):
         x = (_embed(S, tp_row(tokens, i, params.dp, home))
              + S.pos.index_select(0, idx.reshape(1)))[:, None, :]
         new = [([], []) for _ in range(params.tp)]
+        h = _ln(x, S.ln1_scale[0], S.ln1_bias[0])
         for l in range(S.ln1_scale.shape[0]):
             def attn(j, r, y):
                 qh, kh, vh = _qkv(r, y, l, hr)
@@ -752,12 +780,12 @@ def _tp_decoder_step(params, tokens, kv, heads, cross_kv, cross_valid_len):
                 return decode_attend.attend(
                     _split_heads(y @ r.cwq[l], hr), cross_kv[0][i][j][l],
                     cross_kv[1][i][j][l], vl).flatten(2)
-            x = _tp_block(params, i, l, x, attn,
-                          cross if cross_kv is not None else None)
+            x, h = _tp_block(params, i, l, x, h, attn,
+                             cross if cross_kv is not None else None)
         for j in range(params.tp):
             write_column((ks[i][j], vs[i][j], idxs[i][j]),
                          torch.stack(new[j][0]), torch.stack(new[j][1]))
-        h = _ln(x[:, 0, :], S.ln_f["scale"], S.ln_f["bias"])
+        h = h[:, 0, :]
         logits.append(h @ S.out_proj)
         hidden.append(h)
     return tp_gather(params, logits), tp_gather(params, hidden)
@@ -771,14 +799,15 @@ def _tp_encoder_forward(params, tokens, heads, valid_len):
         S = params.shared_rows[i]
         x = (_embed(S, tp_row(tokens, i, params.dp, S.embed.device))
              + S.pos[:s][None])
+        h = _ln(x, S.ln1_scale[0], S.ln1_bias[0])
         for l in range(S.ln1_scale.shape[0]):
             def attn(j, r, y):
                 vl = (None if valid_len is None else
                       tp_row(valid_len, i, params.dp, y.device))
                 return _attn_full(*_qkv(r, y, l, hr), causal=False,
                                   valid_len=vl).flatten(2)
-            x = _tp_block(params, i, l, x, attn)
-        out.append(_ln(x, S.ln_f["scale"], S.ln_f["bias"]))
+            x, h = _tp_block(params, i, l, x, h, attn)
+        out.append(h)
     return tp_gather(params, out)
 
 

@@ -81,6 +81,10 @@ SIGNATURES = {
             [_VP, _I64, _I64, _I64] * 3 + [_VP, _I, _I, _VP] + [_I] * 5
             + [_F, _VP], _I),
     },
+    "block_norm": {
+        "chamjax_add_ln": ([_VP] * 7 + [_I64, _I, _F, _VP], _I),
+        "chamjax_bias_gelu": ([_VP] * 3 + [_I64, _I, _VP], _I),
+    },
 }
 
 launch_counts: collections.Counter = collections.Counter()

@@ -85,6 +85,15 @@ Phases (any failure exits non-zero and prints no result):
      replay's (one a KDA layer, 20); timed over the 20 layers' states
      beside its bound, its plain version and an in-place multiply of the
      state;
+   - ``add_ln`` and ``bias_gelu`` (``csrc/block_norm.cu``, the junctions
+     of the Dec-S / EncDec-S block: the residual add with its layernorm,
+     and the FFN's bias with its GELU) at 64 and 32,768 rows of 512 and of
+     2048, against their plain versions on the same inputs (``x_new`` and
+     the GELU bit-equal, ``y`` within one bfloat16 ulp of the chain); their
+     launches counted from 0 over a replay of a Dec-S step (49 and 24), an
+     EncDec-S step (73 and 24) and an EncDec-S refill (5 and 2); timed
+     beside their bound, their plain versions and, for ``add_ln``,
+     ``F.layer_norm``;
    - ``encode_attend`` (``csrc/encode_attend.cu``, the encoder's
      attention) at EncDec-S's shapes (64 rows, 8 heads of 64, the views of
      a fused QKV product): the refill's 512 tokens a row without and with
@@ -2680,6 +2689,132 @@ def kda_decode_phase(dev) -> dict:
         f"({row['bound_by']}), plain {row['plain_ms']:.4f} ms, library "
         f"{row['library_ms']:.4f} ms")
     return dict(check=check, row=row)
+
+
+def block_norm_check(dev) -> dict:
+    """``block_norm.add_ln`` and ``bias_gelu`` on the card against their
+    plain versions on the same inputs, at the Dec-S / EncDec-S block's
+    shapes (bfloat16): ``add_ln`` at 64 and 32,768 rows of 512 (a decode
+    step's, the refill's encoder's) with no add, with ``delta`` and with
+    ``delta`` and ``bias``; ``bias_gelu`` at 64 and 32,768 rows of 2048
+    (the FFN's), one row running from -12 to 12.  Raises unless ``x_new``
+    and the GELU are bit-equal and every ``y`` lies within one ulp of the
+    chain (``block_norm_timing.y_off_bar``: the order of the float32 sums
+    is the only difference allowed)."""
+    import torch
+    from chamjax_torch.benchmarks import block_norm_timing as bt
+    from chamjax_torch.ops import block_norm as bn
+    g = torch.Generator(device=dev).manual_seed(25)
+
+    def draw(*shape, s=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * s
+                + 0.25).to(torch.bfloat16)
+
+    out = dict(add_ln=[], bias_gelu=[])
+    for rows in bt.ROWS:
+        x, delta = draw(rows, bt.D, s=3.0), draw(rows, bt.D)
+        bias, scale, shift = draw(bt.D), draw(bt.D), draw(bt.D)
+        for case, d, b in (("norm", None, None), ("delta", delta, None),
+                           ("delta+bias", delta, bias)):
+            got = bn.add_ln(x, d, b, scale, shift)
+            want = bn.add_ln_reference(x, d, b, scale, shift)
+            if not torch.equal(got[0], want[0]):
+                raise AssertionError(f"add_ln {rows} x {bt.D} {case}: "
+                                     f"x_new differs from its plain version")
+            off = bt.y_off_bar(got[1], want[0], scale, want[1])
+            differ = float((got[1] != want[1]).float().mean())
+            log(f"add_ln {rows} x {bt.D} {case}: x_new bit-equal, y differs "
+                f"from the chain in {differ:.2e} of values, {off} past one "
+                f"ulp")
+            if off:
+                raise AssertionError(f"add_ln {rows} x {bt.D} {case}: {off} "
+                                     f"values of y past one ulp of the chain")
+            out["add_ln"].append(dict(rows=rows, case=case,
+                                      y_values_differing=differ))
+        h, b1 = draw(rows, bt.FFN, s=4.0), draw(bt.FFN)
+        h[0] = torch.linspace(-12, 12, bt.FFN, device=dev)
+        if not torch.equal(bn.bias_gelu(h, b1), bn.bias_gelu_reference(h, b1)):
+            raise AssertionError(f"bias_gelu {rows} x {bt.FFN}: differs from "
+                                 f"its plain version")
+        log(f"bias_gelu {rows} x {bt.FFN}: bit-equal")
+        out["bias_gelu"].append(dict(rows=rows, bit_equal=True))
+    return out
+
+
+def block_step_launches(dev) -> dict:
+    """``add_ln`` and ``bias_gelu`` launches of one replay of a Dec-S decode
+    step, of an EncDec-S one and of an EncDec-S refill (24 decoder and 2
+    encoder layers at the presets' widths, 64 rows, 10 documents of 64
+    tokens cut to the 512 the model holds, as ``CrossKV.from_ids`` cuts
+    them), each counted from 0 just before the replay; raises unless a
+    step launches ``add_ln`` 2L + 1 times (3L + 1 with cross-attention)
+    and ``bias_gelu`` L times, and a refill 2E + 1 and E."""
+    import torch
+    from chamjax_torch.config import MODEL_PRESETS
+    from chamjax_torch.serving import ralm
+    from chamjax_torch.utils import cuda_lib
+
+    def replay(fn):
+        fn()                                   # the capture
+        torch.cuda.synchronize(dev)
+        cuda_lib.launch_counts.clear()
+        fn()                                   # a replay
+        torch.cuda.synchronize(dev)
+        return {k: cuda_lib.launch_counts[k] for k in ("add_ln",
+                                                       "bias_gelu")}
+
+    got, want = {}, {}
+    for preset in ("Dec-S", "EncDec-S"):
+        cfg = MODEL_PRESETS[preset]
+        fam = ralm.family(cfg)
+        params = fam.init(0, cfg, device=dev)
+        L, E = cfg.layers, cfg.encoder_layers
+        cross = {}
+        if cfg.model_type == "encoder-decoder":
+            enc, dec = params
+            kv = ralm.CrossKV(enc, dec, cfg, cfg.retrieval_token_len)
+            s = min(cfg.k * cfg.retrieval_token_len, cfg.max_seq_len)
+            src = torch.ones((64, s), dtype=torch.int32, device=dev)
+            got[f"{preset} refill"] = replay(lambda: kv.from_tokens(src))
+            want[f"{preset} refill"] = dict(add_ln=2 * E + 1, bias_gelu=E)
+            cross = dict(cross_kv=kv.kv)
+        else:
+            dec = params
+        cache = fam.new_cache(cfg, 64, device=dev)
+        tokens = torch.ones((64,), dtype=torch.int32, device=dev)
+        got[f"{preset} step"] = replay(
+            lambda: fam.step(dec, tokens, cache, **cross))
+        per = 3 if cross else 2
+        want[f"{preset} step"] = dict(add_ln=per * L + 1, bias_gelu=L)
+        del params, dec, cache, cross
+    torch.cuda.empty_cache()
+    if got != want:
+        raise AssertionError(f"block junctions: {got} launches a replay, "
+                             f"not {want}")
+    return got
+
+
+def block_norm_phase(dev) -> dict:
+    """Phase 2, the junction kernels of the ``transformer`` family's block
+    (Dec-S, EncDec-S and its encoder): ``block_norm_check`` (each kernel
+    against its plain version on the same inputs), the launches of a Dec-S
+    step, an EncDec-S step and a refill replay (``block_step_launches``),
+    then the timing rows of ``benchmarks/block_norm_timing.py`` (kernel,
+    bound, plain version and, for ``add_ln``, ``x + delta`` then
+    ``F.layer_norm`` as the library's yardstick).  Returns the check, the
+    launches and the rows, or raises."""
+    from chamjax_torch.benchmarks import block_norm_timing
+    check = block_norm_check(dev)
+    launches = block_step_launches(dev)
+    log(f"block junctions: {launches} launches a replay")
+    rows = block_norm_timing.run(dev)
+    for r in rows:
+        log(f"{r['kernel']} {r['rows']} x {r['width']}: kernel "
+            f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms"
+            + (f", library {r['library_ms']:.4f} ms" if "library_ms" in r
+               else ""))
+    return dict(check=check, launches=launches, rows=rows)
 
 
 def device_events(prof, annotation: str):
@@ -5471,6 +5606,7 @@ def run_smoke(t_smoke, dev, corpus_job) -> int:
         attend = decode_attend_phase(dev)
         latent = latent_attend_phase(dev)
         kda = kda_decode_phase(dev)
+        block = block_norm_phase(dev)
         encode = encode_attend_phase(dev)
         main = main_path(dev)
         stages = stages_phase(dev, main["ctx"])
@@ -5695,6 +5831,35 @@ def run_smoke(t_smoke, dev, corpus_job) -> int:
         library_ms=refill["library_ms"], library=refill["library"],
         path="main path: the encoder-decoder RALM refill and query encoder",
         options=encode))
+    # the block's junctions: no Pallas kernel on the TPU (XLA fuses the
+    # layernorm and the GELU); the rows' times are a decode step's 64 rows,
+    # the encoder's 32,768 beside them; the launches one replay of each
+    # step and of a refill, counted from 0
+    for name, replaces, library in (
+            ("add_ln", "chamjax/models/transformer.py:157",
+             "x + delta, then torch.nn.functional.layer_norm"),
+            ("bias_gelu", "chamjax/models/transformer.py:202", None)):
+        step, enc = (next(r for r in block["rows"]
+                          if r["kernel"] == name and r["rows"] == n)
+                     for n in (64, 32768))
+        launches = {k: v[name] for k, v in block["launches"].items()}
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="chamjax_torch/csrc/block_norm.cu", replaces=replaces,
+            replaces_note="XLA's fusions of the layernorm, the residual "
+                          "adds and the GELU; no pallas_call",
+            launches=sum(launches.values()), launches_replay=launches,
+            max_abs_err=None, check=block["check"][name],
+            ms=step["ms"], plain_ms=step["plain_ms"],
+            bound_ms=step["bound_ms"], bound_by=step["bound_by"],
+            library_ms=step.get("library_ms"), library=library,
+            encoder=dict(rows=enc["rows"], ms=enc["ms"],
+                         plain_ms=enc["plain_ms"],
+                         bound_ms=enc["bound_ms"],
+                         library_ms=enc.get("library_ms")),
+            path="main path: the Dec-S / EncDec-S RALM decode step and "
+                 "refill", options=[r for r in block["rows"]
+                                    if r["kernel"] == name]))
     print(json.dumps({"kernels": kernels}), flush=True)
     # busy_share divides by the profiled window, which the profiler
     # stretches; busy_share_unprofiled divides the same kernel time a

@@ -1317,6 +1317,198 @@ def test_decode_replay_launches_the_attend_kernel_on_card(cuda_device,
         preset]
 
 
+# ---------------------------------------------------------------------------
+# the block's junctions (csrc/block_norm.cu)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["norm", "delta", "delta+bias"])
+@pytest.mark.parametrize("rows", [64, 32768])
+def test_add_ln_matches_plain_on_card(cuda_device, rows, case):
+    """At the decode step's rows (64 x 512) and the encoder's (32,768 x
+    512): ``x_new`` bit-equal to the plain chain; ``y`` within one bf16 ulp
+    of the plain chain's normalised value carried through its scale and
+    shift (the only difference is the order of the float32 sums), and
+    within one ulp of it with unit scale and no shift."""
+    from chamjax_torch.benchmarks.block_norm_timing import (
+        STATS_FLOOR, bf16_ulp, normalised, y_off_bar)
+    from chamjax_torch.ops import block_norm as bn
+    g = torch.Generator(device=cuda_device).manual_seed(rows)
+
+    def draw(*shape, s=1.0):
+        return (torch.randn(*shape, generator=g, device=cuda_device) * s
+                + 0.25).to(torch.bfloat16)
+
+    x, delta = draw(rows, 512, s=3.0), draw(rows, 512)
+    bias, scale, shift = draw(512), draw(512), draw(512)
+    d = delta if case != "norm" else None
+    b = bias if case == "delta+bias" else None
+    before = cuda_lib.launch_counts["add_ln"]
+    got = bn.add_ln(x, d, b, scale, shift)
+    unit = bn.add_ln(x, d, b, torch.ones_like(scale),
+                     torch.zeros_like(shift))[1]
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts["add_ln"] == before + 2
+    want = bn.add_ln_reference(x, d, b, scale, shift)
+    assert (got[0] is x) == (case == "norm")
+    assert torch.equal(got[0], want[0])
+    assert y_off_bar(got[1], want[0], scale, want[1]) == 0
+    n = normalised(want[0]).float()
+    y, w = got[1].float(), want[1].float()
+    u = unit.float()
+    assert ((u - n).abs() <= bf16_ulp(torch.maximum(u.abs(), n.abs()))
+            + STATS_FLOOR).all()
+    print(f"add_ln {rows} x 512 {case}: y differs from the chain in "
+          f"{float((y != w).float().mean()):.2e} of values")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [64, 32768])
+def test_bias_gelu_bit_equal_to_plain_on_card(cuda_device, rows):
+    """At the FFN's rows (64 and 32,768 x 2048) the kernel is the plain
+    ``gelu(g + b)`` bit for bit, over values from -12 to 12."""
+    from chamjax_torch.ops import block_norm as bn
+    gen = torch.Generator(device=cuda_device).manual_seed(rows)
+    g = (torch.randn(rows, 2048, generator=gen, device=cuda_device)
+         * 4).to(torch.bfloat16)
+    g[0] = torch.linspace(-12, 12, 2048, device=cuda_device)
+    b = torch.randn(2048, generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    before = cuda_lib.launch_counts["bias_gelu"]
+    got = bn.bias_gelu(g, b)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts["bias_gelu"] == before + 1
+    assert torch.equal(got, bn.bias_gelu_reference(g, b))
+
+
+@pytest.mark.gpu
+def test_block_norm_refuses_on_card(cuda_device):
+    """On the card bf16 rows at a width the kernels have launch or raise:
+    a float32 operand, a strided row, an unaligned bias and an operand of
+    another width are refused, with their message; float32 rows and a
+    width the kernels lack run the plain versions, launching nothing."""
+    from chamjax_torch.ops import block_norm as bn
+    x = torch.ones(4, 512, device=cuda_device, dtype=torch.bfloat16)
+    v = x[0]
+    with pytest.raises(ValueError, match="add_ln: scale must be bfloat16"):
+        bn.add_ln(x, None, None, v.float(), v)
+    with pytest.raises(ValueError, match="add_ln: delta must be contiguous"):
+        bn.add_ln(x, torch.ones(8, 512, device=cuda_device,
+                                dtype=torch.bfloat16)[::2], None, v, v)
+    with pytest.raises(ValueError, match="add_ln: bias must be contiguous "
+                                         "rows from a 16-byte boundary"):
+        bn.add_ln(x, x, torch.ones(513, device=cuda_device,
+                                   dtype=torch.bfloat16)[1:], v, v)
+    with pytest.raises(ValueError, match="bias_gelu: g must be contiguous"):
+        bn.bias_gelu(torch.zeros(8, 512, device=cuda_device,
+                                 dtype=torch.bfloat16)[::2], v)
+    with pytest.raises(ValueError, match=r"bias_gelu: b \(256,\)"):
+        bn.bias_gelu(x, v[:256])
+    before = collections.Counter(cuda_lib.launch_counts)
+    for rows, w in ((x.float(), 512), (x[:, :384], 384)):
+        got = bn.add_ln(rows, rows, None, v[:w], v[:w])
+        want = bn.add_ln_reference(rows, rows, None, v[:w], v[:w])
+        assert all(torch.equal(g, h) for g, h in zip(got, want))
+        assert torch.equal(bn.bias_gelu(rows, v[:w]),
+                           bn.bias_gelu_reference(rows, v[:w]))
+    torch.cuda.synchronize()
+    assert collections.Counter(cuda_lib.launch_counts) == before
+
+
+def block_preset(preset):
+    """A preset's widths (d 512, FFN 2048, 8 heads, bf16) at 3 layers."""
+    import dataclasses
+    from chamjax_torch.config import MODEL_PRESETS
+    return dataclasses.replace(MODEL_PRESETS[preset], dtype="bfloat16",
+                               layers=3, max_seq_len=64)
+
+
+def block_run(cfg, dev, toks, src):
+    """Seeded parameters, a refill over ``src`` (encoder-decoder) and the
+    decode steps of ``toks``: the outputs (cross K/V, then each step's
+    logits and hidden, then the cache), each call's ``add_ln`` and
+    ``bias_gelu`` launches, and the step graph's stage map."""
+    from chamjax_torch.benchmarks.ralm_device_bench import init_params
+    from chamjax_torch.serving import ralm
+    enc_dec = cfg.model_type == "encoder-decoder"
+    params = init_params(cfg, 0, dev)
+    *enc, dec = params if enc_dec else (params,)
+    fam = ralm.family(cfg)
+    outs, launches = [], []
+
+    def counted(fn):
+        before = collections.Counter(cuda_lib.launch_counts)
+        out = fn()
+        launches.append(tuple(cuda_lib.launch_counts[k] - before[k]
+                              for k in ("add_ln", "bias_gelu")))
+        return out
+
+    cross = {}
+    if enc_dec:
+        kv = ralm.CrossKV(enc[0], dec, cfg, cfg.retrieval_token_len)
+        for _ in range(2):
+            counted(lambda: kv.from_tokens(src))
+        outs += [t.clone() for t in kv.kv]
+        cross = dict(cross_kv=kv.kv)
+    cache = fam.new_cache(cfg, toks.shape[1], device=dev)
+    for t in toks:
+        lg, hid, cache = counted(lambda: fam.step(dec, t, cache, **cross))
+        outs += [lg, hid]
+    outs += [cache.k, cache.v]
+    stages = [st for g in cache.graphs._graphs.values() for st in g.stages]
+    return outs, launches, stages
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("preset", ["Dec-S", "EncDec-S"])
+def test_block_kernels_in_a_step_match_plain_on_card(cuda_device, preset,
+                                                     monkeypatch):
+    """A seeded 3-layer step at the preset's widths, captured, against the
+    same steps on the plain chain (``block_norm.add_ln`` and ``bias_gelu``
+    replaced by their plain versions: the path before the kernels),
+    eagerly: the cross K/V of a refill, every
+    step's logits and hidden and the cache within 2^-6 of their largest
+    value (the y of a junction may differ by one ulp from the chain, and
+    the difference travels).  Each step's replay launches ``add_ln`` 2L + 1
+    times (3L + 1 with cross-attention) and ``bias_gelu`` L times, a
+    refill 2E + 1 and E; the plain run launches neither; the step's stage
+    map holds each launch as a one-node ``block.norm`` or ``block.act``
+    run."""
+    from chamjax_torch.ops import block_norm as bn
+    from chamjax_torch.utils import graphs
+    cfg = block_preset(preset)
+    L, E = cfg.layers, cfg.encoder_layers
+    enc_dec = cfg.model_type == "encoder-decoder"
+    gen = torch.Generator().manual_seed(11)
+    toks = torch.randint(1, cfg.vocab_size, (4, 16), generator=gen,
+                         dtype=torch.int32).to(cuda_device)
+    src = torch.randint(1, cfg.vocab_size, (16, 64), generator=gen,
+                        dtype=torch.int32).to(cuda_device)
+    with monkeypatch.context() as m:
+        m.setattr(bn, "add_ln", bn.add_ln_reference)
+        m.setattr(bn, "bias_gelu", bn.bias_gelu_reference)
+        with graphs.disable_capture():
+            plain, plain_launches, _ = block_run(cfg, cuda_device, toks, src)
+    fused, launches, stages = block_run(cfg, cuda_device, toks, src)
+    torch.cuda.synchronize()
+    assert set(plain_launches) == {(0, 0)}
+    per = 3 if enc_dec else 2
+    want = ([(2 * E + 1, E)] * 2 if enc_dec else []) + [(per * L + 1, L)] * 4
+    assert launches == want
+    assert [n for s, n in stages if s == "block.norm"] == [1] * (per * L + 1)
+    assert [n for s, n in stages if s == "block.act"] == [1] * L
+    worst = 0.0
+    for g, w in zip(fused, plain):
+        g, w = g.float(), w.float()
+        top = float(w.abs().max())
+        gap = float((g - w).abs().max())
+        worst = max(worst, gap / top)
+        assert gap <= 2.0 ** -6 * top
+    print(f"{preset} 3 layers against the plain chain: {worst:.2e} of the "
+          f"largest value")
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("family", ["decoder", "encoder-decoder"])
 def test_tiktok_states_do_not_alias_on_card(ralm_retriever, family):
